@@ -1,0 +1,37 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+Only ``granite-8b`` (dense) is ported; the reference's other architectures
+need the MoE, SSM and encoder-decoder model families (ROADMAP.md Queue 1
+item 13).
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "granite-8b": ("granite_8b", "transformer"),
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+@dataclass(frozen=True)
+class Arch:
+    name: str
+    config: ModelConfig
+    smoke: ModelConfig
+    module: str  # "transformer"
+
+
+def get_arch(name: str) -> Arch:
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ported: {sorted(_MODULES)}); "
+            f"see ROADMAP.md Queue 1 item 13")
+    modname, kind = _MODULES[name]
+    mod = importlib.import_module(f"repro_torch.configs.{modname}")
+    return Arch(name=name, config=mod.CONFIG, smoke=mod.smoke_config(),
+                module=kind)

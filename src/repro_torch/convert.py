@@ -1,0 +1,47 @@
+"""Carry the reference's numbers into the port.
+
+torch's generators cannot reproduce JAX's, so where the two packages must
+compute from the same numbers (the parity tests), the JAX side's arrays are
+handed over as numpy and turned into the port's tensors here.  The trees
+have the same structure on both sides (the scanned ``blocks`` keep their
+leading group axis), so conversion is leaf for leaf.  bfloat16 arrays
+(numpy dtype ``bfloat16`` from ``ml_dtypes``) are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+from repro_torch.core.sync import SyncState
+from repro_torch.models.config import ModelConfig
+
+
+def to_tensor(a: Any, device="cuda") -> torch.Tensor:
+    """One numpy array (or array-like) -> tensor, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                             .astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def params_from_jax(np_tree: Any, cfg: ModelConfig, device="cuda") -> Any:
+    """The JAX parameter tree (leaves as numpy) -> the port's parameters,
+    checked against ``cfg``'s parameter count."""
+    out = T.tree_map(lambda a: to_tensor(a, device), np_tree)
+    n = sum(x.numel() for x in T.leaves(out))
+    if n != cfg.param_count():
+        raise ValueError(f"tree holds {n} parameters, {cfg.name} has "
+                         f"{cfg.param_count()}")
+    return out
+
+
+def sync_state_from_jax(np_state: Any, device="cuda") -> SyncState:
+    """A reference ``SyncState`` (leaves as numpy) -> the port's."""
+    return SyncState(*(T.tree_map(lambda a: to_tensor(a, device), getattr(
+        np_state, f)) for f in SyncState._fields))

@@ -1,0 +1,181 @@
+"""Public codec wrappers: the hand-written CUDA kernel on the card, the
+plain version on the CPU.
+
+Counterpart of ``repro/kernels/ops.py`` (``wan_encode``, ``wan_decode`` and
+``wan_codec_fns``, its lines 59-113), with the same signatures.  Dispatch is
+by the tensor's device:
+
+- a CUDA tensor with ``use_kernel=True`` (the default) launches the kernel
+  of ``csrc/wan_codec.cu``; a failed build or launch raises;
+- a CUDA tensor with ``use_kernel=False`` runs the plain version (only the
+  parity checks ask for that);
+- a CPU tensor runs the plain version.
+
+The inputs may be one flat vector ``(n,)`` or a batch ``(rows, n)``: the
+sync layer passes the whole pod dimension, and one launch covers it.
+``LAUNCHES`` counts kernel launches per wrapper, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.wan_codec import (TIER_INV, TIER_QMAX, VALUE_DTYPES,
+                                           check_value_dtype, pack_nibbles,
+                                           unpack_nibbles)
+
+LAUNCHES: Dict[str, int] = {"wan_encode": 0, "wan_decode": 0}
+_MAX_ROWS = 65535                  # gridDim.y
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_kernel(t: torch.Tensor, use_kernel: bool) -> bool:
+    if t.device.type == "cuda":
+        return use_kernel
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"the WAN codec has no path for device {t.device}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("wan_codec")
+    if not getattr(lib, "typed", False):
+        P, LL, I, F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float)
+        lib.wan_encode_launch.argtypes = [P, LL, LL, I, I, I, I, F, F,
+                                          P, P, P, P]
+        lib.wan_encode_launch.restype = I
+        lib.wan_decode_launch.argtypes = [P, P, P, LL, I, I, I, I, P, P]
+        lib.wan_decode_launch.restype = I
+        lib.wan_codec_error_string.argtypes = [I]
+        lib.wan_codec_error_string.restype = ctypes.c_char_p
+        lib.typed = True
+    return lib
+
+
+def _check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.wan_codec_error_string(err).decode()}")
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() not in (1, 2):
+        raise ValueError(f"codec input must be (n,) or (rows, n), got "
+                         f"{tuple(x.shape)}")
+    xr = x if x.dim() == 2 else x[None]
+    if xr.shape[0] > _MAX_ROWS:
+        raise ValueError(f"at most {_MAX_ROWS} rows per launch")
+    return xr
+
+
+def _encode_cuda(x: torch.Tensor, k_block: int, block: int,
+                 value_dtype: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    xr = _rows(x).float()
+    if xr.stride(1) != 1:
+        xr = xr.contiguous()
+    rows, n = xr.shape
+    block = min(block, n)
+    k_block = min(k_block, block)
+    if not 1 <= k_block <= block <= (1 << 16):
+        raise ValueError(f"need 1 <= k_block <= block <= 65536, got "
+                         f"k_block={k_block}, block={block}")
+    nb = -(-n // block)
+    q = torch.empty(rows, nb, k_block, dtype=torch.int8, device=x.device)
+    idx = torch.empty(rows, nb * k_block, dtype=torch.int32, device=x.device)
+    scales = torch.empty(rows, nb, dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.wan_encode_launch(
+        xr.data_ptr(), xr.stride(0), n, rows, block, k_block,
+        int(value_dtype == "fp8"), float(TIER_INV[value_dtype]),
+        TIER_QMAX[value_dtype], q.data_ptr(), idx.data_ptr(),
+        scales.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(lib, err, "wan_encode")
+    LAUNCHES["wan_encode"] += 1
+    if value_dtype == "int4":
+        q = pack_nibbles(q)
+    q = q.reshape(rows, -1)
+    if x.dim() == 1:
+        return q[0], idx[0], scales[0]
+    return q, idx, scales
+
+
+def _decode_cuda(q: torch.Tensor, idx: torch.Tensor, scales: torch.Tensor,
+                 n: int, block: int, value_dtype: str) -> torch.Tensor:
+    batched = scales.dim() == 2
+    sr = _rows(scales).float().contiguous()
+    rows, nb = sr.shape
+    block = min(block, n)
+    if nb != -(-n // block):
+        raise ValueError(f"{nb} scales per row do not cover n={n} in "
+                         f"blocks of {block}")
+    k_block = idx.shape[-1] // nb
+    il = idx.reshape(rows, nb * k_block).to(torch.int32).contiguous()
+    qr = q.reshape(rows, nb, -1)
+    if value_dtype == "int4":
+        qr = unpack_nibbles(qr, k_block)
+    qr = qr.contiguous()
+    if qr.dtype != torch.int8 or qr.shape[-1] != k_block:
+        raise ValueError(f"payload {tuple(q.shape)} {q.dtype} does not hold "
+                         f"{k_block} {value_dtype} codes per block")
+    out = torch.empty(rows, n, dtype=torch.float32, device=scales.device)
+    lib = _lib()
+    err = lib.wan_decode_launch(
+        qr.data_ptr(), il.data_ptr(), sr.data_ptr(), n, rows, block,
+        k_block, int(value_dtype == "fp8"), out.data_ptr(),
+        torch.cuda.current_stream(scales.device).cuda_stream)
+    _check_launch(lib, err, "wan_decode")
+    LAUNCHES["wan_decode"] += 1
+    return out if batched else out[0]
+
+
+def wan_encode(x: torch.Tensor, k_block: int, *, block: int = 4096,
+               value_dtype: str = "int8", use_kernel: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused WAN codec encode: block-local top-k + value quantization on the
+    int8/fp8/int4 tier ladder.  Kernel and plain version are bit-identical."""
+    check_value_dtype(value_dtype)
+    if _on_kernel(x, use_kernel):
+        return _encode_cuda(x, k_block, block, value_dtype)
+    return _ref.wan_encode(x, k_block, block=block, value_dtype=value_dtype)
+
+
+def wan_decode(q: torch.Tensor, idx: torch.Tensor, scales: torch.Tensor,
+               n: int, *, block: int = 4096, value_dtype: str = "int8",
+               use_kernel: bool = True) -> torch.Tensor:
+    check_value_dtype(value_dtype)
+    if _on_kernel(scales, use_kernel):
+        return _decode_cuda(q, idx, scales, n, block, value_dtype)
+    return _ref.wan_decode(q, idx, scales, n, block=block,
+                           value_dtype=value_dtype)
+
+
+def wan_codec_fns(*, block: int = 4096, value_dtype: str = "int8",
+                  use_kernel: bool = True):
+    """Bind one bucket group's codec knobs; returns ``(encode, decode)``.
+
+    ``encode(x, k_block) -> (q, idx, scales)``;
+    ``decode(q, idx, scales, n) -> dense``."""
+    if value_dtype not in VALUE_DTYPES:
+        raise ValueError(f"unknown codec value_dtype {value_dtype!r}")
+
+    def encode(x: torch.Tensor, k_block: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return wan_encode(x, k_block, block=block, value_dtype=value_dtype,
+                          use_kernel=use_kernel)
+
+    def decode(q: torch.Tensor, idx: torch.Tensor, scales: torch.Tensor,
+               n: int) -> torch.Tensor:
+        return wan_decode(q, idx, scales, n, block=block,
+                          value_dtype=value_dtype, use_kernel=use_kernel)
+
+    return encode, decode

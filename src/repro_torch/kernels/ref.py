@@ -1,0 +1,118 @@
+"""Plain PyTorch versions of the port's kernels (codec half of
+``repro/kernels/ref.py``, its lines 91-161).
+
+These are the bit-level spec of the fused WAN codec.  The CPU path runs
+them, and on the card they are what the CUDA kernels are held against, bit
+for bit.  Selection is a *stable* descending sort on the truncated key, so
+ties go to the lowest index on every device (``torch.topk`` has no tie
+order on CUDA and is not used).
+
+Both functions take one flat vector ``(n,)`` or a batch of them
+``(rows, n)`` (the pod dimension), and work through the blocks in slices of
+``_SLICE_BLOCKS`` so that the sort's scratch stays bounded at any size.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.wan_codec import (KEY_MASK, TIER_INV, TIER_QMAX,
+                                           check_value_dtype, pack_nibbles,
+                                           unpack_nibbles)
+
+_SLICE_BLOCKS = 1 << 14        # 64M fp32 values per slice at block 4096
+
+
+def _as_rows(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() not in (1, 2):
+        raise ValueError(f"codec input must be (n,) or (rows, n), got "
+                         f"{tuple(x.shape)}")
+    return x if x.dim() == 2 else x[None]
+
+
+def wan_encode(x: torch.Tensor, k_block: int, block: int = 4096,
+               value_dtype: str = "int8"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block-local top-k on the 16-bit truncated ``|x|`` key, winners in
+    index order, quantized per block on the requested tier.
+
+    Returns ``(payload, idx int32, scales f32)``: payload int8
+    ``(.., nb*k_block)`` for int8/fp8 (fp8 ships its bit pattern) or uint8
+    ``(.., nb*ceil(k_block/2))`` nibble-packed for int4; ``idx`` block-local;
+    one scale per block."""
+    check_value_dtype(value_dtype)
+    xr = _as_rows(x)
+    rows, n = xr.shape
+    block = min(block, n)
+    k_block = min(k_block, block)
+    nb = -(-n // block)
+    xb = xr.float()
+    if nb * block != n:
+        xb = F.pad(xb, (0, nb * block - n))
+    xb = xb.reshape(rows * nb, block)
+    inv = torch.tensor(TIER_INV[value_dtype], dtype=torch.float32,
+                       device=x.device)
+    qmax = TIER_QMAX[value_dtype]
+    q_parts, idx_parts, s_parts = [], [], []
+    for lo in range(0, rows * nb, _SLICE_BLOCKS):
+        xc = xb[lo:lo + _SLICE_BLOCKS]
+        mag = xc.abs()
+        keys = mag.view(torch.int32) & KEY_MASK
+        order = torch.sort(keys, dim=1, descending=True,
+                           stable=True).indices[:, :k_block]
+        loc = torch.sort(order, dim=1).values
+        vals = torch.gather(xc, 1, loc)
+        maxabs = mag.amax(dim=1)
+        scales = torch.where(maxabs > 0, maxabs * inv,
+                             torch.ones_like(maxabs))
+        v = vals / scales[:, None]
+        if value_dtype == "fp8":
+            q = torch.clamp(v, -qmax, qmax).to(torch.float8_e4m3fn
+                                               ).view(torch.int8)
+        else:
+            q = torch.clamp(torch.round(v), -qmax, qmax).to(torch.int8)
+        q_parts.append(q)
+        idx_parts.append(loc.to(torch.int32))
+        s_parts.append(scales)
+    q = torch.cat(q_parts).reshape(rows, nb, k_block)
+    if value_dtype == "int4":
+        q = pack_nibbles(q)
+    idx = torch.cat(idx_parts).reshape(rows, nb * k_block)
+    scales = torch.cat(s_parts).reshape(rows, nb)
+    q = q.reshape(rows, -1)
+    if x.dim() == 1:
+        return q[0], idx[0], scales[0]
+    return q, idx, scales
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, k_block: int,
+               value_dtype: str) -> torch.Tensor:
+    """Wire payload ``(rows, nb, bytes)`` -> values ``(rows, nb, k_block)``
+    f32 (codes times the block's scale)."""
+    if value_dtype == "int4":
+        codes = unpack_nibbles(q, k_block).float()
+    elif value_dtype == "fp8":
+        codes = q.view(torch.float8_e4m3fn).float()
+    else:
+        codes = q.float()
+    return codes * scales[..., None]
+
+
+def wan_decode(q: torch.Tensor, idx: torch.Tensor, scales: torch.Tensor,
+               n: int, block: int = 4096,
+               value_dtype: str = "int8") -> torch.Tensor:
+    """Inverse of :func:`wan_encode` -> dense f32 ``(n,)`` or ``(rows, n)``."""
+    check_value_dtype(value_dtype)
+    batched = scales.dim() == 2
+    sr = scales if batched else scales[None]
+    rows, nb = sr.shape
+    block = min(block, n)
+    k_block = idx.shape[-1] // nb
+    v = dequantize(q.reshape(rows, nb, -1), sr, k_block, value_dtype)
+    il = idx.reshape(rows, nb, k_block).long()
+    dense = torch.zeros(rows, nb, block, dtype=torch.float32,
+                        device=scales.device).scatter_(2, il, v)
+    dense = dense.reshape(rows, nb * block)[:, :n]
+    return dense if batched else dense[0]

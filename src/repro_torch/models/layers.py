@@ -1,0 +1,197 @@
+"""Dense decoder layers as plain functions over nested dicts of tensors.
+
+Counterpart of the dense subset of ``repro/models/layers.py``: activations
+are ``(B, S, D)``, attention ``(B, S, H, Dh)``; parameters are created in
+``cfg.param_dtype`` and compute runs in ``cfg.compute_dtype`` with f32
+softmax and normalization.  The projections, the MLP and the unembed stay
+``torch.matmul`` (the reference leaves them to XLA), and attention is the
+plain ``sdpa_reference`` (the ``"xla"`` path, the reference's default).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import LayerSpec, ModelConfig
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device, scale: Optional[float] = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn(d_in, d_out, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def rmsnorm_init(dim: int, dtype, device) -> dict:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm scaled by ``(1 + scale)``, in f32."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + params["scale"].float())).to(dtype)
+
+
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs          # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def position_embed(cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    if cfg.pos_embed == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.pos_embed == "none":
+        return x
+    raise NotImplementedError(
+        f"pos_embed {cfg.pos_embed!r} is not ported yet: see ROADMAP.md "
+        f"Queue 1 item 9 (the dense LM stack)")
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    D, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    pdt = cfg.dtype("param")
+    return {
+        "wq": dense_init(gen, D, H * Dh, pdt, device),
+        "wk": dense_init(gen, D, K * Dh, pdt, device),
+        "wv": dense_init(gen, D, K * Dh, pdt, device),
+        "wo": dense_init(gen, H * Dh, D, pdt, device,
+                         scale=1.0 / math.sqrt(H * Dh)),
+    }
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0.0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def attn_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
+              k_valid: Optional[torch.Tensor], causal: bool,
+              window: Optional[int]) -> torch.Tensor:
+    """Additive f32 bias of shape (B, 1, Sq, Sk)."""
+    ok = torch.ones(q_pos.shape[0], q_pos.shape[1], k_pos.shape[1],
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        ok &= k_pos[:, None, :] > (q_pos[:, :, None] - window)
+    if k_valid is not None:
+        ok &= k_valid[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, neg)[:, None, :, :]
+
+
+def sdpa_reference(q, k, v, bias, softcap: float = 0.0) -> torch.Tensor:
+    """Plain scaled-dot-product attention in f32 with GQA.
+
+    q: (B, Sq, H, Dh); k, v: (B, Sk, K, Dh); bias: (B, 1, Sq, Sk)."""
+    B, Sq, H, Dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    qh = q.reshape(B, Sq, K, G, Dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qh.float(),
+                          k.float()) / math.sqrt(Dh)
+    logits = _softcap(logits, softcap)
+    logits = logits + bias[:, :, None, :, :]
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
+                    x: torch.Tensor, positions: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention (train/prefill mode)."""
+    if cfg.attention_impl != "xla":
+        raise NotImplementedError(
+            f"attention_impl {cfg.attention_impl!r} is not ported yet: the "
+            f"flash-attention kernel comes with serving (ROADMAP.md "
+            f"Queue 2 item 3)")
+    B, S, D = x.shape
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cdt = cfg.dtype("compute")
+    x = x.to(cdt)
+    q = (x @ params["wq"].to(cdt)).reshape(B, S, H, Dh)
+    k = (x @ params["wk"].to(cdt)).reshape(B, S, K, Dh)
+    v = (x @ params["wv"].to(cdt)).reshape(B, S, K, Dh)
+    q = position_embed(cfg, q, positions)
+    k = position_embed(cfg, k, positions)
+    bias = attn_bias(positions, positions, None, causal=causal,
+                     window=spec.window)
+    out = sdpa_reference(q, k, v, bias, softcap=cfg.attn_softcap)
+    return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt)
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    pdt = cfg.dtype("param")
+    return {
+        "wg": dense_init(gen, D, Fd, pdt, device),
+        "wu": dense_init(gen, D, Fd, pdt, device),
+        "wd": dense_init(gen, Fd, D, pdt, device, scale=1.0 / math.sqrt(Fd)),
+    }
+
+
+def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP; the gate's SiLU runs in f32."""
+    cdt = x.dtype
+    g = F.silu((x @ params["wg"].to(cdt)).float()).to(cdt)
+    u = x @ params["wu"].to(cdt)
+    return (g * u) @ params["wd"].to(cdt)
+
+
+def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    V, D = cfg.padded_vocab, cfg.d_model
+    pdt = cfg.dtype("param")
+    p = {"tokens": dense_init(gen, V, D, pdt, device, scale=1.0)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, D, V, pdt, device)
+    return p
+
+
+def embed_apply(params: dict, cfg: ModelConfig,
+                tokens: torch.Tensor) -> torch.Tensor:
+    if cfg.embed_impl != "gather":
+        raise NotImplementedError(
+            f"embed_impl {cfg.embed_impl!r} is not ported yet: see "
+            f"ROADMAP.md Queue 1 item 15 (sharding)")
+    cdt = cfg.dtype("compute")
+    emb = params["tokens"].to(cdt)[tokens]
+    if cfg.tie_embeddings:
+        emb = emb * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt,
+                                 device=emb.device)
+    return emb
+
+
+def unembed_apply(params: dict, cfg: ModelConfig,
+                  h: torch.Tensor) -> torch.Tensor:
+    cdt = cfg.dtype("compute")
+    if cfg.tie_embeddings:
+        logits = h @ params["tokens"].to(cdt).T
+    else:
+        logits = h @ params["lm_head"].to(cdt)
+    return _softcap(logits.float(), cfg.final_softcap)

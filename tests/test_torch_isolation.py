@@ -1,0 +1,37 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither JAX nor anything of the JAX package ``repro``.  Checked in a fresh
+interpreter, since this test process has both loaded already."""
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
+             or m == "repro")
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    n_modules, bad = int(lines[0]), (lines[1] if len(lines) > 1 else "")
+    assert n_modules >= 20
+    assert bad == "", f"repro_torch pulled in: {bad}"
