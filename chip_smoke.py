@@ -9,14 +9,22 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: the card's name and power limit, torch and CUDA versions.
-2. Kernels: build ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a; hold
+2. Codec kernels: build ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a
+   (one ``nvcc`` per source, all started together); hold
    ``wan_encode`` and ``wan_decode`` bit-equal to their plain versions on
    every tier (int8, fp8, int4) at 64M values per pod x 2 pods and on edge
    cases; then time both at the main path's size (the whole granite-8b
    2-layer gradient, 838,881,280 values per pod x 2 pods) beside their
    bound, their plain version and the one PyTorch call that computes the
    same function, where there is one.
-3. Main path: granite-8b at full width (depth cut to 2 layers, bf16,
+2b. Flash attention: hold the kernel to its plain version
+   (``ref.sdpa``) within 2e-2 (bf16) or 2e-5 (f32) at the serving path's
+   shape (B 1, S 2048, H 32, K 8, Dh 128, bf16, causal), a ragged S 1000,
+   MQA, f32 inputs, non-causal, window 256 with softcap 50, Dh 256 and the
+   reference's kernel-test cases; then time it at the main path's shape
+   beside its bound, its plain version and
+   ``F.scaled_dot_product_attention`` (timed only, never used by the port).
+3. Training path: granite-8b at full width (depth cut to 2 layers, bf16,
    random weights from a seed), 2 pods, global batch 8, seq 512, sgd, an
    ASGD-GA sync every 2 steps through the int8 codec with error feedback,
    4 steps through ``Trainer.fit``.  Each round's EF residual must equal
@@ -24,12 +32,25 @@ Phases (any failure raises and the script exits non-zero):
    equal the plain decode, bit for bit.  The launch counts of this run
    show that the rounds went through the kernels.
 4. Entry point: ``repro_torch.launch.train.main`` on the tiny preset.
+5. Serving path: granite-8b at its published size (36 layers, bf16,
+   random weights from a seed, ``attention_impl="pallas"``), two replicas
+   (us-east, eu-west) sharing the parameters behind a balanced
+   ``GeoRouter``, each a ``ContinuousScheduler`` over a
+   ``ContinuousEngine(n_slots=4, cache_len=2080)``; 8 requests drawn as the
+   serving launcher draws them with ``--prompt-len 2048``, 32 new tokens
+   each.  Every request must finish with 32 tokens, the flash kernel must
+   launch 36 times per prefill, every attention layer of the first prefill
+   is held to ``ref.sdpa`` on the same q, k, v, and request 0 decoded alone
+   in a fresh pool must give the tokens it got beside its neighbours.
+6. Entry point: ``repro_torch.launch.serve.main`` on the smoke config.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -41,15 +62,24 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth and non-tensor-core f32 rate
+# H100 SXM (NVIDIA data sheet): HBM3 bandwidth, non-tensor-core f32 rate
+# and dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 SEED = 0
 N_MAIN = 838_881_280           # granite-8b, 2 layers: values per pod
 PODS = 2
 BLOCK = 4096
 TOPK = 0.01
+# the serving path: granite-8b at 36 layers, 2 replicas of 4 slots
+SERVE_REGIONS = ("us-east", "eu-west")
+SERVE_SLOTS = 4
+SERVE_REQUESTS = 8
+SERVE_PROMPT_LEN = 2048
+SERVE_NEW_TOKENS = 32
+FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 
 
 def require(cond: bool, what: str) -> None:
@@ -198,6 +228,90 @@ def phase_kernels(torch) -> dict:
     }
 
 
+def flash_close(torch, out, expect, what: str) -> float:
+    """Hold a flash output to its plain version at the dtype's tolerance;
+    returns the largest absolute difference."""
+    tol = FLASH_TOL[str(out.dtype)]
+    diff = (out.float() - expect.float()).abs()
+    bad = diff > tol + tol * expect.float().abs()
+    require(not bool(bad.any()) and bool(torch.isfinite(out).all()),
+            f"flash {what} within {tol} of ref.sdpa "
+            f"(max |diff| {float(diff.max()):.3g})")
+    return float(diff.max())
+
+
+def phase_flash(torch) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def inputs(B, S, H, K, Dh, dtype):
+        return [torch.randn(B, S, n, Dh, generator=gen, device="cuda"
+                            ).to(dtype) for n in (H, K, K)]
+
+    def check(B, S, H, K, Dh, dtype, causal=True, window=None,
+              softcap=0.0):
+        q, k, v = inputs(B, S, H, K, Dh, dtype)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap)
+        expect = ref.sdpa(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+        torch.cuda.synchronize()
+        return flash_close(torch, out, expect, f"{(B, S, H, K, Dh)} {dtype} "
+                           f"causal={causal} window={window} "
+                           f"softcap={softcap}")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ((1, 2048, 32, 8, 128, bf16), {}),            # the serving prefill
+        ((1, 1000, 32, 8, 128, bf16), {}),            # ragged S
+        ((1, 2048, 32, 1, 128, bf16), {}),            # MQA
+        ((1, 1024, 32, 8, 128, f32), {}),             # f32 inputs
+        ((1, 1024, 32, 8, 128, bf16), {"causal": False}),
+        ((1, 1024, 32, 16, 128, bf16), {"window": 256, "softcap": 50.0}),
+        ((1, 1024, 16, 8, 256, bf16), {}),            # Dh 256
+    ]
+    # the reference's kernel tests (tests/test_kernels.py)
+    for shape in ((2, 128, 4, 2, 64), (1, 256, 4, 4, 64), (2, 96, 6, 2, 32),
+                  (1, 64, 8, 1, 128)):
+        cases += [(shape + (f32,), {}), (shape + (bf16,), {})]
+    cases += [((1, 128, 4, 2, 64, f32), {"window": w, "softcap": c})
+              for w in (16, 64) for c in (0.0, 30.0)]
+    cases.append(((2, 64, 2, 2, 32, f32), {"causal": False}))
+    for shape, kw in cases:
+        check(*shape, **kw)
+    print(f"[flash] kernel within tolerance of ref.sdpa on {len(cases)} "
+          f"cases (the serving shape, ragged S, MQA, f32, non-causal, "
+          f"window+softcap, Dh 256, the reference's kernel tests)")
+
+    B, S, H, K, Dh = 1, SERVE_PROMPT_LEN, 32, 8, 128
+    q, k, v = inputs(B, S, H, K, Dh, bf16)
+    out = ops.flash_attention(q, k, v)
+    err = flash_close(torch, out, ref.sdpa(q, k, v), "main-path shape")
+    ms = time_ms(torch, lambda: ops.flash_attention(q, k, v), reps=50)
+    plain_ms = time_ms(torch, lambda: ref.sdpa(q, k, v), reps=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=50)
+    flops = 2 * S * S * H * Dh                  # causal QK^T and PV
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+    f_ms = flops / BF16_FLOP_PER_S * 1e3
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+    print(f"[flash] {(B, S, H, K, Dh)} bf16 causal: {ms:.4f} ms (bound "
+          f"{bound:.4f} ms by {by}, plain {plain_ms:.3f} ms, "
+          f"F.scaled_dot_product_attention {lib_ms:.4f} ms), max |err| "
+          f"{err:.3g}")
+    return {"flash_attention": {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}}
+
+
 def phase_main_path(torch) -> dict:
     from repro_torch import tree as T
     from repro_torch.configs import granite_8b
@@ -260,7 +374,8 @@ def phase_main_path(torch) -> dict:
     require(all(math.isfinite(v) for row in losses for v in row),
             f"finite losses {losses}")
     require(len(rounds) == 2, f"2 sync rounds checked, got {len(rounds)}")
-    require(launches == {"wan_encode": 2, "wan_decode": 4},
+    require(launches == {"wan_encode": 2, "wan_decode": 4,
+                         "flash_attention": 0},
             f"main path launches {launches}")
     for leaf in T.leaves(state.params):
         require(bool(torch.isfinite(leaf).all()), "finite params")
@@ -283,6 +398,143 @@ def phase_entry_point(torch) -> None:
     require(math.isfinite(summary["loss_last"]), "finite loss")
 
 
+def phase_serving(torch) -> dict:
+    from repro_torch import tree as T
+    from repro_torch.configs import granite_8b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import route_and_submit
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import (ContinuousEngine,
+                                            ContinuousScheduler)
+    from repro_torch.serving.router import GeoRouter, ReplicaSpec
+
+    cfg = granite_8b.CONFIG.replace(attention_impl="pallas")
+    cache_len = SERVE_PROMPT_LEN + SERVE_NEW_TOKENS
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count(), f"{n_params} params")
+
+    def engine():
+        return ContinuousEngine(None, params, n_slots=SERVE_SLOTS,
+                                cache_len=cache_len, cfg=cfg,
+                                module="transformer")
+
+    # warm cuBLAS and the kernel's shared-memory attribute off the record
+    with torch.no_grad():
+        transformer.prefill(params, cfg, torch.zeros(
+            1, 64, dtype=torch.int32, device="cuda"), 96)
+    torch.cuda.synchronize()
+
+    checked = []
+
+    def check_hook(q, k, v, out, *, causal, window, softcap):
+        """Hold each attention layer of the first prefill to ref.sdpa on the
+        same q, k, v; the plain version launches no kernel of the port, and
+        the counts are put back as they were all the same."""
+        if len(checked) >= cfg.n_layers:
+            return
+        counts = dict(ops.LAUNCHES)
+        expect = ref.sdpa(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+        checked.append(flash_close(torch, out, expect,
+                                   f"prefill layer {len(checked)}"))
+        ops.LAUNCHES.update(counts)
+
+    router = GeoRouter([ReplicaSpec(region=r, n_slots=SERVE_SLOTS)
+                        for r in SERVE_REGIONS], mode="balanced")
+    scheds = {r: ContinuousScheduler(engine()) for r in SERVE_REGIONS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.FLASH_CHECK_HOOK = check_hook
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    placed = route_and_submit(router, scheds, SERVE_REGIONS, SERVE_REQUESTS,
+                              SERVE_PROMPT_LEN, SERVE_NEW_TOKENS,
+                              cfg.vocab_size, seed=0)
+    by_region = {r: s.run() for r, s in scheds.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    ops.FLASH_CHECK_HOOK = None
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    results = {}
+    for rid, (region, local, _) in placed.items():
+        results[rid] = by_region[region][local]
+        router.complete(rid)
+
+    engines = [s.engine for s in scheds.values()]
+    prefill_s = [t for e in engines for t in e.prefill_seconds]
+    step_s = [t for e in engines for t in e.step_seconds]
+    n_prefills = len(prefill_s)
+    require(n_prefills == SERVE_REQUESTS, f"{n_prefills} prefills")
+    require(all(len(t) == SERVE_NEW_TOKENS for t in results.values())
+            and len(results) == SERVE_REQUESTS,
+            f"every request finished with {SERVE_NEW_TOKENS} tokens")
+    require(all(0 <= int(x) < cfg.vocab_size for t in results.values()
+                for x in t), "tokens within the vocabulary")
+    require(launches == {"wan_encode": 0, "wan_decode": 0,
+                         "flash_attention": cfg.n_layers * n_prefills},
+            f"serving launches {launches}: {cfg.n_layers} flash launches "
+            f"per prefill")
+    require(len(checked) == cfg.n_layers,
+            f"{len(checked)} prefill layers held to ref.sdpa")
+    routes = {r: sum(1 for p in placed.values() if p[0] == r)
+              for r in SERVE_REGIONS}
+
+    # slot independence: request 0 went first into slot 0 of its replica
+    # and its neighbours were inserted while it decoded; alone in a fresh
+    # pool it must give the same tokens
+    region0, local0, prompt0 = placed[0]
+    hist = scheds[region0].history
+    require(hist[0] == ("prefill", local0, 0), f"request 0 in slot 0: "
+            f"{hist[0]}")
+    done0 = hist.index(("finish", local0, "max_new"))
+    require(any(h[0] == "prefill" for h in hist[1:done0]),
+            "a neighbour was inserted while request 0 decoded")
+    solo = engine()
+    solo.insert(prompt0, SERVE_NEW_TOKENS, rid=0)
+    alone = None
+    while alone is None:
+        for f in solo.step():
+            alone = f.tokens
+    require(solo.slots == [None] * SERVE_SLOTS, "solo pool drained")
+    require(list(alone) == list(results[0]),
+            "request 0 alone == request 0 beside inserted neighbours")
+
+    total_new = sum(len(t) for t in results.values())
+    print(f"[serve] {cfg.name} x{cfg.n_layers} layers, {n_params:,} params, "
+          f"{cfg.compute_dtype}, attention_impl=pallas; "
+          f"{len(SERVE_REGIONS)} replicas x {SERVE_SLOTS} slots, cache_len "
+          f"{cache_len}; routes {routes}")
+    print(f"[serve] prompt lengths "
+          f"{[len(p[2]) for _, p in sorted(placed.items())]}; every "
+          f"request finished with {SERVE_NEW_TOKENS} tokens; launches "
+          f"{launches}; first prefill's {len(checked)} layers within "
+          f"{FLASH_TOL['torch.bfloat16']} of ref.sdpa (max |err| "
+          f"{max(checked):.3g}); request 0 alone == beside neighbours")
+    print(f"[serve] prefill s per request {[round(t, 4) for t in prefill_s]}"
+          f", median decode step {statistics.median(step_s):.4f} s over "
+          f"{len(step_s)} pool steps, {total_new} tokens in {wall:.2f} s = "
+          f"{total_new / wall:.1f} generated tok/s, peak memory "
+          f"{peak_gb:.2f} GB")
+    return launches
+
+
+def phase_serve_entry_point(torch) -> None:
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        results = serve.main(["--replicas", "2", "--requests", "6"])
+    text = buf.getvalue()
+    print(text, end="")
+    summary, _ = json.JSONDecoder().raw_decode(text[text.index("{"):])
+    require(summary["device"] == "cuda", "serve launcher ran on the card")
+    require(len(results) == 6 and sum(summary["routes"].values()) == 6,
+            "6 requests served and routed")
+
+
 def main() -> int:
     import torch
 
@@ -294,10 +546,17 @@ def main() -> int:
 
     device = phase_device(torch)
     kernels = phase_kernels(torch)
-    launches = phase_main_path(torch)
+    kernels.update(phase_flash(torch))
+    torch.cuda.empty_cache()
+    train_launches = phase_main_path(torch)
     phase_entry_point(torch)
-    for name, n in launches.items():
-        kernels[name]["launches"] = n
+    torch.cuda.empty_cache()
+    serve_launches = phase_serving(torch)
+    torch.cuda.empty_cache()
+    phase_serve_entry_point(torch)
+    for name in ("wan_encode", "wan_decode"):
+        kernels[name]["launches"] = train_launches[name]
+    kernels["flash_attention"]["launches"] = serve_launches["flash_attention"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

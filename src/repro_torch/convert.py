@@ -17,6 +17,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core.sync import SyncState
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import KVCache
 
 
 def to_tensor(a: Any, device="cuda") -> torch.Tensor:
@@ -45,3 +46,10 @@ def sync_state_from_jax(np_state: Any, device="cuda") -> SyncState:
     """A reference ``SyncState`` (leaves as numpy) -> the port's."""
     return SyncState(*(T.tree_map(lambda a: to_tensor(a, device), getattr(
         np_state, f)) for f in SyncState._fields))
+
+
+def cache_from_jax(np_cache: Any, device="cuda") -> dict:
+    """A reference decode cache (``{"pos<i>": KVCache(k, v)}``, leaves as
+    numpy with their leading group axis) -> the port's."""
+    return {key: KVCache(*(to_tensor(a, device) for a in c))
+            for key, c in np_cache.items()}

@@ -1,9 +1,9 @@
-"""Public codec wrappers: the hand-written CUDA kernel on the card, the
+"""Public kernel wrappers: the hand-written CUDA kernel on the card, the
 plain version on the CPU.
 
-Counterpart of ``repro/kernels/ops.py`` (``wan_encode``, ``wan_decode`` and
-``wan_codec_fns``, its lines 59-113), with the same signatures.  Dispatch is
-by the tensor's device:
+Counterpart of ``repro/kernels/ops.py`` (``flash_attention``, ``wan_encode``,
+``wan_decode`` and ``wan_codec_fns``, its lines 27-35 and 59-113), with the
+same signatures.  Dispatch is by the tensor's device:
 
 - a CUDA tensor with ``use_kernel=True`` (the default) launches the kernel
   of ``csrc/wan_codec.cu``; a failed build or launch raises;
@@ -11,24 +11,31 @@ by the tensor's device:
   parity checks ask for that);
 - a CPU tensor runs the plain version.
 
-The inputs may be one flat vector ``(n,)`` or a batch ``(rows, n)``: the
-sync layer passes the whole pod dimension, and one launch covers it.
+The codec inputs may be one flat vector ``(n,)`` or a batch ``(rows, n)``:
+the sync layer passes the whole pod dimension, and one launch covers it.
 ``LAUNCHES`` counts kernel launches per wrapper, and nothing else.
+``FLASH_CHECK_HOOK``, when set, is called after every flash-attention launch
+with ``(q, k, v, out, causal=, window=, softcap=)``; a caller that holds the
+kernel to its plain version on a live path sets it (``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import (check_inputs,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.wan_codec import (TIER_INV, TIER_QMAX, VALUE_DTYPES,
                                            check_value_dtype, pack_nibbles,
                                            unpack_nibbles)
 
-LAUNCHES: Dict[str, int] = {"wan_encode": 0, "wan_decode": 0}
+LAUNCHES: Dict[str, int] = {"wan_encode": 0, "wan_decode": 0,
+                             "flash_attention": 0}
+FLASH_CHECK_HOOK: Optional[Callable] = None
 _MAX_ROWS = 65535                  # gridDim.y
 
 
@@ -43,6 +50,38 @@ def _on_kernel(t: torch.Tensor, use_kernel: bool) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"the WAN codec has no path for device {t.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: float = 0.0, bias=None) -> torch.Tensor:
+    """Blockwise flash attention: q ``(B, Sq, H, Dh)``, k and v
+    ``(B, Sk, K, Dh)`` -> ``(B, Sq, H, Dh)`` in ``q.dtype``.
+
+    Masks come from positions ``0..S-1`` (``bias`` is ignored, as in the
+    reference).  A CUDA tensor launches ``csrc/flash_attention.cu``, a CPU
+    tensor runs the plain ``ref.sdpa``; both refuse what the kernel does not
+    take.  The kernel is forward-only, as the TPU kernel is: inputs that
+    need a gradient raise rather than run the plain version."""
+    del bias
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward-only (the TPU kernel has no VJP "
+            "either); its backward kernel is ROADMAP.md Queue 2 item 6")
+    check_inputs(q, k, v, window)
+    if q.device.type == "cpu":
+        return _ref.sdpa(q, k, v, causal=causal, window=window,
+                         softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention has no path for device "
+                         f"{q.device}")
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    LAUNCHES["flash_attention"] += 1
+    if FLASH_CHECK_HOOK is not None:
+        FLASH_CHECK_HOOK(q, k, v, out, causal=causal, window=window,
+                         softcap=softcap)
+    return out
 
 
 def _lib() -> ctypes.CDLL:

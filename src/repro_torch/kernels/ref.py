@@ -1,19 +1,24 @@
-"""Plain PyTorch versions of the port's kernels (codec half of
-``repro/kernels/ref.py``, its lines 91-161).
+"""Plain PyTorch versions of the port's kernels (the attention and codec
+parts of ``repro/kernels/ref.py``, its lines 26-33 and 91-161).
 
-These are the bit-level spec of the fused WAN codec.  The CPU path runs
-them, and on the card they are what the CUDA kernels are held against, bit
-for bit.  Selection is a *stable* descending sort on the truncated key, so
-ties go to the lowest index on every device (``torch.topk`` has no tie
-order on CUDA and is not used).
+``sdpa`` is the spec of the flash-attention kernel: the full softmax over
+masks built from positions ``0..S-1``, through the port's
+``layers.sdpa_reference``.  The kernel agrees with it to the tolerance of
+the reference's own kernel test (``2e-2`` in bf16, ``2e-5`` in f32), not to
+the bit.
 
-Both functions take one flat vector ``(n,)`` or a batch of them
-``(rows, n)`` (the pod dimension), and work through the blocks in slices of
-``_SLICE_BLOCKS`` so that the sort's scratch stays bounded at any size.
+The codec functions are the bit-level spec of the fused WAN codec. The CPU
+path runs them, and on the card they are what the CUDA kernels are held
+against, bit for bit. Selection is a *stable* descending sort on the
+truncated key, so ties go to the lowest index on every device
+(``torch.topk`` has no tie order on CUDA and is not used). Both functions
+take one flat vector ``(n,)`` or a batch of them ``(rows, n)`` (the pod
+dimension), and work through the blocks in slices of ``_SLICE_BLOCKS`` so
+that the sort's scratch stays bounded at any size.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,8 +26,21 @@ import torch.nn.functional as F
 from repro_torch.kernels.wan_codec import (KEY_MASK, TIER_INV, TIER_QMAX,
                                            check_value_dtype, pack_nibbles,
                                            unpack_nibbles)
+from repro_torch.models.layers import attn_bias, sdpa_reference
 
 _SLICE_BLOCKS = 1 << 14        # 64M fp32 values per slice at block 4096
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None,
+         softcap: float = 0.0) -> torch.Tensor:
+    """Attention of q ``(B, Sq, H, Dh)`` over k, v ``(B, Sk, K, Dh)`` with
+    masks from positions ``0..Sq-1`` and ``0..Sk-1``."""
+    B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    qp = torch.arange(Sq, device=q.device)[None].expand(B, Sq)
+    kp = torch.arange(Sk, device=q.device)[None].expand(B, Sk)
+    bias = attn_bias(qp, kp, None, causal, window)
+    return sdpa_reference(q, k, v, bias, softcap)
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:

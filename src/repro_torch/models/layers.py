@@ -4,13 +4,16 @@ Counterpart of the dense subset of ``repro/models/layers.py``: activations
 are ``(B, S, D)``, attention ``(B, S, H, Dh)``; parameters are created in
 ``cfg.param_dtype`` and compute runs in ``cfg.compute_dtype`` with f32
 softmax and normalization.  The projections, the MLP and the unembed stay
-``torch.matmul`` (the reference leaves them to XLA), and attention is the
-plain ``sdpa_reference`` (the ``"xla"`` path, the reference's default).
+``torch.matmul`` (the reference leaves them to XLA).  Full-sequence
+attention is the plain ``sdpa_reference`` under ``attention_impl="xla"``
+(the reference's default) and the CUDA flash kernel under ``"pallas"``;
+decode attends over a :class:`KVCache` with ``sdpa_reference``, as the
+reference does.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -122,15 +125,53 @@ def sdpa_reference(q, k, v, bias, softcap: float = 0.0) -> torch.Tensor:
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+class KVCache(NamedTuple):
+    """Decode cache of one attention position: k, v ``(B, C, K, Dh)``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, bias, *, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """Dispatch between the plain attention and the flash kernel.
+
+    ``"pallas"`` sends a multi-token query to ``ops.flash_attention``, which
+    builds its masks from positions ``0..S-1`` and ignores ``bias``: the
+    callers (``forward`` without explicit positions, ``prefill``) give it
+    exactly those positions."""
+    impl = cfg.attention_impl
+    if impl in ("xla_chunked", "pallas_interpret"):
+        raise NotImplementedError(
+            f"attention_impl {impl!r} is not ported yet: see ROADMAP.md "
+            f"Queue 1 item 9 (sdpa_chunked) and Queue 2 item 3 (the flash "
+            f"kernel runs compiled on the card, with no interpret mode)")
+    if impl == "pallas" and q.shape[1] > 1:
+        from repro_torch.kernels import ops
+
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cfg.attn_softcap, bias=bias)
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention_impl {impl!r}")
+    return sdpa_reference(q, k, v, bias, softcap=cfg.attn_softcap)
+
+
 def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
                     x: torch.Tensor, positions: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (train/prefill mode)."""
-    if cfg.attention_impl != "xla":
-        raise NotImplementedError(
-            f"attention_impl {cfg.attention_impl!r} is not ported yet: the "
-            f"flash-attention kernel comes with serving (ROADMAP.md "
-            f"Queue 2 item 3)")
+                    causal: bool = True, cache: Optional[KVCache] = None,
+                    cache_pos: Union[int, torch.Tensor, None] = None
+                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention, full-sequence or one decode token.
+
+    Modes:
+      - train/prefill: ``cache is None``; returns ``(out, None)``.
+      - decode: ``cache`` given and ``S == 1``; ``cache_pos`` (a scalar or a
+        ``(B,)`` int tensor, tokens already cached per row) says where each
+        row writes its K/V: slot ``cache_pos % C`` in a ring buffer
+        (``spec.window == C``), else ``min(cache_pos, C - 1)``.  Each row
+        then attends over its own valid slots.  The cache is updated **in
+        place** (the reference returns a new one); returns ``(out, cache)``.
+    """
     B, S, D = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     cdt = cfg.dtype("compute")
@@ -140,10 +181,49 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
     v = (x @ params["wv"].to(cdt)).reshape(B, S, K, Dh)
     q = position_embed(cfg, q, positions)
     k = position_embed(cfg, k, positions)
-    bias = attn_bias(positions, positions, None, causal=causal,
+
+    if cache is None:
+        bias = attn_bias(positions, positions, None, causal=causal,
+                         window=spec.window)
+        out = _sdpa(cfg, q, k, v, bias, causal=causal, window=spec.window)
+        return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), None
+
+    # ------------------------------------------------------------- decode
+    if S != 1:
+        raise ValueError(f"decode expects one query token, got {S}")
+    C = cache.k.shape[1]
+    ring = spec.window is not None and C == spec.window
+    pos = torch.as_tensor(cache_pos, device=x.device).long()
+    pos = pos.expand(B) if pos.dim() == 0 else pos
+    slot = torch.remainder(pos, C) if ring else torch.clamp(pos, max=C - 1)
+    rows = torch.arange(B, device=x.device)
+    cache.k.index_put_((rows, slot), k[:, 0].to(cache.k.dtype))
+    cache.v.index_put_((rows, slot), v[:, 0].to(cache.v.dtype))
+
+    slots = torch.arange(C, device=x.device)[None]
+    if ring:
+        # slot j holds absolute position p = pos - ((pos - j) mod C)
+        k_pos = pos[:, None] - torch.remainder(pos[:, None] - slots, C)
+        k_valid = k_pos >= 0
+    else:
+        k_pos = slots.expand(B, C)
+        k_valid = slots <= pos[:, None]
+    bias = attn_bias(positions, k_pos, k_valid, causal=True,
                      window=spec.window)
-    out = sdpa_reference(q, k, v, bias, softcap=cfg.attn_softcap)
-    return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt)
+    out = sdpa_reference(q, cache.k.to(cdt), cache.v.to(cdt), bias,
+                         softcap=cfg.attn_softcap)
+    return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), cache
+
+
+def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                  seq_len: int, dtype=None, device="cuda") -> KVCache:
+    """An empty decode cache for one attention position (a ring buffer of
+    ``window`` slots for a windowed position)."""
+    dtype = dtype or cfg.dtype("compute")
+    cap = min(spec.window, seq_len) if spec.window is not None else seq_len
+    shape = (batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:

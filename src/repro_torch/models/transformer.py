@@ -2,13 +2,16 @@
 
 Counterpart of the dense path of ``repro/models/transformer.py``: the same
 parameter tree (repeated-block leaves stacked over ``cfg.n_groups`` on a
-leading axis), the same forward and the same next-token loss.  Other
-``arch_type`` values (MoE, SSM, hybrid, audio, vision) are ROADMAP Queue 1
-item 13 and raise ``NotImplementedError``.
+leading axis), the same forward and next-token loss, and the same decode
+path: ``init_cache`` (one :class:`~repro_torch.models.layers.KVCache` per
+pattern position, stacked over groups), ``prefill`` and ``decode_step``.
+Windowed and soft-capped attention positions run as in the reference.
+Other ``arch_type`` values (MoE, SSM, hybrid, audio, vision) are ROADMAP
+Queue 1 item 13 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -58,14 +61,25 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _apply_position(p: Params, cfg: ModelConfig, spec: LayerSpec,
-                    h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """One pattern position: attention + optional MLP, pre-norm residual."""
+                    h: torch.Tensor, positions: torch.Tensor,
+                    cache: Optional[L.KVCache] = None,
+                    cache_pos=None) -> torch.Tensor:
+    """One pattern position: attention + optional MLP, pre-norm residual
+    (a decode step when ``cache`` is given; it is updated in place)."""
     hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
-    h = h + L.attention_apply(p["attn"], cfg, spec, hn, positions)
+    out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions,
+                               cache=cache, cache_pos=cache_pos)
+    h = h + out
     if spec.mlp:
         hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
         h = h + L.mlp_apply(p["mlp"], hn)
     return h
+
+
+def _arange_positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device)[None].expand(B, S)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -74,9 +88,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Full-sequence forward. Returns (logits f32, aux)."""
     check_supported(cfg)
     if positions is None:
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
+        positions = _arange_positions(tokens)
+    elif cfg.attention_impl == "pallas":
+        raise NotImplementedError(
+            "attention_impl 'pallas' builds its masks from positions "
+            "0..S-1 and takes no explicit positions")
     h = L.embed_apply(params["embed"], cfg, tokens)
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.pattern):
@@ -114,3 +130,86 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict
                           positions=batch.get("positions"))
     ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
     return ce, {"loss": ce, "ce": ce, **aux}
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device="cuda") -> Params:
+    """Cache tree: per pattern position, one ``KVCache`` whose leaves carry
+    a leading group axis, as the reference's."""
+    check_supported(cfg)
+    caches = {}
+    for i, spec in enumerate(cfg.pattern):
+        one = L.init_kv_cache(cfg, spec, batch, seq_len, device=device)
+        caches[f"pos{i}"] = L.KVCache(
+            *(x.new_zeros((cfg.n_groups, *x.shape)) for x in one))
+    return caches
+
+
+def _group_cache(cache: Params, g: int) -> Params:
+    return {key: L.KVCache(c.k[g], c.v[g]) for key, c in cache.items()}
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params, cache_pos: Union[int, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode: ``token`` ``(B, 1)``, ``cache_pos`` a scalar or a
+    ``(B,)`` tensor of tokens already cached per row (the reference's
+    per-slot ``vmap`` written out as a batch dimension).  Returns (logits
+    ``(B, 1, V)`` f32, cache); the cache is updated in place."""
+    check_supported(cfg)
+    B = token.shape[0]
+    pos = torch.as_tensor(cache_pos, device=token.device).to(torch.int32)
+    positions = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
+    h = L.embed_apply(params["embed"], cfg, token)
+    for g in range(cfg.n_groups):
+        caches = _group_cache(cache, g)
+        for i, spec in enumerate(cfg.pattern):
+            gp = _select_group(params["blocks"][f"pos{i}"], g)
+            h = _apply_position(gp, cfg, spec, h, positions,
+                                cache=caches[f"pos{i}"], cache_pos=pos)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return L.unembed_apply(params["embed"], cfg, h), cache
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: int) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt ``(B, S)`` and build its decode cache of
+    ``cache_len`` positions.  As in the reference, each attention position
+    recomputes the prompt's K/V into the cache; a ring buffer shorter than
+    the prompt keeps the tail, rolled so that slot j holds position
+    p = j (mod C).  Returns (last-token logits ``(B, V)`` f32, cache)."""
+    check_supported(cfg)
+    B, Sq = tokens.shape
+    positions = _arange_positions(tokens)
+    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    cdt = cfg.dtype("compute")
+    K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    h = L.embed_apply(params["embed"], cfg, tokens)
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(cfg.pattern):
+            p = _select_group(params["blocks"][f"pos{i}"], g)
+            hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
+            out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions)
+            k = (hn @ p["attn"]["wk"].to(cdt)).reshape(B, Sq, K, Dh)
+            v = (hn @ p["attn"]["wv"].to(cdt)).reshape(B, Sq, K, Dh)
+            k = L.position_embed(cfg, k, positions)
+            c = cache[f"pos{i}"]
+            C = c.k.shape[2]
+            if C >= Sq:
+                c.k[g, :, :Sq] = k
+                c.v[g, :, :Sq] = v
+            else:
+                shift = Sq % C
+                c.k[g] = torch.roll(k[:, -C:], shift, dims=1)
+                c.v[g] = torch.roll(v[:, -C:], shift, dims=1)
+            h = h + out
+            if spec.mlp:
+                hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
+                h = h + L.mlp_apply(p["mlp"], hn)
+    h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return L.unembed_apply(params["embed"], cfg, h)[:, 0], cache
