@@ -32,6 +32,13 @@ Phases (any failure raises and the script exits non-zero):
    equal the plain decode, bit for bit.  The launch counts of this run
    show that the rounds went through the kernels.
 4. Entry point: ``repro_torch.launch.train.main`` on the tiny preset.
+2c. SSD scan: hold the kernel to its plain version (``ref.ssd``) within
+   the reference's tolerance (``y / max|y|`` within 1e-5, the final state
+   within 1e-3) at the reference's kernel-test shapes, S == chunk, S <
+   chunk, a non-zero ``init_state``, bf16 B/C, B/C as a stride-0 view over
+   heads and the serving prefill's shape (B 1, S 2048, H 64, P 64, N 128,
+   chunk 256, x and a f32, B and C bf16); then time it there beside its
+   bound and its plain version (no single PyTorch call computes SSD).
 5. Serving path: granite-8b at its published size (36 layers, bf16,
    random weights from a seed, ``attention_impl="pallas"``), two replicas
    (us-east, eu-west) sharing the parameters behind a balanced
@@ -43,6 +50,21 @@ Phases (any failure raises and the script exits non-zero):
    is held to ``ref.sdpa`` on the same q, k, v, and request 0 decoded alone
    in a fresh pool must give the tokens it got beside its neighbours.
 6. Entry point: ``repro_torch.launch.serve.main`` on the smoke config.
+7. Mamba2 serving: mamba2-1.3b at its published size (48 layers, bf16,
+   random weights from a seed), two replicas as in phase 5; 8 requests
+   whose prompt lengths are phase 5's rounded down to a multiple of 256
+   (the SSD's chunk; the reference refuses other lengths above it), 32 new
+   tokens each.  Every request must finish with 32 tokens, the SSD kernel
+   must launch 48 times per prefill, every SSM layer of the first prefill
+   is held to ``ref.ssd`` on the same inputs (within 5e-4) and to an f64
+   evaluation of the same SSD (within the reference's 1e-5: at the
+   model's real decays the f32 plain version is itself ~1e-4 from
+   exact), request 0 alone in a fresh
+   pool must give the same tokens, and the engine must refuse a 1895-token
+   prompt as the reference does.
+7b. Mamba2 scoring: ``forward(..., use_ssm_kernel=True)`` at B 2, S 2048
+   (48 launches), held to the same forward through the plain SSD.
+8. Entry point: ``repro_torch.launch.serve.main --arch mamba2-1.3b``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -80,11 +102,42 @@ SERVE_REQUESTS = 8
 SERVE_PROMPT_LEN = 2048
 SERVE_NEW_TOKENS = 32
 FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+# the reference's SSD tolerance (tests/test_kernels.py): y / max|y|, and
+# the final state absolute
+SSD_Y_TOL, SSD_STATE_TOL = 1e-5, 1e-3
+# the SSD of a real prefill (see ssd_serving_close): y / max|y| and
+# state / max|state| against the plain f32 version, which is itself up to
+# 1.4e-4 from the f64 evaluation there (on an H100: kernel vs plain at most
+# 1.25e-4 (y) and 1.36e-4 (state) over the 48 layers); the kernel is held
+# to the f64 evaluation within the reference's SSD_Y_TOL (measured 3.1e-7)
+SERVE_SSD_TOL = 5e-4
+# mamba2-1.3b serving: phase 5's prompt lengths rounded down to the chunk
+MAMBA_CHUNK = 256
+MAMBA_SCORE_BATCH = 2
+# the scoring forward through the kernel against the same forward through
+# the plain SSD, both bf16 over 48 layers: max |diff| / max|logit| (the two
+# SSDs differ in f32 rounding, which flips bf16 roundings that 48 layers
+# carry on; on an H100: 7.7e-3, every argmax equal)
+MAMBA_LOGIT_TOL = 2e-2
 
 
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def clocked(torch, hook, spent: list):
+    """``hook`` fenced by device syncs, its seconds added to ``spent[0]``.
+    A check hook runs inside a timed serving run (all of it inside the
+    first prefill); the run's prefill seconds and tok/s leave its time
+    out."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hook(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+    return run
 
 
 def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
@@ -375,7 +428,7 @@ def phase_main_path(torch) -> dict:
             f"finite losses {losses}")
     require(len(rounds) == 2, f"2 sync rounds checked, got {len(rounds)}")
     require(launches == {"wan_encode": 2, "wan_decode": 4,
-                         "flash_attention": 0},
+                         "flash_attention": 0, "ssd_scan": 0},
             f"main path launches {launches}")
     for leaf in T.leaves(state.params):
         require(bool(torch.isfinite(leaf).all()), "finite params")
@@ -431,22 +484,24 @@ def phase_serving(torch) -> dict:
     def check_hook(q, k, v, out, *, causal, window, softcap):
         """Hold each attention layer of the first prefill to ref.sdpa on the
         same q, k, v; the plain version launches no kernel of the port, and
-        the counts are put back as they were all the same."""
-        if len(checked) >= cfg.n_layers:
-            return
+        the counts are put back as they were all the same.  The hook takes
+        itself off after the first prefill's last layer."""
         counts = dict(ops.LAUNCHES)
         expect = ref.sdpa(q, k, v, causal=causal, window=window,
                           softcap=softcap)
         checked.append(flash_close(torch, out, expect,
                                    f"prefill layer {len(checked)}"))
         ops.LAUNCHES.update(counts)
+        if len(checked) == cfg.n_layers:
+            ops.FLASH_CHECK_HOOK = None
 
     router = GeoRouter([ReplicaSpec(region=r, n_slots=SERVE_SLOTS)
                         for r in SERVE_REGIONS], mode="balanced")
     scheds = {r: ContinuousScheduler(engine()) for r in SERVE_REGIONS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.FLASH_CHECK_HOOK = check_hook
+    check_s = [0.0]
+    ops.FLASH_CHECK_HOOK = clocked(torch, check_hook, check_s)
     ops.reset_launches()
     t0 = time.perf_counter()
     placed = route_and_submit(router, scheds, SERVE_REGIONS, SERVE_REQUESTS,
@@ -454,7 +509,7 @@ def phase_serving(torch) -> dict:
                               cfg.vocab_size, seed=0)
     by_region = {r: s.run() for r, s in scheds.items()}
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - check_s[0]
     launches = dict(ops.LAUNCHES)
     ops.FLASH_CHECK_HOOK = None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -465,6 +520,7 @@ def phase_serving(torch) -> dict:
 
     engines = [s.engine for s in scheds.values()]
     prefill_s = [t for e in engines for t in e.prefill_seconds]
+    prefill_s[0] -= check_s[0]    # the first prefill run held the check
     step_s = [t for e in engines for t in e.step_seconds]
     n_prefills = len(prefill_s)
     require(n_prefills == SERVE_REQUESTS, f"{n_prefills} prefills")
@@ -474,7 +530,8 @@ def phase_serving(torch) -> dict:
     require(all(0 <= int(x) < cfg.vocab_size for t in results.values()
                 for x in t), "tokens within the vocabulary")
     require(launches == {"wan_encode": 0, "wan_decode": 0,
-                         "flash_attention": cfg.n_layers * n_prefills},
+                         "flash_attention": cfg.n_layers * n_prefills,
+                         "ssd_scan": 0},
             f"serving launches {launches}: {cfg.n_layers} flash launches "
             f"per prefill")
     require(len(checked) == cfg.n_layers,
@@ -514,7 +571,8 @@ def phase_serving(torch) -> dict:
           f"{FLASH_TOL['torch.bfloat16']} of ref.sdpa (max |err| "
           f"{max(checked):.3g}); request 0 alone == beside neighbours")
     print(f"[serve] prefill s per request {[round(t, 4) for t in prefill_s]}"
-          f", median decode step {statistics.median(step_s):.4f} s over "
+          f" (the first net of its check's {check_s[0]:.4f} s, left out of "
+          f"tok/s too), median decode step {statistics.median(step_s):.4f} s over "
           f"{len(step_s)} pool steps, {total_new} tokens in {wall:.2f} s = "
           f"{total_new / wall:.1f} generated tok/s, peak memory "
           f"{peak_gb:.2f} GB")
@@ -535,6 +593,391 @@ def phase_serve_entry_point(torch) -> None:
             "6 requests served and routed")
 
 
+def ssd_close(torch, y, final, y_ref, f_ref, what: str) -> tuple:
+    """Hold an SSD output to its plain version at the reference's
+    tolerance; returns the largest |diff| of y, absolute and over max|y|."""
+    scale = float(y_ref.float().abs().max()) or 1.0
+    y_abs = float((y.float() - y_ref.float()).abs().max())
+    y_err = y_abs / scale
+    s_err = float((final - f_ref).abs().max())
+    require(y_err <= SSD_Y_TOL and s_err <= SSD_STATE_TOL
+            and bool(torch.isfinite(y).all()),
+            f"ssd {what} within {SSD_Y_TOL} (y / max|y|) and "
+            f"{SSD_STATE_TOL} (state) of ref.ssd (got {y_err:.3g}, "
+            f"{s_err:.3g})")
+    return y_abs, y_err
+
+
+def ssd_f64(torch, x, a, Bm, Cm, chunk, init_state):
+    """The chunked SSD of ``ref.ssd`` evaluated in float64: the yardstick
+    that the kernel and the plain f32 version are both measured against on
+    a real prefill's inputs."""
+    f64 = torch.float64
+    Bsz, S, H, P = x.shape
+    N, L = Bm.shape[-1], min(chunk, S)
+    nc = S // L
+    xc = x.reshape(Bsz, nc, L, H, P).to(f64)
+    Bc = Bm.reshape(Bsz, nc, L, H, N).to(f64)
+    Cc = Cm.reshape(Bsz, nc, L, H, N).to(f64)
+    a_cum = torch.cumsum(a.reshape(Bsz, nc, L, H).to(f64).movedim(-1, -2),
+                         dim=-1)                          # (B, nc, H, L)
+    seg = a_cum[..., :, None] - a_cum[..., None, :]
+    tril = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    Lmat = torch.where(tril, seg, -torch.inf).exp()
+    scores = torch.einsum("bclhn,bcshn->bchls", Cc, Bc) * Lmat
+    y = torch.einsum("bchls,bcshp->bclhp", scores, xc)
+    w = (a_cum[..., -1:] - a_cum).exp()
+    states = torch.einsum("bclhn,bchl,bclhp->bchpn", Bc, w, xc)
+    st = (torch.zeros(Bsz, H, P, N, dtype=f64, device=x.device)
+          if init_state is None else init_state.to(f64))
+    prev = []
+    for c in range(nc):
+        prev.append(st)
+        st = st * a_cum[:, c, :, -1, None, None].exp() + states[:, c]
+    y = y + torch.einsum("bclhn,bchpn,bchl->bclhp", Cc,
+                         torch.stack(prev, 1), a_cum.exp())
+    return y.reshape(Bsz, S, H, P), st
+
+
+def ssd_serving_close(torch, x, a, Bm, Cm, y, final, chunk, init_state,
+                      what: str) -> dict:
+    """Hold a real prefill's SSD to the plain f32 version within
+    SERVE_SSD_TOL (y / max|y|, state / max|state|) and to the f64
+    evaluation within the reference's SSD_Y_TOL.  At the model's real
+    decays (``max_abs_a``, up to a few hundred per step in the fast heads)
+    the f32 plain version is itself ~1e-4
+    from exact, mostly from rounding the f32 log-decay prefix, which the
+    kernel keeps in f64; so the reference's tolerance is held against the
+    f64 yardstick, and the looser one against the plain version."""
+    from repro_torch.kernels import ref
+
+    y_ref, f_ref = ref.ssd(x, a, Bm, Cm, chunk=chunk, init_state=init_state)
+    y64, f64 = ssd_f64(torch, x, a, Bm, Cm, chunk, init_state)
+    ys, fs = float(y64.abs().max()) or 1.0, float(f64.abs().max()) or 1.0
+
+    def err(t, ref_t, scale):
+        return float((t.double() - ref_t.double()).abs().max()) / scale
+
+    e = {"y_vs_plain": err(y, y_ref, ys), "state_vs_plain": err(final, f_ref,
+                                                                 fs),
+         "y_vs_f64": err(y, y64, ys), "state_vs_f64": err(final, f64, fs),
+         "plain_y_vs_f64": err(y_ref, y64, ys),
+         "plain_state_vs_f64": err(f_ref, f64, fs),
+         "max_abs_a": float(a.abs().max())}
+    require(bool(torch.isfinite(y).all())
+            and e["y_vs_plain"] <= SERVE_SSD_TOL
+            and e["state_vs_plain"] <= SERVE_SSD_TOL
+            and e["y_vs_f64"] <= SSD_Y_TOL and e["state_vs_f64"] <= SSD_Y_TOL,
+            f"ssd {what} within {SERVE_SSD_TOL} of ref.ssd and {SSD_Y_TOL} "
+            f"of the f64 SSD: {e}")
+    return e
+
+
+def ssd_bound(B, S, H, P, N, L, nbytes, bc_bf16: bool):
+    """The least time for one SSD launch: the causal products' FLOPs, each
+    over the peak rate for its operands' type, or the bytes over the memory
+    rate, whichever is larger.  C B^T over the L(L+1)/2 pairs of each chunk
+    has B and C as operands: bf16 (the tensor-core rate) when they are
+    bf16.  The masked scores times x, the carried-state term and the state
+    update have an f32 operand (x or the state): the f32 rate."""
+    blocks = B * H * (S // L)
+    pairs = L * (L + 1) // 2
+    cb_flops = blocks * 2 * pairs * N
+    f32_flops = blocks * (2 * pairs * P + 4 * L * N * P)
+    f_ms = (f32_flops / F32_FLOP_PER_S + cb_flops / (
+        BF16_FLOP_PER_S if bc_bf16 else F32_FLOP_PER_S)) * 1e3
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+
+
+def phase_ssd(torch) -> dict:
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def inputs(B, S, H, P, N, bc_dtype=torch.float32, init=False,
+               expand=False):
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        x = randn(B, S, H, P)
+        a = -randn(B, S, H).abs() * 0.1
+        if expand:
+            Bm = randn(B, S, 1, N).to(bc_dtype).expand(B, S, H, N)
+            Cm = randn(B, S, 1, N).to(bc_dtype).expand(B, S, H, N)
+        else:
+            Bm = randn(B, S, H, N).to(bc_dtype)
+            Cm = randn(B, S, H, N).to(bc_dtype)
+        return x, a, Bm, Cm, (randn(B, H, P, N) if init else None)
+
+    def check(B, S, H, P, N, chunk, **kw):
+        x, a, Bm, Cm, s0 = inputs(B, S, H, P, N, **kw)
+        y, f = ops.ssd_scan(x, a, Bm, Cm, chunk=chunk, init_state=s0)
+        y_ref, f_ref = ref.ssd(x, a, Bm, Cm, chunk=chunk, init_state=s0)
+        torch.cuda.synchronize()
+        return ssd_close(torch, y, f, y_ref, f_ref,
+                         f"{(B, S, H, P, N, chunk)} {kw}")
+
+    bf16 = torch.bfloat16
+    main = (1, SERVE_PROMPT_LEN, 64, 64, 128, MAMBA_CHUNK)
+    cases = [((2, 128, 4, 16, 32, 32), {}),       # the reference's tests
+             ((1, 256, 2, 64, 128, 64), {}),
+             ((2, 64, 8, 8, 16, 64), {}),
+             ((1, 256, 8, 64, 128, 256), {}),     # S == chunk
+             ((2, 100, 8, 64, 128, 256), {}),     # S < chunk
+             ((2, 512, 4, 64, 128, 256), {"init": True}),
+             ((1, 512, 8, 64, 128, 256), {"bc_dtype": bf16}),
+             ((1, 512, 8, 64, 128, 256), {"bc_dtype": bf16, "expand": True}),
+             (main, {"bc_dtype": bf16, "expand": True})]
+    errs = [check(*shape, **kw)[1] for shape, kw in cases]
+    print(f"[ssd] kernel within {SSD_Y_TOL} (y / max|y|) and "
+          f"{SSD_STATE_TOL} (state) of ref.ssd on {len(cases)} cases (the "
+          f"reference's kernel tests, S == chunk, S < chunk, init_state, "
+          f"bf16 B/C, stride-0 B/C, the serving prefill's shape); max y "
+          f"err {max(errs):.3g}")
+
+    B, S, H, P, N, L = main
+    x, a, Bm, Cm, _ = inputs(B, S, H, P, N, bc_dtype=bf16, expand=True)
+    y, f = ops.ssd_scan(x, a, Bm, Cm, chunk=L)
+    abs_err, err = ssd_close(torch, y, f, *ref.ssd(x, a, Bm, Cm, chunk=L),
+                             "main-path shape")
+    ms = time_ms(torch, lambda: ops.ssd_scan(x, a, Bm, Cm, chunk=L),
+                 reps=20)
+    plain_ms = time_ms(torch, lambda: ref.ssd(x, a, Bm, Cm, chunk=L),
+                       reps=5)
+    # inputs read once (B and C as their stride-0 storage), outputs once
+    nbytes = (x.numel() * 4 + a.numel() * 4 + 2 * B * S * N * 2
+              + y.numel() * 4 + f.numel() * 4)
+    bound, by = ssd_bound(B, S, H, P, N, L, nbytes,
+                          bc_bf16=Bm.dtype == torch.bfloat16)
+    print(f"[ssd] {(B, S, H, P, N)} chunk {L}, x/a f32, B/C bf16 stride-0: "
+          f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+          f"{plain_ms:.3f} ms, no single PyTorch call), max |y err| "
+          f"{abs_err:.3g} ({err:.3g} of max|y|)")
+    return {"ssd_scan": {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:32",
+        "max_abs_err": abs_err, "max_rel_err": err, "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None}}
+
+
+def mamba_requests(regions, vocab_size: int):
+    """Phase 5's draws (the serving launcher's, numpy seed 0, prompt-len
+    2048), each prompt cut to a multiple of the SSD chunk."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(SERVE_REQUESTS):
+        plen = int(rng.integers(SERVE_PROMPT_LEN // 2, SERVE_PROMPT_LEN + 1))
+        prompt = rng.integers(0, vocab_size, plen).astype(np.int32)
+        src = regions[int(rng.integers(len(regions)))]
+        out.append((prompt, prompt[: plen // MAMBA_CHUNK * MAMBA_CHUNK], src))
+    return out
+
+
+def phase_mamba_serving(torch):
+    from repro_torch import tree as T
+    from repro_torch.configs import mamba2_1_3b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import (ContinuousEngine,
+                                            ContinuousScheduler)
+    from repro_torch.serving.router import GeoRouter, ReplicaSpec
+
+    cfg = mamba2_1_3b.CONFIG
+    cache_len = SERVE_PROMPT_LEN + SERVE_NEW_TOKENS
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count(), f"{n_params} params")
+
+    def engine():
+        return ContinuousEngine(None, params, n_slots=SERVE_SLOTS,
+                                cache_len=cache_len, cfg=cfg,
+                                module="transformer")
+
+    # warm cuBLAS and the kernel's shared-memory attribute off the record
+    with torch.no_grad():
+        transformer.prefill(params, cfg, torch.zeros(
+            1, MAMBA_CHUNK, dtype=torch.int32, device="cuda"), 96)
+    torch.cuda.synchronize()
+
+    checked = []
+
+    def check_hook(x, a, Bm, Cm, y, final, *, chunk, init_state):
+        """Hold each SSM layer of the first prefill to ref.ssd on the same
+        inputs; the plain version launches no kernel of the port, and the
+        counts are put back as they were all the same.  The hook takes
+        itself off after the first prefill's last layer."""
+        counts = dict(ops.LAUNCHES)
+        checked.append(ssd_serving_close(
+            torch, x, a, Bm, Cm, y, final, chunk, init_state,
+            f"prefill layer {len(checked)}"))
+        ops.LAUNCHES.update(counts)
+        if len(checked) == cfg.n_layers:
+            ops.SSD_CHECK_HOOK = None
+
+    router = GeoRouter([ReplicaSpec(region=r, n_slots=SERVE_SLOTS)
+                        for r in SERVE_REGIONS], mode="balanced")
+    scheds = {r: ContinuousScheduler(engine()) for r in SERVE_REGIONS}
+    requests = mamba_requests(SERVE_REGIONS, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    check_s = [0.0]
+    ops.SSD_CHECK_HOOK = clocked(torch, check_hook, check_s)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    placed = {}
+    for rid, (_, prompt, src) in enumerate(requests):
+        region = router.route(rid, src, prompt.size, SERVE_NEW_TOKENS)
+        placed[rid] = (region, scheds[region].submit(prompt,
+                                                     SERVE_NEW_TOKENS),
+                       prompt)
+    by_region = {r: s.run() for r, s in scheds.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - check_s[0]
+    launches = dict(ops.LAUNCHES)
+    ops.SSD_CHECK_HOOK = None
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    results = {}
+    for rid, (region, local, _) in placed.items():
+        results[rid] = by_region[region][local]
+        router.complete(rid)
+
+    engines = [s.engine for s in scheds.values()]
+    prefill_s = [t for e in engines for t in e.prefill_seconds]
+    prefill_s[0] -= check_s[0]    # the first prefill run held the check
+    step_s = [t for e in engines for t in e.step_seconds]
+    n_prefills = len(prefill_s)
+    require(n_prefills == SERVE_REQUESTS, f"{n_prefills} prefills")
+    require(all(len(t) == SERVE_NEW_TOKENS for t in results.values())
+            and len(results) == SERVE_REQUESTS,
+            f"every request finished with {SERVE_NEW_TOKENS} tokens")
+    require(all(0 <= int(x) < cfg.vocab_size for t in results.values()
+                for x in t), "tokens within the vocabulary")
+    require(launches == {"wan_encode": 0, "wan_decode": 0,
+                         "flash_attention": 0,
+                         "ssd_scan": cfg.n_layers * n_prefills},
+            f"mamba serving launches {launches}: {cfg.n_layers} SSD "
+            f"launches per prefill")
+    require(len(checked) == cfg.n_layers,
+            f"{len(checked)} prefill layers held to ref.ssd")
+    routes = {r: sum(1 for p in placed.values() if p[0] == r)
+              for r in SERVE_REGIONS}
+
+    # slot independence, as in phase 5
+    region0, local0, prompt0 = placed[0]
+    hist = scheds[region0].history
+    require(hist[0] == ("prefill", local0, 0), f"request 0 in slot 0: "
+            f"{hist[0]}")
+    done0 = hist.index(("finish", local0, "max_new"))
+    require(any(h[0] == "prefill" for h in hist[1:done0]),
+            "a neighbour was inserted while request 0 decoded")
+    solo = engine()
+    solo.insert(prompt0, SERVE_NEW_TOKENS, rid=0)
+    alone = None
+    while alone is None:
+        for f in solo.step():
+            alone = f.tokens
+    require(list(alone) == list(results[0]),
+            "request 0 alone == request 0 beside inserted neighbours")
+
+    # the reference refuses a prompt above the chunk that is not a
+    # multiple of it (ssd_chunked's assert); so does the engine
+    uncut = requests[0][0]
+    require(uncut.size == 1895, f"uncut prompt 0 has {uncut.size} tokens")
+    try:
+        solo.insert(uncut, SERVE_NEW_TOKENS, rid=1)
+        refused = False
+    except ValueError as e:
+        refused = "multiple of the chunk" in str(e)
+    require(refused and solo.free_slots == list(range(SERVE_SLOTS)),
+            "the engine refuses a 1895-token prompt and keeps its slots")
+
+    total_new = sum(len(t) for t in results.values())
+    print(f"[mamba] {cfg.name} x{cfg.n_layers} layers, {n_params:,} params, "
+          f"{cfg.compute_dtype}; {len(SERVE_REGIONS)} replicas x "
+          f"{SERVE_SLOTS} slots, cache_len {cache_len}; routes {routes}")
+    worst = {k: max(e[k] for e in checked) for k in checked[0]}
+    print(f"[mamba] first prefill's largest |a| (log decay per step): "
+          f"{worst.pop('max_abs_a'):.4g}")
+    print(f"[mamba] prompt lengths "
+          f"{[len(p[2]) for _, p in sorted(placed.items())]}; every "
+          f"request finished with {SERVE_NEW_TOKENS} tokens; launches "
+          f"{launches}; request 0 alone == beside neighbours; a "
+          f"{uncut.size}-token prompt refused")
+    print(f"[mamba] first prefill's {len(checked)} SSM layers: kernel "
+          f"within {SERVE_SSD_TOL} of ref.ssd and {SSD_Y_TOL} of the f64 "
+          f"SSD; worst over layers (of max|y|, max|state|): "
+          f"{json.dumps(worst)}")
+    print(f"[mamba] prefill s per request {[round(t, 4) for t in prefill_s]}"
+          f" (the first net of its check's {check_s[0]:.4f} s, left out of "
+          f"tok/s too), median decode step {statistics.median(step_s):.4f} s over "
+          f"{len(step_s)} pool steps, {total_new} tokens in {wall:.2f} s = "
+          f"{total_new / wall:.1f} generated tok/s, peak memory "
+          f"{peak_gb:.2f} GB")
+    return launches, params
+
+
+def phase_mamba_scoring(torch, params) -> int:
+    from repro_torch.configs import mamba2_1_3b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg = mamba2_1_3b.CONFIG
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (MAMBA_SCORE_BATCH,
+                                               SERVE_PROMPT_LEN),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = transformer.forward(params, cfg, tokens,
+                                        use_ssm_kernel=True)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        launches = ops.LAUNCHES["ssd_scan"]
+        t0 = time.perf_counter()
+        plain, _ = transformer.forward(params, cfg, tokens)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    require(launches == cfg.n_layers,
+            f"{launches} SSD launches in the scoring forward")
+    V = cfg.vocab_size
+    logits, plain = logits[..., :V], plain[..., :V]
+    require(bool(torch.isfinite(logits).all()), "finite logits")
+    scale = float(plain.abs().max())
+    err = float((logits - plain).abs().max()) / scale
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"[score] {cfg.name} forward B {MAMBA_SCORE_BATCH} S "
+          f"{SERVE_PROMPT_LEN}: {launches} SSD launches; {kern_s:.4f} s "
+          f"through the kernel, {plain_s:.4f} s through the plain SSD; "
+          f"max |logit diff| / max|logit| {err:.3g}, argmax agreement "
+          f"{agree:.4f}")
+    require(err <= MAMBA_LOGIT_TOL, f"scoring logits within "
+            f"{MAMBA_LOGIT_TOL} of the plain SSD's (got {err:.3g})")
+    return launches
+
+
+def phase_mamba_entry_point(torch) -> None:
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        results = serve.main(["--arch", "mamba2-1.3b", "--replicas", "2",
+                              "--requests", "6"])
+    text = buf.getvalue()
+    print(text, end="")
+    summary, _ = json.JSONDecoder().raw_decode(text[text.index("{"):])
+    require(summary["device"] == "cuda" and summary["arch"] == "mamba2-1.3b",
+            "mamba serve launcher ran on the card")
+    require(len(results) == 6 and sum(summary["routes"].values()) == 6,
+            "6 mamba requests served and routed")
+
+
 def main() -> int:
     import torch
 
@@ -547,6 +990,7 @@ def main() -> int:
     device = phase_device(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_flash(torch))
+    kernels.update(phase_ssd(torch))
     torch.cuda.empty_cache()
     train_launches = phase_main_path(torch)
     phase_entry_point(torch)
@@ -554,9 +998,15 @@ def main() -> int:
     serve_launches = phase_serving(torch)
     torch.cuda.empty_cache()
     phase_serve_entry_point(torch)
+    mamba_launches, params = phase_mamba_serving(torch)
+    phase_mamba_scoring(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_mamba_entry_point(torch)
     for name in ("wan_encode", "wan_decode"):
         kernels[name]["launches"] = train_launches[name]
     kernels["flash_attention"]["launches"] = serve_launches["flash_attention"]
+    kernels["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

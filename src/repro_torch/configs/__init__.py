@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only ``granite-8b`` (dense) is ported; the reference's other architectures
-need the MoE, SSM and encoder-decoder model families (ROADMAP.md Queue 1
-item 13).
+``granite-8b`` (dense) and ``mamba2-1.3b`` (SSM) are ported; the
+reference's other architectures need the MoE, hybrid and encoder-decoder
+model families (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "granite-8b": ("granite_8b", "transformer"),
+    "mamba2-1.3b": ("mamba2_1_3b", "transformer"),
 }
 
 ARCH_IDS = tuple(_MODULES)

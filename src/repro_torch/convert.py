@@ -18,6 +18,7 @@ from repro_torch import tree as T
 from repro_torch.core.sync import SyncState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
+from repro_torch.models.ssm import SSMCache
 
 
 def to_tensor(a: Any, device="cuda") -> torch.Tensor:
@@ -49,7 +50,14 @@ def sync_state_from_jax(np_state: Any, device="cuda") -> SyncState:
 
 
 def cache_from_jax(np_cache: Any, device="cuda") -> dict:
-    """A reference decode cache (``{"pos<i>": KVCache(k, v)}``, leaves as
-    numpy with their leading group axis) -> the port's."""
-    return {key: KVCache(*(to_tensor(a, device) for a in c))
-            for key, c in np_cache.items()}
+    """A reference decode cache (``{"pos<i>": KVCache(k, v)}`` or
+    ``SSMCache(state, conv)`` per position, leaves as numpy with their
+    leading group axis) -> the port's."""
+    kinds = {KVCache._fields: KVCache, SSMCache._fields: SSMCache}
+    out = {}
+    for key, c in np_cache.items():
+        kind = kinds.get(getattr(c, "_fields", None))
+        if kind is None:
+            raise ValueError(f"{key}: not a KVCache or SSMCache: {type(c)}")
+        out[key] = kind(*(to_tensor(a, device) for a in c))
+    return out

@@ -1,9 +1,10 @@
 """Public kernel wrappers: the hand-written CUDA kernel on the card, the
 plain version on the CPU.
 
-Counterpart of ``repro/kernels/ops.py`` (``flash_attention``, ``wan_encode``,
-``wan_decode`` and ``wan_codec_fns``, its lines 27-35 and 59-113), with the
-same signatures.  Dispatch is by the tensor's device:
+Counterpart of ``repro/kernels/ops.py`` (``flash_attention``, ``ssd_scan``,
+``wan_encode``, ``wan_decode`` and ``wan_codec_fns``, its lines 27-43 and
+59-113), with the same signatures (less the reference's ``interpret``: the
+CUDA kernels have no interpret mode).  Dispatch is by the tensor's device:
 
 - a CUDA tensor with ``use_kernel=True`` (the default) launches the kernel
   of ``csrc/wan_codec.cu``; a failed build or launch raises;
@@ -15,8 +16,10 @@ The codec inputs may be one flat vector ``(n,)`` or a batch ``(rows, n)``:
 the sync layer passes the whole pod dimension, and one launch covers it.
 ``LAUNCHES`` counts kernel launches per wrapper, and nothing else.
 ``FLASH_CHECK_HOOK``, when set, is called after every flash-attention launch
-with ``(q, k, v, out, causal=, window=, softcap=)``; a caller that holds the
-kernel to its plain version on a live path sets it (``chip_smoke.py``).
+with ``(q, k, v, out, causal=, window=, softcap=)``, and ``SSD_CHECK_HOOK``
+after every SSD launch with ``(x, a, Bm, Cm, y, final_state, chunk=,
+init_state=)``; a caller that holds a kernel to its plain version on a live
+path sets them (``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -29,13 +32,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (check_inputs,
                                                  flash_attention_cuda)
+from repro_torch.kernels.ssd_scan import check_inputs as check_ssd_inputs
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.wan_codec import (TIER_INV, TIER_QMAX, VALUE_DTYPES,
                                            check_value_dtype, pack_nibbles,
                                            unpack_nibbles)
 
 LAUNCHES: Dict[str, int] = {"wan_encode": 0, "wan_decode": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0, "ssd_scan": 0}
 FLASH_CHECK_HOOK: Optional[Callable] = None
+SSD_CHECK_HOOK: Optional[Callable] = None
 _MAX_ROWS = 65535                  # gridDim.y
 
 
@@ -82,6 +88,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         FLASH_CHECK_HOOK(q, k, v, out, causal=causal, window=window,
                          softcap=softcap)
     return out
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int = 256,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan: x ``(B, S, H, P)`` f32 (pre-multiplied by
+    dt), a ``(B, S, H)`` f32 log decay, Bm and Cm ``(B, S, H, N)`` f32 or
+    bf16, init_state ``(B, H, P, N)`` or None (zeros) -> (y ``(B, S, H, P)``
+    f32, final state ``(B, H, P, N)`` f32).  ``S`` must be at most ``chunk`` or a
+    multiple of it (``ValueError`` where the reference asserts).
+
+    A CUDA tensor launches ``csrc/ssd_scan.cu``, a CPU tensor runs the plain
+    ``ref.ssd``; both refuse what the kernel does not take.  The kernel is
+    forward-only, as the TPU kernel is: inputs that need a gradient raise
+    rather than run the plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, a, Bm, Cm, init_state)):
+        raise NotImplementedError(
+            "ssd_scan is forward-only (the TPU kernel has no VJP either); "
+            "its backward kernel is ROADMAP.md Queue 2 item 8")
+    check_ssd_inputs(x, a, Bm, Cm, chunk, init_state)
+    if x.device.type == "cpu":
+        return _ref.ssd(x, a, Bm, Cm, chunk=chunk, init_state=init_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan has no path for device {x.device}")
+    y, final = ssd_scan_cuda(x, a, Bm, Cm, chunk=chunk,
+                             init_state=init_state)
+    LAUNCHES["ssd_scan"] += 1
+    if SSD_CHECK_HOOK is not None:
+        SSD_CHECK_HOOK(x, a, Bm, Cm, y, final, chunk=chunk,
+                       init_state=init_state)
+    return y, final
 
 
 def _lib() -> ctypes.CDLL:

@@ -1,11 +1,17 @@
-"""Plain PyTorch versions of the port's kernels (the attention and codec
-parts of ``repro/kernels/ref.py``, its lines 26-33 and 91-161).
+"""Plain PyTorch versions of the port's kernels (the attention, SSD and
+codec parts of ``repro/kernels/ref.py``, its lines 26-59 and 91-161).
 
 ``sdpa`` is the spec of the flash-attention kernel: the full softmax over
 masks built from positions ``0..S-1``, through the port's
 ``layers.sdpa_reference``.  The kernel agrees with it to the tolerance of
 the reference's own kernel test (``2e-2`` in bf16, ``2e-5`` in f32), not to
 the bit.
+
+``ssd`` is the spec of the SSD chunked-scan kernel: the chunked algorithm
+of ``models/ssm.py::ssd_chunked`` at chunk ``min(chunk, S)``, all in f32.
+``ssd_naive`` is the literal per-step recurrence that anchors it.  The
+kernel agrees with ``ssd`` to the reference kernel test's tolerance
+(``y / max|y|`` within ``1e-5``, the final state within ``1e-3``).
 
 The codec functions are the bit-level spec of the fused WAN codec. The CPU
 path runs them, and on the card they are what the CUDA kernels are held
@@ -27,6 +33,7 @@ from repro_torch.kernels.wan_codec import (KEY_MASK, TIER_INV, TIER_QMAX,
                                            check_value_dtype, pack_nibbles,
                                            unpack_nibbles)
 from repro_torch.models.layers import attn_bias, sdpa_reference
+from repro_torch.models.ssm import ssd_chunked
 
 _SLICE_BLOCKS = 1 << 14        # 64M fp32 values per slice at block 4096
 
@@ -41,6 +48,34 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kp = torch.arange(Sk, device=q.device)[None].expand(B, Sk)
     bias = attn_bias(qp, kp, None, causal, window)
     return sdpa_reference(q, k, v, bias, softcap)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, *, chunk: int = 256,
+        init_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan: x ``(B, S, H, P)``, a ``(B, S, H)``, Bm and Cm
+    ``(B, S, H, N)``, init_state ``(B, H, P, N)`` -> (y in x.dtype, final
+    state f32)."""
+    return ssd_chunked(x, a, Bm, Cm, chunk=min(chunk, x.shape[1]),
+                       init_state=init_state)
+
+
+def ssd_naive(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+              Cm: torch.Tensor, init_state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Literal recurrence: s_t = exp(a_t) s_{t-1} + B_t ⊗ x_t; y_t = C_t · s_t."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros(B, H, P, N, dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    ys = []
+    for t in range(S):
+        s = s * torch.exp(a[:, t].to(f32))[..., None, None] + torch.einsum(
+            "bhn,bhp->bhpn", Bm[:, t].to(f32), x[:, t].to(f32))
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t].to(f32), s))
+    return torch.stack(ys, dim=1).to(x.dtype), s
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:

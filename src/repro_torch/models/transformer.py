@@ -1,13 +1,24 @@
-"""Dense decoder-only transformer, a loop over layer groups.
+"""Decoder-only stack of attention and SSM positions, a loop over layer
+groups.
 
-Counterpart of the dense path of ``repro/models/transformer.py``: the same
-parameter tree (repeated-block leaves stacked over ``cfg.n_groups`` on a
-leading axis), the same forward and next-token loss, and the same decode
-path: ``init_cache`` (one :class:`~repro_torch.models.layers.KVCache` per
-pattern position, stacked over groups), ``prefill`` and ``decode_step``.
-Windowed and soft-capped attention positions run as in the reference.
-Other ``arch_type`` values (MoE, SSM, hybrid, audio, vision) are ROADMAP
-Queue 1 item 13 and raise ``NotImplementedError``.
+Counterpart of the dense and SSM paths of ``repro/models/transformer.py``:
+the same parameter tree (repeated-block leaves stacked over ``cfg.n_groups``
+on a leading axis), the same forward and next-token loss, and the same
+decode path: ``init_cache`` (per pattern position, a
+:class:`~repro_torch.models.layers.KVCache` or an
+:class:`~repro_torch.models.ssm.SSMCache`, stacked over groups), ``prefill``
+and ``decode_step``.  Windowed and soft-capped attention positions run as in
+the reference; SSM positions (the mamba2 family) run
+:func:`~repro_torch.models.ssm.ssm_apply`.  MoE, hybrid, audio and vision
+models are ROADMAP Queue 1 item 13 and raise ``NotImplementedError``.
+
+One difference in dispatch, not in function: the reference's ``prefill``
+runs its SSM positions through ``ssd_chunked``; the port's ``prefill`` runs
+every SSD through ``ops.ssd_scan``, so that on the card the serving path
+runs the SSD kernel and no plain version.  On the CPU ``ops.ssd_scan`` is
+``ref.ssd`` = ``ssd_chunked`` at chunk ``min(chunk, S)``, exactly what the
+reference's prefill computes.  ``forward`` and ``loss_fn`` take the
+reference's ``use_ssm_kernel`` flag.
 """
 from __future__ import annotations
 
@@ -17,25 +28,30 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.models import layers as L
-from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models import ssm as SS
+from repro_torch.models.config import ATTN, LayerSpec, ModelConfig
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.has_moe or cfg.has_ssm \
+    if cfg.arch_type not in ("dense", "ssm") or cfg.has_moe \
+            or (cfg.has_ssm and cfg.has_attention) \
             or cfg.vision_patches or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-            f"the port runs the dense family (see ROADMAP.md Queue 1 item "
-            f"13 for MoE, SSM and encoder-decoder models)")
+            f"the port runs the dense and SSM families (see ROADMAP.md "
+            f"Queue 1 item 13 for MoE, hybrid and encoder-decoder models)")
 
 
 def _init_position(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                    device) -> Params:
     pdt = cfg.dtype("param")
-    p: Params = {"ln1": L.rmsnorm_init(cfg.d_model, pdt, device),
-                 "attn": L.attention_init(gen, cfg, device)}
+    p: Params = {"ln1": L.rmsnorm_init(cfg.d_model, pdt, device)}
+    if spec.kind == ATTN:
+        p["attn"] = L.attention_init(gen, cfg, device)
+    else:
+        p["ssm"] = SS.ssm_init(gen, cfg, device)
     if spec.mlp:
         p["ln2"] = L.rmsnorm_init(cfg.d_model, pdt, device)
         p["mlp"] = L.mlp_init(gen, cfg, device)
@@ -62,13 +78,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def _apply_position(p: Params, cfg: ModelConfig, spec: LayerSpec,
                     h: torch.Tensor, positions: torch.Tensor,
-                    cache: Optional[L.KVCache] = None,
-                    cache_pos=None) -> torch.Tensor:
-    """One pattern position: attention + optional MLP, pre-norm residual
-    (a decode step when ``cache`` is given; it is updated in place)."""
+                    cache=None, cache_pos=None,
+                    use_ssm_kernel: bool = False) -> torch.Tensor:
+    """One pattern position: (attention | SSM) + optional MLP, pre-norm
+    residual (a decode step when ``cache`` is given; it is updated in
+    place).  SSM positions ignore positions."""
     hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
-    out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions,
-                               cache=cache, cache_pos=cache_pos)
+    if spec.kind == ATTN:
+        out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions,
+                                   cache=cache, cache_pos=cache_pos)
+    else:
+        out, new = SS.ssm_apply(p["ssm"], cfg, hn, cache=cache,
+                                use_kernel=use_ssm_kernel)
+        if cache is not None:
+            cache.state.copy_(new.state)
+            cache.conv.copy_(new.conv)
     h = h + out
     if spec.mlp:
         hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
@@ -83,9 +107,11 @@ def _arange_positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence forward. Returns (logits f32, aux)."""
+            positions: Optional[torch.Tensor] = None,
+            use_ssm_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence forward. Returns (logits f32, aux).
+    ``use_ssm_kernel`` sends the SSM positions' SSD through
+    ``ops.ssd_scan``, as the reference's flag does."""
     check_supported(cfg)
     if positions is None:
         positions = _arange_positions(tokens)
@@ -97,7 +123,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.pattern):
             gp = _select_group(params["blocks"][f"pos{i}"], g)
-            h = _apply_position(gp, cfg, spec, h, positions)
+            h = _apply_position(gp, cfg, spec, h, positions,
+                                use_ssm_kernel=use_ssm_kernel)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = L.unembed_apply(params["embed"], cfg, h)
     zero = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -123,11 +150,12 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch: dict
-            ) -> Tuple[torch.Tensor, dict]:
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
+            use_ssm_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
     """Next-token LM loss. batch: {tokens, labels[, mask, positions]}."""
     logits, aux = forward(params, cfg, batch["tokens"],
-                          positions=batch.get("positions"))
+                          positions=batch.get("positions"),
+                          use_ssm_kernel=use_ssm_kernel)
     ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
     return ce, {"loss": ce, "ce": ce, **aux}
 
@@ -139,19 +167,24 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device="cuda") -> Params:
-    """Cache tree: per pattern position, one ``KVCache`` whose leaves carry
-    a leading group axis, as the reference's."""
+    """Cache tree: per pattern position, one ``KVCache`` (attention) or
+    ``SSMCache`` (SSM) whose leaves carry a leading group axis, as the
+    reference's."""
     check_supported(cfg)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
-        one = L.init_kv_cache(cfg, spec, batch, seq_len, device=device)
-        caches[f"pos{i}"] = L.KVCache(
+        if spec.kind == ATTN:
+            one = L.init_kv_cache(cfg, spec, batch, seq_len, device=device)
+        else:
+            one = SS.init_ssm_cache(cfg, batch, device=device)
+        caches[f"pos{i}"] = type(one)(
             *(x.new_zeros((cfg.n_groups, *x.shape)) for x in one))
     return caches
 
 
 def _group_cache(cache: Params, g: int) -> Params:
-    return {key: L.KVCache(c.k[g], c.v[g]) for key, c in cache.items()}
+    """Group ``g``'s cache: views into the pool, so writes land in place."""
+    return {key: type(c)(*(x[g] for x in c)) for key, c in cache.items()}
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
@@ -182,7 +215,9 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``cache_len`` positions.  As in the reference, each attention position
     recomputes the prompt's K/V into the cache; a ring buffer shorter than
     the prompt keeps the tail, rolled so that slot j holds position
-    p = j (mod C).  Returns (last-token logits ``(B, V)`` f32, cache)."""
+    p = j (mod C).  Each SSM position writes its final state and the last
+    conv inputs, its SSD running through ``ops.ssd_scan`` (the kernel on
+    the card).  Returns (last-token logits ``(B, V)`` f32, cache)."""
     check_supported(cfg)
     B, Sq = tokens.shape
     positions = _arange_positions(tokens)
@@ -191,22 +226,27 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     h = L.embed_apply(params["embed"], cfg, tokens)
     for g in range(cfg.n_groups):
+        caches = _group_cache(cache, g)
         for i, spec in enumerate(cfg.pattern):
             p = _select_group(params["blocks"][f"pos{i}"], g)
+            c = caches[f"pos{i}"]
+            if spec.kind != ATTN:
+                h = _apply_position(p, cfg, spec, h, positions, cache=c,
+                                    use_ssm_kernel=True)
+                continue
             hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
             out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions)
             k = (hn @ p["attn"]["wk"].to(cdt)).reshape(B, Sq, K, Dh)
             v = (hn @ p["attn"]["wv"].to(cdt)).reshape(B, Sq, K, Dh)
             k = L.position_embed(cfg, k, positions)
-            c = cache[f"pos{i}"]
-            C = c.k.shape[2]
+            C = c.k.shape[1]
             if C >= Sq:
-                c.k[g, :, :Sq] = k
-                c.v[g, :, :Sq] = v
+                c.k[:, :Sq] = k
+                c.v[:, :Sq] = v
             else:
                 shift = Sq % C
-                c.k[g] = torch.roll(k[:, -C:], shift, dims=1)
-                c.v[g] = torch.roll(v[:, -C:], shift, dims=1)
+                c.k.copy_(torch.roll(k[:, -C:], shift, dims=1))
+                c.v.copy_(torch.roll(v[:, -C:], shift, dims=1))
             h = h + out
             if spec.mlp:
                 hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)

@@ -1,20 +1,22 @@
-"""Serving plane: prefill + KV-cache decode, continuous batching on top.
+"""Serving plane: prefill + cached decode, continuous batching on top.
 
 Counterpart of ``repro/serving/engine.py``, three layers, bottom to top:
 
 - :class:`ServingEngine`: prefill + decode primitives over the model's
-  decode cache (full KV for global positions, a ring buffer for windowed
-  ones).
+  decode cache (full KV for global attention positions, a ring buffer for
+  windowed ones, an O(1) recurrent state and conv ring for SSM positions).
 - :class:`ContinuousEngine`: a fixed **slot pool** over one decode cache
   whose batch axis is the pool.  Each request is prefilled *solo* at its
   true length (on the card, every attention layer of that prefill runs the
-  flash kernel under ``attention_impl="pallas"``), its cache rows are
-  copied in place into a free slot, and one ``decode_step`` call with the
-  ``(n_slots,)`` position vector advances every slot at its own position
-  (the reference ``vmap``s a single-sequence step over slots; here the
-  batch dimension is written out).  Each row reads only its own cache row
-  and position, so a slot's tokens are bit-identical whether or not
-  another slot was inserted or evicted mid-flight.
+  flash kernel under ``attention_impl="pallas"`` and every SSM layer the
+  SSD kernel), every leaf of its cache (K/V, or SSM state and conv ring)
+  is copied in place into a free slot's row, and one ``decode_step`` call
+  with the ``(n_slots,)`` position vector advances every slot at its own
+  position (the reference ``vmap``s a single-sequence step over slots;
+  here the batch dimension is written out; SSM positions need no
+  position).  Each row reads only its own cache row and position, so a
+  slot's tokens are bit-identical whether or not another slot was inserted
+  or evicted mid-flight.
 - :class:`ContinuousScheduler` / :class:`BatchScheduler`: request-level
   scheduling, host-side logic copied from the reference: at most one
   prefill-insert between decode steps, or run-to-completion groups.
@@ -143,8 +145,12 @@ class _Slot:
 class ContinuousEngine:
     """Fixed slot pool with per-slot insert / evict over one decode cache.
 
-    The cache is allocated once with batch axis ``n_slots``; a request
-    occupies exactly one slot from insert to evict.  One decode step is one
+    The cache (KV for attention positions, state and conv ring for SSM
+    positions) is allocated once with batch axis ``n_slots``; a request
+    occupies exactly one slot from insert to evict.  A prompt the model
+    cannot prefill (for the SSM family, a length above the SSD chunk that
+    is not a multiple of it, as in the reference) raises ``ValueError``
+    from ``insert`` and leaves every slot as it was.  One decode step is one
     ``decode_step`` over the pool with each slot's own position, so mixed
     prompt lengths coexist without padding.
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels (the WAN codec, flash attention) against their plain
-versions, on the card.
+"""The CUDA kernels (the WAN codec, flash attention, the SSD scan) against
+their plain versions, on the card.
 
 Marked ``cuda``: these run only where a CUDA device and ``nvcc`` exist and
 skip elsewhere (the fixture decides at run time, never at import).  Run
@@ -98,3 +98,77 @@ def test_flash_reads_strided_views_in_place(cuda):
     out = ops.flash_attention(q, k, v)
     torch.testing.assert_close(out, ref.sdpa(q, k, v), atol=2e-5,
                                rtol=2e-5)
+
+
+# the reference's SSD tolerance (tests/test_kernels.py): y / max|y| and the
+# final state; f32 sums in another order than the chunked plain version
+SSD_Y_TOL, SSD_STATE_TOL = 1e-5, 1e-3
+
+
+def _ssd_case(cuda, B, S, H, P, N, chunk, *, bc_dtype=torch.float32,
+              init=False, expand=False, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    x = randn(B, S, H, P)
+    a = -randn(B, S, H).abs() * 0.1
+    if expand:                          # one B/C group: stride 0 over heads
+        Bm = randn(B, S, 1, N).to(bc_dtype).expand(B, S, H, N)
+        Cm = randn(B, S, 1, N).to(bc_dtype).expand(B, S, H, N)
+    else:
+        Bm, Cm = randn(B, S, H, N).to(bc_dtype), randn(B, S, H, N).to(bc_dtype)
+    s0 = randn(B, H, P, N) if init else None
+    before = ops.LAUNCHES["ssd_scan"]
+    y, f = ops.ssd_scan(x, a, Bm, Cm, chunk=chunk, init_state=s0)
+    y_ref, f_ref = ref.ssd(x, a, Bm, Cm, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert f.dtype == torch.float32 and f.shape == (B, H, P, N)
+    scale = float(y_ref.abs().max())
+    torch.testing.assert_close(y / scale, y_ref / scale, atol=SSD_Y_TOL,
+                               rtol=0)
+    torch.testing.assert_close(f, f_ref, atol=SSD_STATE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
+    (2, 64, 8, 8, 16, 64),              # the reference's kernel tests
+    (1, 256, 4, 64, 128, 256),          # S == chunk
+    (2, 100, 4, 64, 128, 256),          # S < chunk, ragged sub-tiles
+    (2, 96, 3, 24, 40, 32)])            # odd widths
+def test_ssd_matches_plain(cuda, B, S, H, P, N, chunk, init):
+    _ssd_case(cuda, B, S, H, P, N, chunk, init=init)
+
+
+@pytest.mark.parametrize("expand", [False, True])
+def test_ssd_bf16_and_stride0_bc(cuda, expand):
+    _ssd_case(cuda, 1, 512, 8, 64, 128, 256, bc_dtype=torch.bfloat16,
+              expand=expand)
+
+
+def test_ssd_at_the_serving_prefill_shape(cuda):
+    # mamba2-1.3b's prefill: B 1, S 2048, 64 heads, P 64, N 128, chunk 256,
+    # x and a f32, B and C bf16 as one group's stride-0 view over heads
+    _ssd_case(cuda, 1, 2048, 64, 64, 128, 256, bc_dtype=torch.bfloat16,
+              expand=True)
+
+
+def test_ssd_reads_strided_views_in_place(cuda):
+    # x, B and C as column slices of one projection, as ssm_apply passes them
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, S, H, P, N = 2, 256, 4, 16, 32
+    proj = torch.randn(B, S, H * P + 2 * N, generator=gen, device=cuda)
+    x = proj[..., :H * P].reshape(B, S, H, P)
+    Bm = proj[..., H * P:H * P + N][:, :, None].expand(B, S, H, N)
+    Cm = proj[..., H * P + N:][:, :, None].expand(B, S, H, N)
+    a = -torch.rand(B, S, H, generator=gen, device=cuda) * 0.1
+    y, f = ops.ssd_scan(x, a, Bm, Cm, chunk=64)
+    y_ref, f_ref = ref.ssd(x, a, Bm, Cm, chunk=64)
+    scale = float(y_ref.abs().max())
+    torch.testing.assert_close(y / scale, y_ref / scale, atol=SSD_Y_TOL,
+                               rtol=0)
+    torch.testing.assert_close(f, f_ref, atol=SSD_STATE_TOL, rtol=0)

@@ -113,6 +113,8 @@ def _summary(text):
      "--router", "balanced"],
     ["--scheduler", "batch", "--batch", "2", "--replicas", "3",
      "--router", "nearest", "--autoscale"],
+    ["--arch", "mamba2-1.3b", "--scheduler", "continuous", "--slots", "2",
+     "--replicas", "2", "--router", "balanced"],
 ])
 def test_launcher_routes_match_reference(flags, capsys):
     common = ["--prompt-len", "12", "--new-tokens", "4", "--requests", "7"]

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's serving path spends its time on one CUDA card.
 
-Builds granite-8b at its published size (36 layers, bf16, random weights
-from a seed, ``attention_impl="pallas"``) in one 4-slot ``ContinuousEngine``
-and profiles, with ``torch.profiler`` over CPU and CUDA activity:
+Builds ``--arch`` at its published size (random weights from a seed, bf16):
+granite-8b (the default: 36 layers, ``attention_impl="pallas"``, so every
+prefill layer runs the flash kernel) or mamba2-1.3b (48 SSM layers, every
+prefill layer runs the SSD kernel; ``--prompt-len`` must then be at most
+256 or a multiple of it).  One 4-slot ``ContinuousEngine`` is profiled,
+with ``torch.profiler`` over CPU and CUDA activity:
 
 - one insert (the solo prefill of a ``--prompt-len`` prompt plus the cache
   copy into its slot);
@@ -19,7 +22,7 @@ line is one JSON object with all of it.
 
 Run from the repository root on a machine with a CUDA card:
 
-    PYTHONPATH=src python tools/serving_breakdown.py
+    PYTHONPATH=src python tools/serving_breakdown.py [--arch mamba2-1.3b]
 """
 from __future__ import annotations
 
@@ -33,9 +36,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import granite_8b
+from repro_torch.configs import granite_8b, mamba2_1_3b
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ContinuousEngine
+
+
+CONFIGS = {"granite-8b": granite_8b.CONFIG.replace(attention_impl="pallas"),
+           "mamba2-1.3b": mamba2_1_3b.CONFIG}
 
 
 def _device_us(evt) -> float:
@@ -64,6 +71,7 @@ def _window(prof, wall_s: float, per: int, top: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(CONFIGS), default="granite-8b")
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=8)
@@ -76,7 +84,7 @@ def main(argv=None) -> dict:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    cfg = granite_8b.CONFIG.replace(attention_impl="pallas")
+    cfg = CONFIGS[args.arch]
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
     n_slots = 4
