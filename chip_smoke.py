@@ -65,6 +65,26 @@ Phases (any failure raises and the script exits non-zero):
 7b. Mamba2 scoring: ``forward(..., use_ssm_kernel=True)`` at B 2, S 2048
    (48 launches), held to the same forward through the plain SSD.
 8. Entry point: ``repro_torch.launch.serve.main --arch mamba2-1.3b``.
+2d. Block top-k: hold ``ops.topk_compress_chunked`` (the legacy sparse
+   shipping's kernel) bit-equal to its plain version (vals, idx and the
+   decompressed dense) on each of granite-8b's 12 leaf shapes at 2 layers
+   as ``_ship_ring`` cuts them into chunks of 2**26 values, in f32 and
+   bf16, and on ties, zeros, -0.0, pad winners (n 1027), ``k // nb == 0``,
+   ``nb * k_block < k``, ``k_block`` 512 and ``n < block``; then time it
+   at the largest leaf (embed, 2 pods x 3 chunks) and over a whole round's
+   12 launches beside its bound, its plain version and the nearest
+   PyTorch call (``torch.topk`` per block: no tie order, magnitudes).
+3b. Sync strategies at full width: phase 3's setup (granite-8b x2 layers,
+   2 pods, batch 8, seq 512, sgd, interval 2, 4 steps) under sparse
+   ``asgd_ga``, ``ama`` and ``asp`` (top-k 0.01, no codec), ``sma`` and
+   ``asgd``; every top-k launch held bit-equal to the plain version
+   (``TOPK_CHECK_HOOK``), 24 launches per sparse strategy, none for the
+   others, no codec, flash or SSD launch.
+3c. The paper's models (LeNet, ResNet, DeepFM) at their own sizes, 2 pods,
+   Fig 11's ``asgd@1``, ``asgd_ga@8``, ``ama@8``, ``sma@8`` and ``ama@8``
+   at top-k 0.01, 16 steps each.
+4b. Entry point: ``repro_torch.launch.train.main --sync ama
+   --compress-topk 0.02``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -119,6 +139,10 @@ MAMBA_SCORE_BATCH = 2
 # SSDs differ in f32 rounding, which flips bf16 roundings that 48 layers
 # carry on; on an H100: 7.7e-3, every argmax equal)
 MAMBA_LOGIT_TOL = 2e-2
+# the legacy sparse shipping: top-k block (the reference's default)
+TOPK_BLOCK = 1024
+STRATEGIES_3B = (("asgd_ga", TOPK), ("ama", TOPK), ("asp", TOPK),
+                 ("sma", 0.0), ("asgd", 0.0))
 
 
 def require(cond: bool, what: str) -> None:
@@ -428,7 +452,8 @@ def phase_main_path(torch) -> dict:
             f"finite losses {losses}")
     require(len(rounds) == 2, f"2 sync rounds checked, got {len(rounds)}")
     require(launches == {"wan_encode": 2, "wan_decode": 4,
-                         "flash_attention": 0, "ssd_scan": 0},
+                         "flash_attention": 0, "ssd_scan": 0,
+                         "topk_compress": 0},
             f"main path launches {launches}")
     for leaf in T.leaves(state.params):
         require(bool(torch.isfinite(leaf).all()), "finite params")
@@ -449,6 +474,336 @@ def phase_entry_point(torch) -> None:
                           "--error-feedback", "--log-every", "4"])
     require(summary["device"] == "cuda", "launcher ran on the card")
     require(math.isfinite(summary["loss_last"]), "finite loss")
+
+
+def topk_equal(torch, got, want, chunk: int, what: str) -> None:
+    """Hold a top-k launch bit-equal to its plain version: vals (as bits,
+    so -0.0 != +0.0), idx and the decompressed dense rows."""
+    from repro_torch.kernels import ops
+
+    (vk, ik), (vp, ip) = got, want
+    bits = torch.int16 if vk.dtype == torch.bfloat16 else torch.int32
+    require(vk.dtype == vp.dtype and vk.shape == vp.shape
+            and torch.equal(ik, ip) and torch.equal(vk.view(bits),
+                                                    vp.view(bits)),
+            f"top-k {what}: vals and idx bit-equal to plain")
+    dk = ops.topk_decompress(vk, ik, chunk)
+    dp = ops.topk_decompress(vp, ip, chunk)
+    require(torch.equal(dk.view(bits), dp.view(bits)),
+            f"top-k {what}: decompressed dense bit-equal to plain")
+
+
+def topk_bound(x_bytes: int, n_values: int, out_values: int,
+               itemsize: int) -> tuple:
+    """The least time of the top-k over inputs of ``x_bytes`` (read once)
+    holding ``n_values`` values, writing ``out_values`` vals and int32 idx:
+    the bytes over the memory rate, or one |x| compare per value at the f32
+    rate, whichever is larger."""
+    b_ms = (x_bytes + out_values * (itemsize + 4)) / HBM_BYTES_PER_S * 1e3
+    f_ms = n_values / F32_FLOP_PER_S * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def granite_leaf_sizes(torch) -> list:
+    """Per-pod values of each leaf of granite-8b at 2 layers."""
+    from repro_torch import tree as T
+    from repro_torch.configs import granite_8b
+    from repro_torch.models import transformer
+
+    cfg = granite_8b.CONFIG.replace(n_layers=2)
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    sizes = [x.numel() for x in T.leaves(params)]
+    require(sum(sizes) == N_MAIN and len(sizes) == 12,
+            f"granite leaves {sizes}")
+    return sizes
+
+
+def phase_topk(torch) -> dict:
+    from repro_torch.core.sync import CHUNK
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sizes = granite_leaf_sizes(torch)
+    torch.cuda.empty_cache()
+
+    def ship_args(n):
+        chunk = min(CHUNK, n)
+        return chunk, max(1, int(chunk * TOPK))
+
+    def check(x, chunk, k, what):
+        got = ops.topk_compress_chunked(x, chunk, k, block=TOPK_BLOCK)
+        want = ops.topk_compress_chunked(x, chunk, k, block=TOPK_BLOCK,
+                                         use_kernel=False)
+        torch.cuda.synchronize()
+        topk_equal(torch, got, want, chunk, what)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in sizes:
+            x = torch.randn(PODS, n, generator=gen, device="cuda").to(dtype)
+            check(x, *ship_args(n), f"leaf {n} {dtype}")
+        base = torch.randn(3, 300_000, generator=gen, device="cuda")
+        negz = torch.where(base > 0, -0.0, 0.0)
+        negz[:, 5] = -0.25
+        edge = [(torch.round(base * 2), 300_000, 3000, "ties"),
+                (torch.zeros_like(base), 300_000, 3000, "zeros"),
+                (negz, 300_000, 3000, "-0.0"),
+                (base[:, :1027].clone(), 1027, 16, "pad wins (n 1027)"),
+                (base, 5000, 3, "k // nb == 0"),
+                (base[:, :8192].clone(), 8192, 81, "nb * k_block < k"),
+                (base, 4096, 2048, "k_block 512"),
+                (base[:, :300].clone(), 300, 20, "n < block")]
+        for x, chunk, k, what in edge:
+            check(x.to(dtype), chunk, k, f"{what} {dtype}")
+        print(f"[topk] {dtype}: kernel bit-equal to plain (vals, idx, "
+              f"dense) on the 12 granite leaves as _ship_ring chunks them "
+              f"and on {len(edge)} edge cases")
+    del x, base, negz, edge
+    torch.cuda.empty_cache()
+
+    # the largest leaf (embed: 2 pods x 3 chunks of 2**26), f32 and bf16
+    n = max(sizes)
+    chunk, k = ship_args(n)
+    k_block = max(1, k // (chunk // TOPK_BLOCK))
+    x32 = torch.randn(PODS, n, generator=gen, device="cuda")
+    rows = []
+    for x in (x32, x32.bfloat16()):
+        got = ops.topk_compress_chunked(x, chunk, k)
+        err = float((got[0].float() - ref.topk_block_chunks(
+            x, chunk, k, TOPK_BLOCK)[0].float()).abs().max())
+        ms = time_ms(torch, lambda: ops.topk_compress_chunked(x, chunk, k),
+                     reps=20)
+        plain_ms = time_ms(torch, lambda: ops.topk_compress_chunked(
+            x, chunk, k, use_kernel=False), reps=3, warm=1)
+        lib_ms = time_ms(torch, lambda: torch.topk(
+            x.abs().view(-1, TOPK_BLOCK), k_block, dim=1), reps=20)
+        bound, by = topk_bound(x.numel() * x.element_size(), x.numel(),
+                               got[0].numel(), x.element_size())
+        rows.append((x.dtype, ms, plain_ms, lib_ms, bound, by, err))
+        print(f"[topk] embed leaf {PODS} x {n} {x.dtype}, chunk {chunk}, "
+              f"k {k}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+              f"{plain_ms:.2f} ms, nearest torch.topk per block "
+              f"{lib_ms:.4f} ms: no tie order, magnitudes)")
+    del x32, x, got
+    torch.cuda.empty_cache()
+
+    # a whole round: the 12 leaves, one launch each
+    round_rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = [torch.randn(PODS, m, generator=gen, device="cuda").to(dtype)
+              for m in sizes]
+        args = [ship_args(m) for m in sizes]
+        blocks = [min(TOPK_BLOCK, c) for c, _ in args]
+        kbs = [max(1, k // -(-c // b)) for (c, k), b in zip(args, blocks)]
+
+        def kernel_round():
+            return [ops.topk_compress_chunked(x, c, k)
+                    for x, (c, k) in zip(xs, args)]
+
+        outs = kernel_round()
+        ms = time_ms(torch, kernel_round, reps=10)
+        plain_ms = time_ms(torch, lambda: [ops.topk_compress_chunked(
+            x, c, k, use_kernel=False) for x, (c, k) in zip(xs, args)],
+            reps=2, warm=1)
+        lib_ms = time_ms(torch, lambda: [torch.topk(
+            x.abs().view(-1, b), kb, dim=1)
+            for x, b, kb in zip(xs, blocks, kbs)], reps=10)
+        itemsize = xs[0].element_size()
+        bound, by = topk_bound(sum(x.numel() for x in xs) * itemsize,
+                               sum(x.numel() for x in xs),
+                               sum(v.numel() for v, _ in outs), itemsize)
+        round_rows[dtype] = (ms, plain_ms, lib_ms, bound, by)
+        print(f"[topk] a round's 12 launches, {PODS} pods, {dtype}: "
+              f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+              f"{plain_ms:.2f} ms, nearest torch.topk per block "
+              f"{lib_ms:.4f} ms)")
+        del xs, outs
+        torch.cuda.empty_cache()
+    ms, plain_ms, lib_ms, bound, by = round_rows[torch.float32]
+    return {"topk_compress": {
+        "name": "topk_compress", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_compress.cu",
+        "replaces": "src/repro/kernels/topk_compress.py:35",
+        "max_abs_err": max(r[-1] for r in rows), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": lib_ms,
+        "library_call": "torch.topk(x.abs().view(-1, 1024), k_block) per "
+                        "leaf: the nearest call, not the same function"}}
+
+
+def phase_strategies(torch) -> int:
+    """Phase 3's setup under each sync strategy; returns the top-k launches
+    of the sparse runs."""
+    from repro_torch import tree as T
+    from repro_torch.configs import granite_8b
+    from repro_torch.core import sync as S
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = granite_8b.CONFIG.replace(n_layers=2)
+    clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
+                                  data_size=1.0) for i in range(PODS))
+    total = 0
+    for strategy, topk in STRATEGIES_3B:
+        sync = S.SyncConfig(strategy, 2, compress_topk=topk)
+        plan = build_training_plan(TrainingRequest(
+            model=cfg.name, clouds=clouds, sync=sync, n_iters=4,
+            global_batch=8))
+        batches = make_batches(plan, cfg.vocab_size, 512, "cuda")
+        trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                          lambda g: transformer.init_params(g, cfg, "cuda"),
+                          TrainerConfig(n_pods=PODS, optimizer="sgd",
+                                        lr=0.02, sync=sync),
+                          device="cuda")
+        checked, check_s = [], {}
+
+        def check_hook(x, vals, idx, *, chunk, k, block):
+            """Hold each launch of the round to the plain version on the
+            same input, outside the counts and the round's time (the
+            round's queued work finishes before the clock starts)."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counts = dict(ops.LAUNCHES)
+            want = ref.topk_block_chunks(x, chunk, k, block)
+            topk_equal(torch, (vals, idx), want, chunk,
+                       f"{strategy} launch {len(checked)}")
+            checked.append(tuple(x.shape))
+            ops.LAUNCHES.update(counts)
+            torch.cuda.synchronize()
+            r = len(trainer.sync_seconds)
+            check_s[r] = check_s.get(r, 0.0) + time.perf_counter() - t0
+
+        state = trainer.init_state(SEED)
+        leaves = T.leaves(state.params)
+        model_mb = sum(x.numel() * x.element_size()
+                       for x in leaves) / PODS / 1e6
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.TOPK_CHECK_HOOK = check_hook
+        ops.reset_launches()
+        state, hist = trainer.fit(state, batches, 4, model_mb=model_mb)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        ops.TOPK_CHECK_HOOK = None
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expect = 12 * 2 if topk else 0
+        require(launches == {"wan_encode": 0, "wan_decode": 0,
+                             "flash_attention": 0, "ssd_scan": 0,
+                             "topk_compress": expect},
+                f"{strategy} launches {launches}")
+        require(len(checked) == expect, f"{len(checked)} launches checked")
+        losses = hist["loss_per_pod"]
+        require(all(math.isfinite(v) for row in losses for v in row),
+                f"{strategy}: finite losses {losses}")
+        for leaf in T.leaves(state.params):
+            require(bool(torch.isfinite(leaf).all()),
+                    f"{strategy}: finite params")
+        rounds = trainer.sync_seconds
+        net = [t - check_s.get(i, 0.0) for i, t in enumerate(rounds)]
+        require(len(rounds) == (0 if strategy == "asgd" else 2),
+                f"{strategy}: {len(rounds)} sync rounds")
+        frac = float(state.sync_state.significant_frac)
+        print(f"[strategies] {strategy}@2 top-k {topk}: losses {losses}; "
+              f"step s {[round(t, 4) for t in trainer.step_seconds]}, "
+              f"sync-round s {[round(t, 4) for t in net]} (net of the "
+              f"check's {[round(v, 4) for v in check_s.values()]}), peak "
+              f"memory {peak_gb:.2f} GB, launches {launches}"
+              + (f", significant_frac {frac:.4g}" if strategy == "asp"
+                 else ""))
+        total += launches["topk_compress"]
+        del trainer, state, leaves, batches
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_paper_models(torch) -> None:
+    from repro_torch import tree as T
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data.pipeline import GeoDataset, synthetic_classification
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.reference import PAPER_MODELS
+    from repro_torch.training.trainer import (Trainer, TrainerConfig,
+                                              accuracy_eval,
+                                              stack_pod_batches)
+
+    runs = (("asgd", 1, 0.0), ("asgd_ga", 8, 0.0), ("ama", 8, 0.0),
+            ("sma", 8, 0.0), ("ama", 8, TOPK))
+
+    def check_hook(x, vals, idx, *, chunk, k, block):
+        counts = dict(ops.LAUNCHES)
+        topk_equal(torch, (vals, idx), ref.topk_block_chunks(
+            x, chunk, k, block), chunk, f"paper model leaf {tuple(x.shape)}")
+        ops.LAUNCHES.update(counts)
+
+    for name in ("lenet", "resnet", "deepfm"):
+        m = PAPER_MODELS[name]
+        fv = 5400 if name == "deepfm" else None
+        data = synthetic_classification(2000, m["input_shape"],
+                                        m["n_classes"], seed=0,
+                                        feature_vocab=fv)
+        test = synthetic_classification(500, m["input_shape"],
+                                        m["n_classes"], seed=1,
+                                        feature_vocab=fv)
+        geo = GeoDataset.partition(data, ["bj", "sh"], [1, 1])
+        out = {}
+        for strategy, interval, topk in runs:
+            loaders = [geo.loader("bj", 32, seed=0),
+                       geo.loader("sh", 32, seed=1)]
+            trainer = Trainer(
+                lambda p, b, m=m: (m["loss"](p, b), {}),
+                lambda g, m=m: m["init"](g, "cuda"),
+                TrainerConfig(n_pods=2, optimizer="sgd", lr=0.05,
+                              sync=SyncConfig(strategy, interval,
+                                              compress_topk=topk)),
+                device="cuda")
+            state = trainer.init_state(SEED)
+            n_leaves = len(T.leaves(state.params))
+            ops.TOPK_CHECK_HOOK = check_hook
+            ops.reset_launches()
+            state, hist = trainer.fit(
+                state, lambda s: stack_pod_batches(
+                    [next(ld) for ld in loaders], "cuda"), 16,
+                eval_fn=accuracy_eval(m["apply"], test), eval_every=16)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            ops.TOPK_CHECK_HOOK = None
+            expect = 2 * n_leaves if topk else 0
+            require(launches == {"wan_encode": 0, "wan_decode": 0,
+                                 "flash_attention": 0, "ssd_scan": 0,
+                                 "topk_compress": expect},
+                    f"{name} {strategy}@{interval} launches {launches}")
+            require(all(math.isfinite(v) for v in hist["loss"]),
+                    f"{name} {strategy}: finite losses")
+            key = f"{strategy}@{interval}" + (f" top-k {topk}" if topk
+                                              else "")
+            out[key] = {"loss_first": round(hist["loss"][0], 4),
+                        "loss_last4": round(statistics.mean(
+                            hist["loss"][-4:]), 4),
+                        "acc": round(hist["eval"][-1][1], 4),
+                        "step_s": round(statistics.median(
+                            trainer.step_seconds), 5),
+                        "topk_launches": launches["topk_compress"]}
+        print(f"[paper] {name} ({n_leaves} leaves), 2 pods, batch 32, 16 "
+              f"steps: {json.dumps(out)}")
+
+
+def phase_entry_point_ama(torch) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launches()
+    summary = train.main(["--preset", "tiny", "--sync", "ama",
+                          "--compress-topk", "0.02", "--interval", "4",
+                          "--steps", "8", "--log-every", "4"])
+    require(summary["device"] == "cuda", "launcher ran on the card")
+    require(math.isfinite(summary["loss_last"]), "finite loss")
+    require(ops.LAUNCHES["topk_compress"] > 0, "the sparse ama rounds "
+            "launched the top-k kernel")
 
 
 def phase_serving(torch) -> dict:
@@ -531,7 +886,7 @@ def phase_serving(torch) -> dict:
                 for x in t), "tokens within the vocabulary")
     require(launches == {"wan_encode": 0, "wan_decode": 0,
                          "flash_attention": cfg.n_layers * n_prefills,
-                         "ssd_scan": 0},
+                         "ssd_scan": 0, "topk_compress": 0},
             f"serving launches {launches}: {cfg.n_layers} flash launches "
             f"per prefill")
     require(len(checked) == cfg.n_layers,
@@ -859,7 +1214,8 @@ def phase_mamba_serving(torch):
                 for x in t), "tokens within the vocabulary")
     require(launches == {"wan_encode": 0, "wan_decode": 0,
                          "flash_attention": 0,
-                         "ssd_scan": cfg.n_layers * n_prefills},
+                         "ssd_scan": cfg.n_layers * n_prefills,
+                         "topk_compress": 0},
             f"mamba serving launches {launches}: {cfg.n_layers} SSD "
             f"launches per prefill")
     require(len(checked) == cfg.n_layers,
@@ -992,8 +1348,14 @@ def main() -> int:
     kernels.update(phase_flash(torch))
     kernels.update(phase_ssd(torch))
     torch.cuda.empty_cache()
+    kernels.update(phase_topk(torch))
+    torch.cuda.empty_cache()
     train_launches = phase_main_path(torch)
+    torch.cuda.empty_cache()
+    topk_launches = phase_strategies(torch)
+    phase_paper_models(torch)
     phase_entry_point(torch)
+    phase_entry_point_ama(torch)
     torch.cuda.empty_cache()
     serve_launches = phase_serving(torch)
     torch.cuda.empty_cache()
@@ -1007,6 +1369,7 @@ def main() -> int:
         kernels[name]["launches"] = train_launches[name]
     kernels["flash_attention"]["launches"] = serve_launches["flash_attention"]
     kernels["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
+    kernels["topk_compress"]["launches"] = topk_launches
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

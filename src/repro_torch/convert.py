@@ -43,6 +43,24 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig, device="cuda") -> Any:
     return out
 
 
+def paper_params_from_numpy(np_tree: Any, model: str, device="cuda") -> Any:
+    """The reference's parameters of a paper model (``"lenet"``,
+    ``"resnet"`` or ``"deepfm"``; leaves as numpy) -> the port's, checked
+    leaf for leaf against the port's layout of that model (HWIO convs,
+    ``(in, out)`` dense weights: the same on both sides)."""
+    from repro_torch.models.reference import PAPER_MODELS
+
+    out = T.tree_map(lambda a: to_tensor(a, device), np_tree)
+    like = PAPER_MODELS[model]["init"](torch.Generator().manual_seed(0),
+                                       "cpu")
+    got = [(p, tuple(x.shape)) for p, x in T.leaves_with_path(out)]
+    want = [(p, tuple(x.shape)) for p, x in T.leaves_with_path(like)]
+    if got != want:
+        raise ValueError(f"tree does not hold {model}'s parameters: "
+                         f"{got} != {want}")
+    return out
+
+
 def sync_state_from_jax(np_state: Any, device="cuda") -> SyncState:
     """A reference ``SyncState`` (leaves as numpy) -> the port's."""
     return SyncState(*(T.tree_map(lambda a: to_tensor(a, device), getattr(

@@ -1,36 +1,45 @@
-"""Inter-pod synchronization on the pod dimension: the codec path of ASGD-GA.
+"""Inter-pod synchronization on the pod dimension: the paper's strategies.
 
-Counterpart of ``repro/core/sync.py`` for the training plane's main path.
-Every training-state leaf carries a leading ``pod`` dimension; the one-peer
-ring send is ``torch.roll(dim=0)``.  Every ``interval`` steps an ASGD-GA
-round ships the accumulated gradient to one ring peer, which applies it as a
-receiver-side SGD update.  With the fused codec on
-(``quantize_int8=True``, ``0 < compress_topk < 1``) the round is
+Counterpart of ``repro/core/sync.py``.  Every training-state leaf carries a
+leading ``pod`` dimension; the one-peer ring send is ``torch.roll(dim=0)``.
+The strategies (paper §III.C) are those of the reference:
 
-  bucket -> (+ EF residual) -> top-k + quantize -> ring -> decode -> EF
+- ``asgd``: the per-step cross-pod gradient mean (the baseline);
+- ``asgd_ga``: every ``interval`` steps one pod ships its accumulated
+  gradient to its ring peer, which applies it as a receiver-side SGD
+  update; with the fused codec on (``quantize_int8=True``, ``0 <
+  compress_topk < 1``) the round is
 
-where encode and decode are the CUDA kernels of ``repro_torch.kernels`` on
-the card.  The round splits into :func:`prepare_codec_sync`,
-:func:`ship_sync_payloads` and :func:`finish_codec_sync`, as in the
-reference.
+    bucket -> (+ EF residual) -> top-k + quantize -> ring -> decode -> EF
 
-Ported so far: ``asgd`` and ``asgd_ga`` (codec and dense) with both
-bucket policies (``BucketSpec.parse`` and the launcher's bucket flags
-wait).  The legacy sparse-fp32 path (``compress_topk`` without the codec), ``ama``,
-``sma``, ``asp``, pod resizing, retunes and the streaming and host-seam
-transports are ROADMAP Queue 1 item 4 and raise ``NotImplementedError``.
+  split into :func:`prepare_codec_sync`, :func:`ship_sync_payloads` and
+  :func:`finish_codec_sync`, as in the reference;
+- ``ama``: inter-PS model averaging with the ring peer;
+- ``sma``: the barrier mean over all pods;
+- ``asp``: Gaia's significance-gated parameter deltas (the baseline).
 
-Memory: at full width the f32 flat buffers are the bulk of device memory,
-so the round works in place where the reference builds new arrays: it
-scales the packed message in place, writes the new EF residual over the
-old one, applies the receiver update to the parameters and zeroes the
-gradient accumulator.  The state and parameters passed in are consumed;
-the values are those of the reference's out-of-place expressions.
+Without the codec, ``0 < compress_topk < 1`` ships every leaf sparse
+through :func:`_ship_ring`: block top-k per chunk of ``CHUNK`` values (the
+CUDA kernel of ``kernels/csrc/topk_compress.cu`` on the card), roll,
+decompress.  The pod-count transforms (:func:`grow_pods`,
+:func:`shrink_pods`, :func:`resize_sync_state`) and the codec retune
+(:func:`retune_sync_state`) carry the state across reconfigurations.  The
+streaming re-encode (``reencode_unsent``, ``finish_codec_sync_split``) and
+the transports other than the inline ring are ROADMAP Queue 1 item 11.
+
+Memory: at full width the f32 buffers are the bulk of device memory, so a
+round works in place where the reference builds new arrays, and leaf by
+leaf where the reference maps a whole tree: it scales the packed message
+in place, writes the new EF residual over the old one, applies the
+receiver update to the parameters, zeroes the gradient accumulator and
+overwrites ASP's reference buffer.  The state and parameters passed in are
+consumed; the values are those of the reference's out-of-place
+expressions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace as _dc_replace
-from math import prod
+from math import gcd, prod
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -51,8 +60,9 @@ _VALUE_BYTES = {"int8": 1.0, "fp8": 1.0, "int4": 0.5}
 BUCKET_CLASSES = ("embed", "norm", "dense", "moe")
 BUCKET_POLICIES = ("single", "layer-class")
 
-_NOT_PORTED = ("not ported yet: see ROADMAP.md Queue 1 item 4 "
-               "(core/sync.py, the rest)")
+# keep per-selection index spaces below int32: the legacy sparse path
+# ships each leaf in chunks of this many values
+CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -330,9 +340,10 @@ class SyncConfig:
 
 
 class SyncState(NamedTuple):
-    ga_buffer: Pytree              # accumulated grads (ASGD-GA), pod dim
+    ga_buffer: Pytree              # accumulated grads (ASGD-GA) or the
+    #                                reference params at the last sync (ASP)
     steps_since_sync: torch.Tensor  # 0-dim int32
-    significant_frac: torch.Tensor  # 0-dim f32 (ASP; 1.0 here)
+    significant_frac: torch.Tensor  # 0-dim f32: ASP's shipped fraction
     ef_residual: torch.Tensor      # (n_pods, N) f32 in bucket-grouped order
     tier: torch.Tensor             # (n_buckets,) int32 into CODEC_TIERS
     msg_norm: torch.Tensor         # (n_pods, n_buckets) L2 of the message
@@ -346,12 +357,13 @@ def init_sync_state(cfg: SyncConfig, stacked_params: Pytree) -> SyncState:
     if cfg.strategy == "asgd_ga":
         buf = T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=dev), stacked_params)
-    elif cfg.strategy == "asgd":
-        buf = T.tree_map(lambda p: torch.zeros(0, device=dev),
+    elif cfg.strategy == "asp":
+        # a copy, also of f32 params: the round updates params in place
+        buf = T.tree_map(lambda p: p.detach().to(torch.float32, copy=True),
                          stacked_params)
     else:
-        raise NotImplementedError(f"strategy {cfg.strategy!r} is "
-                                  + _NOT_PORTED)
+        buf = T.tree_map(lambda p: torch.zeros(0, device=dev),
+                         stacked_params)
     n_ef = (sum(x.numel() for x in leaves) // n_pods
             if (cfg.uses_codec and cfg.error_feedback) else 0)
     nb = len(cfg.bucket_names)
@@ -648,34 +660,322 @@ def _receiver_update(cfg: SyncConfig, params: Pytree, peer: Pytree,
                       params, peer)
 
 
+def bucket_chunk_mb(cfg: SyncConfig, layout: BucketLayout
+                    ) -> Dict[str, Tuple[float, ...]]:
+    """Per-chunk wire MB of each non-empty bucket (host-side, static): the
+    streaming ship's chunk schedule, summing to :func:`bucket_wire_mb`'s
+    entry up to float association."""
+    out: Dict[str, Tuple[float, ...]] = {}
+    for g, name in enumerate(layout.names):
+        size = layout.sizes[g]
+        if size == 0:
+            continue
+        bcfg = cfg.for_bucket(name)
+        out[name] = tuple(bcfg.payload_mb(m * 4 / 1e6)
+                          for m in _chunk_widths(bcfg, size))
+    return out
+
+
+def _ship_leaf(cfg: SyncConfig, x: torch.Tensor) -> torch.Tensor:
+    """One leaf's one-peer ring send; sparse when ``0 < compress_topk < 1``:
+    per pod, chunks of ``CHUNK`` values (the last zero-padded), each
+    compressed to its block top-k (one kernel launch for the leaf on the
+    card), rolled, decompressed and cropped back to the leaf."""
+    if not 0.0 < cfg.compress_topk < 1.0:
+        return torch.roll(x, cfg.peer_shift, dims=0)
+    from repro_torch.kernels import ops as kops
+
+    n_pods = x.shape[0]
+    numel = int(prod(x.shape[1:]))
+    chunk = min(CHUNK, numel)
+    k = max(1, int(chunk * cfg.compress_topk))
+    vals, idx = kops.topk_compress_chunked(x.reshape(n_pods, numel), chunk,
+                                           k)
+    vals = torch.roll(vals, cfg.peer_shift, dims=0)
+    idx = torch.roll(idx, cfg.peer_shift, dims=0)
+    dense = kops.topk_decompress(vals, idx, chunk).reshape(n_pods, -1)
+    if dense.shape[1] != numel:
+        dense = dense[:, :numel]
+    return dense.reshape(x.shape)
+
+
+def _ship_ring(cfg: SyncConfig, tree: Pytree) -> Pytree:
+    """One-peer ring send of a stacked tree: roll along the pod dim, or the
+    sparse top-k send of :func:`_ship_leaf`."""
+    return T.tree_map(lambda x: _ship_leaf(cfg, x), tree)
+
+
 def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
                lr: float = 1.0, transport=None
                ) -> Tuple[Pytree, SyncState]:
-    """One inter-pod synchronization round (paper §III.C steps 3-5)."""
+    """One inter-pod synchronization round (paper §III.C steps 3-5).
+
+    ``params`` leaves have the leading pod dim and are updated in place.
+    ``lr`` drives the receiver-side SGD update of ASGD-GA.  On the codec
+    path the round is the three stages of the reference; only the inline
+    ring ships (``transport=None``)."""
     n_pods = T.leaves(params)[0].shape[0]
     dev = T.leaves(params)[0].device
     zero = state._replace(
         steps_since_sync=torch.zeros((), dtype=torch.int32, device=dev))
     if n_pods <= 1 or cfg.strategy == "asgd":
         return params, zero
-    if cfg.strategy != "asgd_ga":
-        raise NotImplementedError(f"strategy {cfg.strategy!r} is "
-                                  + _NOT_PORTED)
-    if cfg.uses_codec:
-        payloads = prepare_codec_sync(cfg, state)
-        wire = bucket_wire_mb(cfg, bucket_layout(cfg, state.ga_buffer))
-        shipped = ship_sync_payloads(cfg, payloads.chunks, transport, wire)
-        return finish_codec_sync(cfg, params, state, payloads, shipped, lr)
-    if 0.0 < cfg.compress_topk < 1.0:
-        raise NotImplementedError("sparse fp32 shipping without the codec "
-                                  "is " + _NOT_PORTED)
-    denom = torch.clamp(state.steps_since_sync, min=1).float()
-    peer = T.tree_map(lambda b: torch.roll(b / denom, cfg.peer_shift, dims=0),
-                      state.ga_buffer)
-    params = _receiver_update(cfg, params, peer, lr)
-    T.tree_map(lambda b: b.zero_(), state.ga_buffer)
-    return params, zero._replace(
-        tier=torch.tensor(cfg.bucket_tiers, dtype=torch.int32, device=dev))
+    f32 = torch.float32
+
+    if cfg.strategy == "asgd_ga":
+        if cfg.uses_codec:
+            payloads = prepare_codec_sync(cfg, state)
+            wire = bucket_wire_mb(cfg, bucket_layout(cfg, state.ga_buffer))
+            shipped = ship_sync_payloads(cfg, payloads.chunks, transport,
+                                         wire)
+            return finish_codec_sync(cfg, params, state, payloads, shipped,
+                                     lr)
+        denom = torch.clamp(state.steps_since_sync, min=1).float()
+        scale = torch.tensor(lr, dtype=f32, device=dev) * cfg.ga_lr_scale
+
+        def ga_update(p, b):
+            g = _ship_leaf(cfg, b / denom)
+            p.copy_(p.float() - scale * g)
+            b.zero_()
+        T.tree_map(ga_update, params, state.ga_buffer)
+        return params, zero._replace(
+            tier=torch.tensor(cfg.bucket_tiers, dtype=torch.int32,
+                              device=dev))
+
+    if cfg.strategy == "asp":
+        # Gaia-style approximate synchronous parallel: ship only the
+        # parameter deltas since the last sync whose magnitude exceeds the
+        # threshold relative to the reference; the rest keep accumulating
+        # in the params themselves
+        eps = 1e-8
+        n_sig = torch.zeros((), dtype=torch.int64, device=dev)
+        n_tot = 0
+
+        def asp_update(p, r):
+            nonlocal n_sig, n_tot
+            delta = p.float() - r
+            sig = delta.abs() > cfg.asp_threshold * (r.abs() + eps)
+            n_sig = n_sig + sig.sum()
+            n_tot += sig.numel()
+            q = _ship_leaf(cfg, torch.where(sig, delta, 0.0))
+            p.copy_(p.float() + 0.5 * q)
+            r.copy_(p)
+        T.tree_map(asp_update, params, state.ga_buffer)
+        frac = n_sig.to(f32) / n_tot
+        return params, zero._replace(significant_frac=frac)
+
+    if cfg.strategy == "ama":
+        # each leaf's peer copy is taken before that leaf is averaged; the
+        # leaves are independent, so leaf by leaf equals the whole tree
+        T.tree_map(lambda p: p.copy_((p.float() + _ship_leaf(cfg, p).float())
+                                     * 0.5), params)
+        return params, zero
+
+    # sma: barrier global average
+    T.tree_map(lambda p: p.copy_(p.float().mean(dim=0, keepdim=True)
+                                 .expand(p.shape)), params)
+    return params, zero
+
+
+def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],
+                         inter: str = "ama", shift: int = 1) -> Pytree:
+    """Two-level averaging (paper §III.C's inter-PS model averaging across
+    regions): a barrier mean within each group of pods, then the group
+    means either gossip one ring step (``inter="ama"``) or take their
+    global mean (``"sma"``), broadcast back to every member.  All-singleton
+    groups in pod order recover flat ``ama`` and one group flat ``sma``.
+    Returns a new tree."""
+    groups = tuple(tuple(int(i) for i in g) for g in groups)
+    if not groups or any(not g for g in groups):
+        raise ValueError("groups must be non-empty and cover every pod")
+    members = [i for g in groups for i in g]
+    leaves = T.leaves(tree)
+    if not leaves:
+        return tree
+    n_pods = leaves[0].shape[0]
+    if sorted(members) != list(range(n_pods)):
+        raise ValueError(f"groups {groups} do not partition pods "
+                         f"0..{n_pods - 1}")
+    n_groups = len(groups)
+    if inter not in ("ama", "sma"):
+        raise ValueError(f"inter level must be 'ama' or 'sma', got {inter!r}")
+    if inter == "ama" and n_groups > 1 and gcd(shift, n_groups) != 1:
+        raise ValueError(f"inter-ring shift {shift} must be coprime with "
+                         f"the number of regions {n_groups}")
+    assign = [0] * n_pods
+    for gi, g in enumerate(groups):
+        for i in g:
+            assign[i] = gi
+
+    def avg(p):
+        dev = p.device
+        x = p.float()
+        m = torch.stack([x.index_select(0, torch.tensor(g, device=dev))
+                         .mean(dim=0) for g in groups])
+        if inter == "ama":
+            m = (m + torch.roll(m, shift, dims=0)) * 0.5
+        else:
+            m = m.mean(dim=0, keepdim=True).expand(m.shape)
+        return m.index_select(0, torch.tensor(assign, device=dev)).to(
+            p.dtype)
+
+    return T.tree_map(avg, tree)
+
+
+# ------------------------------------------- pod-count-changing transforms
+#
+# A reconfiguration (cloud joined / left) resizes every leaf's leading pod
+# dimension at a sync barrier.  Parameter-like leaves ("mean") keep the
+# global mean: joiners are seeded with it, and on shrink the survivors are
+# shifted so their mean equals the old one.  Accumulator-like leaves ("sum",
+# the ASGD-GA buffer and the EF residual) keep the total: joiners start at
+# zero, and the departed pods' values are spread evenly over the survivors.
+
+
+def grow_pods(tree: Pytree, n_new: int, how: str = "mean") -> Pytree:
+    """Grow the leading pod dimension to ``n_new`` (>= current): "mean"
+    appends the mean replica, "clone" copies of pod 0, "zeros" zero pods.
+    Leaves without the pod dimension pass through."""
+    leaves = T.leaves(tree)
+    if not leaves:
+        return tree
+    n_old = leaves[0].shape[0]
+    if n_new < n_old:
+        raise ValueError(f"grow_pods: {n_new} < current {n_old}")
+    if n_new == n_old:
+        return tree
+    k = n_new - n_old
+
+    def grow(x):
+        if x.dim() == 0 or x.shape[0] != n_old:
+            return x
+        shape = (k,) + tuple(x.shape[1:])
+        if how == "mean":
+            fill = x.float().mean(dim=0, keepdim=True).expand(shape).to(
+                x.dtype)
+        elif how == "clone":
+            fill = x[:1].expand(shape)
+        elif how == "zeros":
+            fill = x.new_zeros(shape)
+        else:
+            raise ValueError(f"grow_pods: unknown how={how!r}")
+        return torch.cat([x, fill], dim=0)
+
+    return T.tree_map(grow, tree)
+
+
+def shrink_pods(tree: Pytree, keep: Sequence[int], how: str = "mean"
+                ) -> Pytree:
+    """Shrink the leading pod dimension to the pods in ``keep`` (ordered):
+    "mean" shifts the survivors so their mean equals the old global mean,
+    "sum" spreads the removed pods' values evenly over the survivors,
+    "drop" discards them."""
+    keep = tuple(int(i) for i in keep)
+    if not keep:
+        raise ValueError("shrink_pods: keep must be non-empty")
+    leaves = T.leaves(tree)
+    if not leaves:
+        return tree
+    n_old = leaves[0].shape[0]
+    if any(i < 0 or i >= n_old for i in keep):
+        raise ValueError(f"shrink_pods: keep {keep} out of range for {n_old}")
+    if len(set(keep)) != len(keep):
+        raise ValueError("shrink_pods: duplicate indices in keep")
+    removed = tuple(i for i in range(n_old) if i not in keep)
+
+    def shrink(x):
+        if x.dim() == 0 or x.shape[0] != n_old:
+            return x
+        kept = x.index_select(0, torch.tensor(keep, device=x.device))
+        if how == "drop" or not removed:
+            return kept
+        xf, kf = x.float(), kept.float()
+        if how == "mean":
+            shift = (xf.mean(dim=0, keepdim=True)
+                     - kf.mean(dim=0, keepdim=True))
+            return (kf + shift).to(x.dtype)
+        if how == "sum":
+            lost = xf.index_select(0, torch.tensor(
+                removed, device=x.device)).sum(dim=0, keepdim=True)
+            return (kf + lost / len(keep)).to(x.dtype)
+        raise ValueError(f"shrink_pods: unknown how={how!r}")
+
+    return T.tree_map(shrink, tree)
+
+
+def resize_sync_state(cfg: SyncConfig, state: SyncState, new_params: Pytree,
+                      keep: Optional[Sequence[int]] = None) -> SyncState:
+    """Carry ``SyncState`` across a pod-count change (``new_params`` are
+    the resized stacked params).  ASGD-GA replay-accumulates the departed
+    pods' buffer and EF residual into the survivors and zero-seeds
+    joiners; ASP restarts its reference from the new params; the
+    bufferless strategies re-init.  The step count, ASP's fraction and the
+    tiers survive; the per-bucket norms re-arm at zero."""
+    n_new = T.leaves(new_params)[0].shape[0]
+    dev = T.leaves(new_params)[0].device
+    if cfg.strategy == "asgd_ga":
+        buf = state.ga_buffer
+        n_old = T.leaves(buf)[0].shape[0] if T.leaves(buf) else 0
+        resid = state.ef_residual
+        if keep is not None and len(keep) < n_old:
+            buf = shrink_pods(buf, keep, how="sum")
+            resid = shrink_pods([resid], keep, how="sum")[0]
+            n_old = len(keep)
+        if n_new > n_old:
+            buf = grow_pods(buf, n_new, how="zeros")
+            resid = grow_pods([resid], n_new, how="zeros")[0]
+        nb = len(cfg.bucket_names)
+        return state._replace(
+            ga_buffer=buf, ef_residual=resid,
+            msg_norm=torch.zeros(n_new, nb, device=dev),
+            resid_norm=torch.zeros(n_new, nb, device=dev))
+    fresh = init_sync_state(cfg, new_params)
+    return fresh._replace(steps_since_sync=state.steps_since_sync,
+                          significant_frac=state.significant_frac,
+                          tier=state.tier)
+
+
+def retune_sync_state(new_cfg: SyncConfig, old_cfg: SyncConfig,
+                      state: SyncState, stacked_params: Pytree) -> SyncState:
+    """Carry ``SyncState`` across a codec retune (same strategy and pod
+    count; another tier, top-k or interval).  The EF residual lives in
+    dense bucket coordinates, so it carries over; a bucket-policy change
+    re-permutes it leaf by leaf into the new grouping; it is dropped when
+    EF turns off and zero-seeded when EF turns on.  Per-bucket norms re-arm
+    at zero when the number of buckets changes."""
+    if new_cfg.strategy != old_cfg.strategy:
+        raise ValueError(
+            f"retune cannot change strategy ({old_cfg.strategy!r} -> "
+            f"{new_cfg.strategy!r}); that is a reconfiguration "
+            f"(resize_sync_state / Trainer.reconfigure)")
+    leaves = T.leaves(stacked_params)
+    n_pods, dev = leaves[0].shape[0], leaves[0].device
+    want_ef = new_cfg.uses_codec and new_cfg.error_feedback
+    had_ef = state.ef_residual.shape[1] > 0
+    if want_ef and not had_ef:
+        n = sum(x.numel() for x in leaves) // n_pods
+        resid = torch.zeros(n_pods, n, device=dev)
+    elif not want_ef:
+        resid = torch.zeros(n_pods, 0, device=dev)
+    else:
+        resid = state.ef_residual
+        old_layout = bucket_layout(old_cfg, stacked_params)
+        new_layout = bucket_layout(new_cfg, stacked_params)
+        if old_layout.order != new_layout.order:
+            old_off = old_layout.leaf_offsets
+            resid = torch.cat(
+                [resid[:, old_off[i]:old_off[i] + old_layout.leaf_sizes[i]]
+                 for i in new_layout.order], dim=1)
+    nb_new, nb_old = len(new_cfg.bucket_names), len(old_cfg.bucket_names)
+    msg_norm, resid_norm = state.msg_norm, state.resid_norm
+    if nb_new != nb_old:
+        msg_norm = torch.zeros(n_pods, nb_new, device=dev)
+        resid_norm = torch.zeros(n_pods, nb_new, device=dev)
+    return state._replace(
+        ef_residual=resid,
+        tier=torch.tensor(new_cfg.bucket_tiers, dtype=torch.int32,
+                          device=dev),
+        msg_norm=msg_norm, resid_norm=resid_norm)
 
 
 def is_sync_step(cfg: SyncConfig, step: int) -> bool:
@@ -693,3 +993,12 @@ def traffic_per_step_mb(cfg: SyncConfig, model_mb: float,
         return model_mb
     return cfg.payload_mb(model_mb, bucket_weights=bucket_weights) \
         / cfg.interval
+
+
+def migration_wire_mb(stacked_params: Pytree, n_new: int) -> float:
+    """WAN MB a live pod migration stages in the background: one full fp32
+    per-pod replica for each pod that joins or leaves."""
+    leaves = T.leaves(stacked_params)
+    n_old = leaves[0].shape[0]
+    per_pod_mb = sum(x.numel() * 4 for x in leaves) / n_old / 1e6
+    return per_pod_mb * abs(n_new - n_old)

@@ -2,12 +2,13 @@
 plain version on the CPU.
 
 Counterpart of ``repro/kernels/ops.py`` (``flash_attention``, ``ssd_scan``,
-``wan_encode``, ``wan_decode`` and ``wan_codec_fns``, its lines 27-43 and
-59-113), with the same signatures (less the reference's ``interpret``: the
-CUDA kernels have no interpret mode).  Dispatch is by the tensor's device:
+``topk_compress``, ``topk_decompress``, ``wan_encode``, ``wan_decode`` and
+``wan_codec_fns``, its lines 27-113), with the same signatures (less the
+reference's ``interpret``: the CUDA kernels have no interpret mode).
+Dispatch is by the tensor's device:
 
 - a CUDA tensor with ``use_kernel=True`` (the default) launches the kernel
-  of ``csrc/wan_codec.cu``; a failed build or launch raises;
+  of ``csrc/*.cu``; a failed build or launch raises;
 - a CUDA tensor with ``use_kernel=False`` runs the plain version (only the
   parity checks ask for that);
 - a CPU tensor runs the plain version.
@@ -18,8 +19,10 @@ the sync layer passes the whole pod dimension, and one launch covers it.
 ``FLASH_CHECK_HOOK``, when set, is called after every flash-attention launch
 with ``(q, k, v, out, causal=, window=, softcap=)``, and ``SSD_CHECK_HOOK``
 after every SSD launch with ``(x, a, Bm, Cm, y, final_state, chunk=,
-init_state=)``; a caller that holds a kernel to its plain version on a live
-path sets them (``chip_smoke.py``).
+init_state=)``, and ``TOPK_CHECK_HOOK`` after every top-k launch with
+``(x, vals, idx, chunk=, k=, block=)`` (the batched form's arguments); a
+caller that holds a kernel to its plain version on a live path sets them
+(``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -34,14 +37,17 @@ from repro_torch.kernels.flash_attention import (check_inputs,
                                                  flash_attention_cuda)
 from repro_torch.kernels.ssd_scan import check_inputs as check_ssd_inputs
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.topk_compress import topk_compress_cuda
 from repro_torch.kernels.wan_codec import (TIER_INV, TIER_QMAX, VALUE_DTYPES,
                                            check_value_dtype, pack_nibbles,
                                            unpack_nibbles)
 
 LAUNCHES: Dict[str, int] = {"wan_encode": 0, "wan_decode": 0,
-                             "flash_attention": 0, "ssd_scan": 0}
+                             "flash_attention": 0, "ssd_scan": 0,
+                             "topk_compress": 0}
 FLASH_CHECK_HOOK: Optional[Callable] = None
 SSD_CHECK_HOOK: Optional[Callable] = None
+TOPK_CHECK_HOOK: Optional[Callable] = None
 _MAX_ROWS = 65535                  # gridDim.y
 
 
@@ -55,7 +61,8 @@ def _on_kernel(t: torch.Tensor, use_kernel: bool) -> bool:
         return use_kernel
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"the WAN codec has no path for device {t.device}")
+    raise ValueError(f"the port's kernels have no path for device "
+                     f"{t.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -122,6 +129,57 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         SSD_CHECK_HOOK(x, a, Bm, Cm, y, final, chunk=chunk,
                        init_state=init_state)
     return y, final
+
+
+def topk_compress(x: torch.Tensor, k: int, *, block: int = 1024,
+                  use_kernel: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-balanced top-k of ``x`` ``(n,)`` or ``(rows, n)``, f32 or
+    bf16 -> (vals in ``x.dtype``, idx int32), each ``(.., min(k, nb *
+    k_block))``; see ``ref.topk_block`` for the spec.
+
+    Deliberately unlike the reference, whose ``ops.topk_compress`` defaults
+    to ``use_kernel=False`` so that its sync path never ran the Pallas
+    kernel: kernel and plain version are bit-identical, so the choice is
+    pure dispatch, and a CUDA tensor launches the kernel by default.
+    ``use_kernel=False`` runs the plain version (for the checks)."""
+    if x.dim() not in (1, 2):
+        raise ValueError(f"topk_compress takes (n,) or (rows, n), got "
+                         f"{tuple(x.shape)}")
+    if not _on_kernel(x, use_kernel):
+        return _ref.topk_block(x, k, block)
+    xr = x if x.dim() == 2 else x[None]
+    vals, idx = topk_compress_chunked(xr, xr.shape[1], k, block=block)
+    vals, idx = vals[:, 0], idx[:, 0]
+    return (vals, idx) if x.dim() == 2 else (vals[0], idx[0])
+
+
+def topk_compress_chunked(x: torch.Tensor, chunk: int, k: int, *,
+                          block: int = 1024, use_kernel: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batched form of :func:`topk_compress` that the sync layer ships
+    a leaf with: each row of ``x`` ``(rows, numel)`` is cut into pieces of
+    ``chunk`` values (the last zero-padded), and each piece compressed as
+    ``topk_compress(piece, k, block=block)`` would -> (vals, idx), each
+    ``(rows, n_chunks, ..)``.  On the card one launch covers the leaf."""
+    if x.dim() != 2:
+        raise ValueError(f"topk_compress_chunked takes (rows, numel), got "
+                         f"{tuple(x.shape)}")
+    if not _on_kernel(x, use_kernel):
+        return _ref.topk_block_chunks(x, chunk, k, block)
+    vals, idx = topk_compress_cuda(x, chunk, k, block)
+    LAUNCHES["topk_compress"] += 1
+    if TOPK_CHECK_HOOK is not None:
+        TOPK_CHECK_HOOK(x, vals, idx, chunk=chunk, k=k, block=block)
+    return vals, idx
+
+
+def topk_decompress(vals: torch.Tensor, idx: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """Inverse of :func:`topk_compress`: ``(.., kk)`` -> dense ``(.., n)``
+    in ``vals.dtype``; a repeated index keeps its last entry.  Plain
+    PyTorch on every device: the reference's is a scatter, not a kernel."""
+    return _ref.topk_decompress(vals, idx, n)
 
 
 def _lib() -> ctypes.CDLL:

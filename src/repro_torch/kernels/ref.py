@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (the attention, SSD and
-codec parts of ``repro/kernels/ref.py``, its lines 26-59 and 91-161).
+"""Plain PyTorch versions of the port's kernels (the attention, SSD, top-k
+and codec parts of ``repro/kernels/ref.py``, its lines 26-85 and 91-161).
 
 ``sdpa`` is the spec of the flash-attention kernel: the full softmax over
 masks built from positions ``0..S-1``, through the port's
@@ -21,9 +21,21 @@ truncated key, so ties go to the lowest index on every device
 take one flat vector ``(n,)`` or a batch of them ``(rows, n)`` (the pod
 dimension), and work through the blocks in slices of ``_SLICE_BLOCKS`` so
 that the sort's scratch stays bounded at any size.
+
+``topk_block`` is the spec of the block top-k kernel (the legacy sparse
+fp32 shipping): per block of ``block`` values, the ``k_block = max(1, k //
+nb)`` largest ``|x|``, ties to the lowest index, in descending order; the
+padded tail of the last block takes part with zeros, and winners from it
+get their index clamped to ``n - 1``.  Selection is a stable descending
+sort of ``|x|`` per block, so it is bit-equal to the reference's
+``lax.top_k`` on every device.  ``topk_decompress`` resolves repeated
+indices (the clamped pad winners) explicitly, the last entry in idx order
+winning, as the reference's scatter does on the CPU; a scatter with
+repeated indices has no defined order on CUDA.
 """
 from __future__ import annotations
 
+from math import prod
 from typing import Optional, Tuple
 
 import torch
@@ -76,6 +88,78 @@ def ssd_naive(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
             "bhn,bhp->bhpn", Bm[:, t].to(f32), x[:, t].to(f32))
         ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t].to(f32), s))
     return torch.stack(ys, dim=1).to(x.dtype), s
+
+
+def topk_block(x: torch.Tensor, k: int, block: int = 1024
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-balanced top-k of ``x`` ``(n,)`` or ``(rows, n)`` (each row on
+    its own) -> (vals in ``x.dtype``, idx int32), each ``(.., min(k,
+    nb * k_block))``, winners block by block in descending ``|x|``."""
+    if x.dim() not in (1, 2):
+        raise ValueError(f"topk_block takes (n,) or (rows, n), got "
+                         f"{tuple(x.shape)}")
+    xr = x if x.dim() == 2 else x[None]
+    rows, n = xr.shape
+    block = min(block, n)
+    nb = -(-n // block)
+    k_block = max(1, k // nb)
+    if k_block > block:
+        raise ValueError(f"k_block {k_block} > block {block}")
+    xb = xr if nb * block == n else F.pad(xr, (0, nb * block - n))
+    xb = xb.reshape(rows * nb, block)
+    loc_parts = []
+    for lo in range(0, rows * nb, _SLICE_BLOCKS):
+        mag = xb[lo:lo + _SLICE_BLOCKS].abs()
+        loc_parts.append(torch.sort(mag, dim=1, descending=True,
+                                    stable=True).indices[:, :k_block])
+    loc = torch.cat(loc_parts)
+    vals = torch.gather(xb, 1, loc).reshape(rows, nb * k_block)
+    base = torch.arange(nb, device=x.device).repeat(rows)[:, None] * block
+    idx = torch.clamp((loc + base).reshape(rows, nb * k_block), max=n - 1)
+    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    return (vals, idx) if x.dim() == 2 else (vals[0], idx[0])
+
+
+def topk_block_chunks(x: torch.Tensor, chunk: int, k: int,
+                      block: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_block` of every ``chunk``-value piece of each row of
+    ``x`` ``(rows, numel)`` (the last piece zero-padded): (vals, idx), each
+    ``(rows, n_chunks, ..)``; the plain version of the kernel's batched
+    launch."""
+    rows, numel = x.shape
+    n_chunks = -(-numel // chunk)
+    pad = n_chunks * chunk - numel
+    xp = F.pad(x, (0, pad)) if pad else x
+    vals, idx = topk_block(xp.reshape(rows * n_chunks, chunk), k, block)
+    return (vals.reshape(rows, n_chunks, -1),
+            idx.reshape(rows, n_chunks, -1))
+
+
+def topk_exact(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact global top-k of ``(n,)`` by ``|x|``, ties to the lowest index."""
+    idx = torch.sort(x.abs(), descending=True, stable=True).indices[:k]
+    return x[idx], idx.to(torch.int32)
+
+
+def topk_decompress(vals: torch.Tensor, idx: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """Scatter ``vals`` at ``idx`` into zeros: ``(.., kk)`` -> ``(.., n)``
+    in ``vals.dtype``.  Where an index repeats, its last entry wins: the
+    earlier ones are sent to a scratch slot past the end, so the scatter
+    writes each position at most once."""
+    lead, kk = vals.shape[:-1], vals.shape[-1]
+    rows = prod(lead)
+    v = vals.reshape(rows, kk)
+    i = idx.reshape(rows, kk).long()
+    srt, order = torch.sort(i, dim=1, stable=True)
+    last = torch.ones_like(srt, dtype=torch.bool)
+    last[:, :-1] = srt[:, 1:] != srt[:, :-1]
+    keep = torch.empty_like(last).scatter_(1, order, last)
+    g = i + torch.arange(rows, device=i.device)[:, None] * n
+    dst = torch.where(keep, g, rows * n)
+    out = torch.zeros(rows * n + 1, dtype=vals.dtype, device=vals.device)
+    out.scatter_(0, dst.reshape(-1), v.reshape(-1))
+    return out[:rows * n].view(*lead, n)
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:

@@ -6,18 +6,22 @@ Counterpart of ``repro/launch/train.py`` for the training plane's main path:
    function (Algorithm 1), PS registration and the global communicator.
 2. **Data plane**: per-pod synthetic token shards.
 3. **Physical training plane**: the per-pod step with the selected sync
-   strategy, sync rounds every ``--interval`` steps; on the codec path
-   through the CUDA codec kernels on the card.
+   strategy (``asgd``, ``asgd_ga``, ``ama``, ``sma``, ``asp``), sync rounds
+   every ``--interval`` steps; on the codec path through the CUDA codec
+   kernels on the card, and with ``--compress-topk F`` without ``--int8``
+   through the CUDA top-k kernel (sparse fp32 or bf16 shipping).
 
 The flags keep the reference's meanings and defaults; ``--device`` picks
 the card (default) or the CPU.  The reference's elasticity, adaptive-sync,
 transport, fault, topology, checkpoint and serving flags are not ported yet
 (ROADMAP.md Queue 1 items 10-15).
 
-Example::
+Examples::
 
   PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
       --steps 8 --interval 4 --compress-topk 0.02 --int8 --error-feedback
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+      --steps 8 --interval 4 --sync ama --compress-topk 0.02
 """
 from __future__ import annotations
 
@@ -93,8 +97,8 @@ def main(argv=None):
                     choices=["asgd", "asgd_ga", "ama", "sma", "asp"])
     ap.add_argument("--interval", type=int, default=8)
     ap.add_argument("--compress-topk", type=float, default=0.0,
-                    help="ship only this fraction of accumulated-gradient "
-                         "entries (asgd_ga; 0 = dense)")
+                    help="ship only this fraction of the synced entries "
+                         "(top-k per block; 0 = dense)")
     ap.add_argument("--int8", action="store_true",
                     help="fused WAN codec: block-local top-k + quantized "
                          "payload (with --compress-topk; --value-dtype "

@@ -8,31 +8,38 @@ on its slice of the parameters, which is what the reference's ``jax.vmap``
 of ``value_and_grad`` computes.  Every ``interval`` steps the sync round
 runs: on the codec path the three stages of ``repro_torch.core.sync``
 (prepare -> inline ring ship -> finish), through the CUDA codec kernels on
-the card.
+the card; the other strategies through ``apply_sync`` (sparse shipping
+through the CUDA top-k kernel).  ``reconfigure`` / ``resize_train_state``
+/ ``apply_reconfig`` re-stack the pod dimension at a barrier, and
+``retune`` swaps the sync config of the same strategy.
 
 The step updates the stacked parameters and optimizer state in place
 (slice by slice) instead of building new stacked tensors: at full width the
 parameters are gigabytes, and nothing reads a train state after the step
 that replaced it.
 
-Host-seam, streaming, masked rounds, retunes and reconfiguration are
-ROADMAP Queue 1 items 8 and 11.
+Host-seam, streaming, masked rounds and live migration are ROADMAP Queue 1
+items 11 and 12.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
 from repro_torch.core.sync import (SyncConfig, SyncState, apply_sync,
                                    bucket_layout, bucket_weights_of,
                                    bucket_wire_mb, finish_codec_sync,
-                                   init_sync_state, is_sync_step,
+                                   grow_pods, init_sync_state, is_sync_step,
                                    on_step_gradients, prepare_codec_sync,
-                                   ship_sync_payloads, traffic_per_step_mb)
+                                   resize_sync_state, retune_sync_state,
+                                   ship_sync_payloads, shrink_pods,
+                                   traffic_per_step_mb)
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           constant_schedule, get_optimizer,
                                           global_norm)
@@ -88,7 +95,8 @@ class Trainer:
         dimension).  ``round_hook``, if given, is called after each codec
         round as ``round_hook(state, payloads, shipped)``, outside the
         round's timing: a check uses it to hold the round against its
-        plain version."""
+        plain version.  Other strategies' rounds have no hook of their own;
+        ``kernels.ops.TOPK_CHECK_HOOK`` sees each sparse ship."""
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.cfg = cfg
@@ -101,6 +109,14 @@ class Trainer:
         self.traffic_mb = 0.0
         self.step_seconds: List[float] = []
         self.sync_seconds: List[float] = []
+
+    @staticmethod
+    def _sync_key(sync: SyncConfig) -> SyncConfig:
+        """What a sync round depends on: every codec knob, but not the
+        interval (host-side scheduling only).  Two configs with one key
+        run the same round, so a retune between them carries every cached
+        round quantity over."""
+        return dataclasses.replace(sync, interval=1)
 
     def bucket_weights(self, state: TrainState
                        ) -> Optional[Dict[str, float]]:
@@ -210,13 +226,58 @@ class Trainer:
                 self.round_hook(state, *rnd)
         return state
 
+    # ------------------------------------------------------ elasticity
+    def _successor(self, cfg: TrainerConfig) -> "Trainer":
+        nxt = Trainer(self.loss_fn, self.init_fn, cfg, device=self.device,
+                      round_hook=self.round_hook)
+        nxt.traffic_mb = self.traffic_mb
+        nxt.step_seconds = self.step_seconds
+        nxt.sync_seconds = self.sync_seconds
+        return nxt
+
+    def reconfigure(self, state: TrainState, n_pods: int,
+                    keep: Optional[Tuple[int, ...]] = None,
+                    sync: Optional[SyncConfig] = None
+                    ) -> Tuple["Trainer", TrainState]:
+        """Apply a reconfiguration at a sync barrier: re-stack the pod
+        dimension of the whole train state (:func:`resize_train_state`)
+        and return a new ``Trainer`` for the new pod count and sync config,
+        with the WAN-traffic account carried over."""
+        new_cfg = dataclasses.replace(self.cfg, n_pods=n_pods,
+                                      sync=sync or self.cfg.sync)
+        new_state = resize_train_state(new_cfg.sync, state, n_pods,
+                                       keep=keep)
+        return self._successor(new_cfg), new_state
+
+    def retune(self, state: TrainState, sync: SyncConfig
+               ) -> Tuple["Trainer", TrainState]:
+        """Apply a retune at a sync barrier: same strategy and pod count,
+        another codec tier, top-k or interval.  Params and optimizer state
+        pass through untouched; the sync state goes through
+        :func:`retune_sync_state` (the EF residual carries over).  An
+        interval-only retune (the same :meth:`_sync_key`) also keeps the
+        cached wire accounting; one of the same bucket policy keeps the
+        bucket weights."""
+        new_cfg = dataclasses.replace(self.cfg, sync=sync)
+        sync_state = retune_sync_state(sync, self.cfg.sync, state.sync_state,
+                                       state.params)
+        trainer = self._successor(new_cfg)
+        if sync.bucket_policy == self.cfg.sync.bucket_policy:
+            trainer._bucket_weights = self._bucket_weights
+        if self._sync_key(sync) == self._sync_key(self.cfg.sync):
+            trainer._wire_mb = self._wire_mb
+        return trainer, state._replace(sync_state=sync_state)
+
     # --------------------------------------------------------------- loop
     def fit(self, state: TrainState, batches: Callable[[int], Pytree],
-            n_steps: int, *, model_mb: float = 0.0, log_every: int = 0
+            n_steps: int, *, eval_fn: Optional[Callable] = None,
+            eval_every: int = 0, model_mb: float = 0.0, log_every: int = 0
             ) -> Tuple[TrainState, Dict[str, List]]:
-        """batches(step) -> stacked per-pod batch dict (n_pods leading)."""
+        """batches(step) -> stacked per-pod batch dict (n_pods leading);
+        ``eval_fn(state)`` every ``eval_every`` steps goes to
+        ``history["eval"]`` as ``(step, value)``."""
         history: Dict[str, List] = {"step": [], "loss": [],
-                                    "loss_per_pod": []}
+                                    "loss_per_pod": [], "eval": []}
         for step in range(n_steps):
             batch = batches(step)
             t0 = time.perf_counter()
@@ -228,6 +289,105 @@ class Trainer:
             history["loss"].append(float(metrics["loss"]))
             history["loss_per_pod"].append(
                 metrics["loss_per_pod"].float().cpu().tolist())
+            if eval_fn and eval_every and (step + 1) % eval_every == 0:
+                history["eval"].append((step, eval_fn(state)))
             if log_every and (step + 1) % log_every == 0:
                 print(f"step {step + 1}: loss={history['loss'][-1]:.4f}")
         return state, history
+
+
+# ---------------------------------------------------------------------------
+# elasticity: pod re-stacking of the train state
+# ---------------------------------------------------------------------------
+
+
+def resize_train_state(sync_cfg: SyncConfig, state: TrainState, n_new: int,
+                       keep: Optional[Tuple[int, ...]] = None) -> TrainState:
+    """Grow or shrink the pod dimension of a :class:`TrainState`.
+
+    ``keep`` names the surviving old pods in their new order (default: the
+    first ``min(old, new)``).  Params keep their global mean; optimizer
+    moments are mean-seeded on grow and kept as they are on shrink (a mean
+    shift could turn Adam's second moment negative); the sync state
+    follows its strategy (:func:`repro_torch.core.sync.resize_sync_state`).
+    """
+    n_old = T.leaves(state.params)[0].shape[0]
+    if keep is None:
+        keep = tuple(range(min(n_old, n_new)))
+    if len(keep) > n_new:
+        raise ValueError(f"keep={keep} longer than n_new={n_new}")
+    shrunk = len(keep) < n_old
+    params, opt = state.params, state.opt_state
+    if shrunk:
+        params = shrink_pods(params, keep, how="mean")
+        opt = shrink_pods(opt, keep, how="drop")
+    if n_new > len(keep):
+        params = grow_pods(params, n_new, how="mean")
+        opt = grow_pods(opt, n_new, how="mean")
+    sync_state = resize_sync_state(sync_cfg, state.sync_state, params,
+                                   keep=keep if shrunk else None)
+    return TrainState(params=params, opt_state=opt, sync_state=sync_state,
+                      step=state.step)
+
+
+def apply_reconfig(trainer: Trainer, state: TrainState, reconfig
+                   ) -> Tuple[Trainer, TrainState, bool]:
+    """Bridge a control-plane reconfiguration plan (``is_noop``,
+    ``pod_transition() -> (keep, n_new)``, ``new.request.sync``) onto a
+    live trainer; returns ``(trainer, state, applied)``.  An empty plan
+    leaves both untouched."""
+    if reconfig.is_noop:
+        return trainer, state, False
+    keep, n_new = reconfig.pod_transition()
+    new_trainer, new_state = trainer.reconfigure(
+        state, n_new, keep=keep, sync=reconfig.new.request.sync)
+    return new_trainer, new_state, True
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def stack_pod_batches(batches: List[Dict[str, np.ndarray]], device="cuda"
+                      ) -> Dict[str, torch.Tensor]:
+    """Stack per-cloud host batches on ``device``, padding uneven batch
+    sizes with masked copies of the last example (``example_mask`` 0) so
+    the elastic scheduler's uneven splits fit the stacked shape."""
+    max_b = max(len(next(iter(b.values()))) for b in batches)
+    out: Dict[str, List[np.ndarray]] = {}
+    for b in batches:
+        n = len(next(iter(b.values())))
+        pad = max_b - n
+        mask = np.concatenate([np.ones(n, np.float32),
+                               np.zeros(pad, np.float32)])
+        for k, v in b.items():
+            if pad:
+                v = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+            out.setdefault(k, []).append(v)
+        out.setdefault("example_mask", []).append(mask)
+    return {k: torch.from_numpy(np.stack(v)).to(device)
+            for k, v in out.items()}
+
+
+def accuracy_eval(apply_fn: Callable, data: Dict[str, np.ndarray],
+                  batch: int = 512) -> Callable[[TrainState], float]:
+    """Eval callback: mean over batches of pod 0's accuracy on held-out
+    data (a 1-D logit is binary: ``logit > 0``)."""
+
+    def fn(state: TrainState) -> float:
+        p0 = T.tree_map(lambda x: x[0], state.params)
+        dev = T.leaves(p0)[0].device
+        n = len(data["y"])
+        accs = []
+        with torch.no_grad():
+            for i in range(0, n, batch):
+                x = torch.from_numpy(data["x"][i:i + batch]).to(dev)
+                y = torch.from_numpy(data["y"][i:i + batch]).to(dev)
+                logits = apply_fn(p0, x)
+                pred = ((logits > 0).to(y.dtype) if logits.dim() == 1
+                        else logits.argmax(-1))
+                accs.append(float((pred == y).float().mean()))
+        return float(np.mean(accs))
+
+    return fn

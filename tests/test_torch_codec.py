@@ -167,4 +167,5 @@ def test_unknown_tier_and_device_raise():
     tops.reset_launches()
     tops.wan_encode(torch.ones(256), 4, block=128, use_kernel=True)
     assert tops.LAUNCHES == {"wan_encode": 0, "wan_decode": 0,
-                             "flash_attention": 0, "ssd_scan": 0}
+                             "flash_attention": 0, "ssd_scan": 0,
+                             "topk_compress": 0}

@@ -1,5 +1,5 @@
-"""The CUDA kernels (the WAN codec, flash attention, the SSD scan) against
-their plain versions, on the card.
+"""The CUDA kernels (the WAN codec, flash attention, the SSD scan, the block
+top-k) against their plain versions, on the card.
 
 Marked ``cuda``: these run only where a CUDA device and ``nvcc`` exist and
 skip elsewhere (the fixture decides at run time, never at import).  Run
@@ -172,3 +172,79 @@ def test_ssd_reads_strided_views_in_place(cuda):
     torch.testing.assert_close(y / scale, y_ref / scale, atol=SSD_Y_TOL,
                                rtol=0)
     torch.testing.assert_close(f, f_ref, atol=SSD_STATE_TOL, rtol=0)
+
+
+# granite-8b at 2 layers: each leaf's per-pod shape, as _ship_ring cuts it
+# into chunks of 2**26 values (the MLP leaves pad to 2 chunks, embed and
+# unembed are 3)
+GRANITE_LEAVES = [(2, 4096, 1024), (2, 4096, 4096), (2, 4096, 4096),
+                  (2, 4096, 1024), (2, 4096), (2, 4096), (2, 14336, 4096),
+                  (2, 4096, 14336), (2, 4096, 14336), (4096, 49152),
+                  (49152, 4096), (4096,)]
+CHUNK = 1 << 26
+
+
+def _topk_case(x, chunk, k, block=1024):
+    """The kernel's batched launch bit-equal to the plain version: vals
+    (bit pattern), idx and the decompressed dense rows."""
+    before = ops.LAUNCHES["topk_compress"]
+    vk, ik = ops.topk_compress_chunked(x, chunk, k, block=block)
+    vp, ip = ops.topk_compress_chunked(x, chunk, k, block=block,
+                                       use_kernel=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_compress"] == before + 1
+    assert vk.dtype == vp.dtype == x.dtype and ik.dtype == torch.int32
+    assert vk.shape == vp.shape and torch.equal(ik, ip)
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(vk.view(bits), vp.view(bits))
+    assert torch.equal(ops.topk_decompress(vk, ik, chunk).view(bits),
+                       ops.topk_decompress(vp, ip, chunk).view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRANITE_LEAVES)
+def test_topk_granite_leaves(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(len(shape))
+    x = torch.randn((2,) + shape, generator=gen, device=cuda).to(dtype)
+    numel = x[0].numel()
+    chunk = min(CHUNK, numel)
+    _topk_case(x.reshape(2, numel), chunk, max(1, int(chunk * 0.01)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ties", "zeros", "negzero", "pad_wins",
+                                  "k_lt_nb", "short", "k_block_512",
+                                  "n_lt_block"])
+def test_topk_edge_cases(cuda, case, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(3, 300_000, generator=gen, device=cuda)
+    chunk, k = 300_000, 3000
+    if case == "ties":
+        x = torch.round(x * 2)
+    elif case == "zeros":
+        x = torch.zeros_like(x)
+    elif case == "negzero":
+        x = torch.where(x > 0, -0.0, 0.0)
+        x[:, 5] = -0.25
+    elif case == "pad_wins":            # n 1027: the second block's pads
+        x, chunk, k = x[:, :1027].clone(), 1027, 16
+    elif case == "k_lt_nb":             # k // nb == 0: k_block 1, cut to k
+        chunk, k = 5000, 3
+    elif case == "short":               # nb * k_block (80) < k (81)
+        x, chunk, k = x[:, :8192].clone(), 8192, 81
+    elif case == "k_block_512":
+        chunk, k = 4096, 2048
+    elif case == "n_lt_block":
+        x, chunk, k = x[:, :300].clone(), 300, 20
+    _topk_case(x.to(dtype), chunk, k)
+
+
+def test_topk_flat_and_rows_entry_points(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 10_000, generator=gen, device=cuda)
+    for xs in (x, x[1], x[:, 17:9000]):     # rows, flat, a column slice
+        vk, ik = ops.topk_compress(xs, 100, block=512)
+        vp, ip = ops.topk_compress(xs, 100, block=512, use_kernel=False)
+        assert torch.equal(vk, vp) and torch.equal(ik, ip)
+    with pytest.raises(ValueError):
+        ops.topk_compress(x, 10, block=2048)

@@ -244,6 +244,12 @@ def test_config_validation_matches(kw):
 
 
 def test_unported_strategies_raise():
-    cfg = tsync.SyncConfig("ama", 2)
+    """Every strategy runs now; what is still unported on the sync path
+    (the transports other than the inline ring) raises and names its
+    ROADMAP item."""
+    for strategy in tsync.STRATEGIES:
+        cfg = tsync.SyncConfig(strategy, 2, compress_topk=0.5)
+        p = {"w": torch.ones(2, 3)}
+        tsync.apply_sync(cfg, p, tsync.init_sync_state(cfg, p))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsync.init_sync_state(cfg, {"w": torch.zeros(2, 3)})
+        tsync.ship_sync_payloads(cfg, {}, transport=object())
