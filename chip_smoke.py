@@ -8,7 +8,9 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Device: the card's name and power limit, torch and CUDA versions.
+1. Device: the card's name and power limit, torch and CUDA versions; f32
+   matmuls and convolutions without TF32, cuDNN deterministic and not
+   autotuned (``cudnn.deterministic``, no ``cudnn.benchmark``).
 2. Codec kernels: build ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a
    (one ``nvcc`` per source, all started together); hold
    ``wan_encode`` and ``wan_decode`` bit-equal to their plain versions on
@@ -21,8 +23,10 @@ Phases (any failure raises and the script exits non-zero):
    (``ref.sdpa``) within 2e-2 (bf16) or 2e-5 (f32) at the serving path's
    shape (B 1, S 2048, H 32, K 8, Dh 128, bf16, causal), a ragged S 1000,
    MQA, f32 inputs, non-causal, window 256 with softcap 50, Dh 256 and the
-   reference's kernel-test cases; then time it at the main path's shape
-   beside its bound, its plain version and
+   reference's kernel-test cases, and on the bf16 tensor-core path at Dh
+   32-256 causal and not, S 1-65, Sq != Sk both ways, windows, strided
+   views; a misaligned bf16 view must be refused; then time it at the main
+   path's shape (ms, TFLOP/s) beside its bound, its plain version and
    ``F.scaled_dot_product_attention`` (timed only, never used by the port).
 3. Training path: granite-8b at full width (depth cut to 2 layers, bf16,
    random weights from a seed), 2 pods, global batch 8, seq 512, sgd, an
@@ -36,9 +40,12 @@ Phases (any failure raises and the script exits non-zero):
    the reference's tolerance (``y / max|y|`` within 1e-5, the final state
    within 1e-3) at the reference's kernel-test shapes, S == chunk, S <
    chunk, a non-zero ``init_state``, bf16 B/C, B/C as a stride-0 view over
-   heads and the serving prefill's shape (B 1, S 2048, H 64, P 64, N 128,
-   chunk 256, x and a f32, B and C bf16); then time it there beside its
-   bound and its plain version (no single PyTorch call computes SSD).
+   heads, chunks 64-256, 16 chunks, the scoring forward's B 2 and the
+   serving prefill's shape (B 1, S 2048, H 64, P 64, N 128, chunk 256, x
+   and a f32, B and C bf16); then time it there (ms, TFLOP/s) beside its
+   bound (the f32-operand products priced as 3xTF32, and the earlier f32
+   pricing beside it) and its plain version (no single PyTorch call
+   computes SSD).
 5. Serving path: granite-8b at its published size (36 layers, bf16,
    random weights from a seed, ``attention_impl="pallas"``), two replicas
    (us-east, eu-west) sharing the parameters behind a balanced
@@ -82,12 +89,15 @@ Phases (any failure raises and the script exits non-zero):
    others, no codec, flash or SSD launch.
 3c. The paper's models (LeNet, ResNet, DeepFM) at their own sizes, 2 pods,
    Fig 11's ``asgd@1``, ``asgd_ga@8``, ``ama@8``, ``sma@8`` and ``ama@8``
-   at top-k 0.01, 16 steps each.
+   at top-k 0.01, 16 steps each; at 2 pods ``ama@8`` and ``sma@8`` must
+   agree within 1e-6, step for step.
 4b. Entry point: ``repro_torch.launch.train.main --sync ama
    --compress-topk 0.02``.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every time is a CUDA-event median of calls made back to back, taken the
+same way for a kernel, its plain version and the library call.  The line
+before the last is a JSON object with one entry per kernel; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -105,10 +115,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM (NVIDIA data sheet): HBM3 bandwidth, non-tensor-core f32 rate
-# and dense bf16 tensor-core rate
+# and dense bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+# calls timed back to back in each run of time_ms
+TIMED_CALLS = 10
 
 SEED = 0
 N_MAIN = 838_881_280           # granite-8b, 2 layers: values per pod
@@ -139,6 +152,10 @@ MAMBA_SCORE_BATCH = 2
 # SSDs differ in f32 rounding, which flips bf16 roundings that 48 layers
 # carry on; on an H100: 7.7e-3, every argmax equal)
 MAMBA_LOGIT_TOL = 2e-2
+# the paper's models at 2 pods: ama@8 and sma@8 take the same mean, so
+# their losses must agree step for step (up to the last bits of the loss's
+# own reduction)
+PAPER_AMA_SMA_TOL = 1e-6
 # the legacy sparse shipping: top-k block (the reference's default)
 TOPK_BLOCK = 1024
 STRATEGIES_3B = (("asgd_ga", TOPK), ("ama", TOPK), ("asp", TOPK),
@@ -165,7 +182,10 @@ def clocked(torch, hook, spent: list):
 
 
 def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Median device time of one ``fn`` call over ``reps`` runs (CUDA
+    events), each of ``TIMED_CALLS`` calls back to back, so that the host's
+    work for one call overlaps the device's for the one before, as on a
+    model's path.  Kernels, plain versions and library calls alike."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -174,10 +194,11 @@ def time_ms(torch, fn, reps: int, warm: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(TIMED_CALLS):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / TIMED_CALLS)
     return statistics.median(times)
 
 
@@ -198,9 +219,14 @@ def phase_device(torch) -> dict:
     print(f"[device] {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}")
-    # f32 matmuls in full f32, as the reference's parity assumes
+    # f32 matmuls and convolutions in full f32, as the reference's parity
+    # assumes; cuDNN's deterministic algorithms and no autotuning, so that
+    # two runs that must agree (phase 3c's ama@8 and sma@8 at 2 pods) do
+    # not differ by the order of an atomic sum or by the algorithm chosen
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -324,20 +350,21 @@ def phase_flash(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(B, S, H, K, Dh, dtype):
-        return [torch.randn(B, S, n, Dh, generator=gen, device="cuda"
-                            ).to(dtype) for n in (H, K, K)]
+    def inputs(B, S, H, K, Dh, dtype, Sk=None):
+        return [torch.randn(B, n_s, n, Dh, generator=gen, device="cuda"
+                            ).to(dtype)
+                for n_s, n in ((S, H), (Sk or S, K), (Sk or S, K))]
 
     def check(B, S, H, K, Dh, dtype, causal=True, window=None,
-              softcap=0.0):
-        q, k, v = inputs(B, S, H, K, Dh, dtype)
+              softcap=0.0, Sk=None):
+        q, k, v = inputs(B, S, H, K, Dh, dtype, Sk)
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
         expect = ref.sdpa(q, k, v, causal=causal, window=window,
                           softcap=softcap)
         torch.cuda.synchronize()
         return flash_close(torch, out, expect, f"{(B, S, H, K, Dh)} {dtype} "
-                           f"causal={causal} window={window} "
+                           f"Sk={Sk or S} causal={causal} window={window} "
                            f"softcap={softcap}")
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -357,11 +384,38 @@ def phase_flash(torch) -> dict:
     cases += [((1, 128, 4, 2, 64, f32), {"window": w, "softcap": c})
               for w in (16, 64) for c in (0.0, 30.0)]
     cases.append(((2, 64, 2, 2, 32, f32), {"causal": False}))
+    # the tensor-core (bf16) path: every head dim, less than one tile,
+    # Sq != Sk both ways, MQA, non-causal, window and soft-cap
+    cases += [((1, 1024, 16, 4, dh, bf16), {"causal": c})
+              for dh in (32, 64, 128, 256) for c in (True, False)]
+    cases += [((2, s, 8, 2, 128, bf16), {}) for s in (1, 5, 17, 65)]
+    cases += [((2, sq, 8, 2, 128, bf16), {"Sk": sk, "causal": c})
+              for sq, sk in ((100, 300), (300, 100), (17, 1000))
+              for c in (True, False)]
+    cases += [((1, 1000, 16, 1, 64, bf16), {}),
+              ((1, 333, 4, 2, 64, bf16), {"window": 16, "softcap": 30.0}),
+              ((1, 333, 4, 2, 64, bf16), {"window": 64}),
+              ((1, 2048, 32, 8, 128, bf16), {"window": 700})]
     for shape, kw in cases:
         check(*shape, **kw)
-    print(f"[flash] kernel within tolerance of ref.sdpa on {len(cases)} "
+    # strided views read in place, and a misaligned one refused
+    qkv = torch.randn(2, 100, 8, 64, generator=gen, device="cuda").to(bf16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    flash_close(torch, ops.flash_attention(q, k, v), ref.sdpa(q, k, v),
+                "bf16 strided views")
+    before = ops.LAUNCHES["flash_attention"]
+    wide = torch.randn(1, 64, 4, 72, generator=gen, device="cuda").to(bf16)
+    try:
+        ops.flash_attention(*([wide[..., 1:65]] * 3))
+        refused = False
+    except ValueError as e:
+        refused = "aligned" in str(e)
+    require(refused and ops.LAUNCHES["flash_attention"] == before,
+            "a misaligned bf16 view is refused with ValueError, unlaunched")
+    print(f"[flash] kernel within tolerance of ref.sdpa on {len(cases) + 1} "
           f"cases (the serving shape, ragged S, MQA, f32, non-causal, "
-          f"window+softcap, Dh 256, the reference's kernel tests)")
+          f"window+softcap, Dh 32-256, S 1-65, Sq != Sk, strided views, "
+          f"the reference's kernel tests); a misaligned view refused")
 
     B, S, H, K, Dh = 1, SERVE_PROMPT_LEN, 32, 8, 128
     q, k, v = inputs(B, S, H, K, Dh, bf16)
@@ -377,10 +431,10 @@ def phase_flash(torch) -> dict:
     f_ms = flops / BF16_FLOP_PER_S * 1e3
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound, by = max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
-    print(f"[flash] {(B, S, H, K, Dh)} bf16 causal: {ms:.4f} ms (bound "
-          f"{bound:.4f} ms by {by}, plain {plain_ms:.3f} ms, "
-          f"F.scaled_dot_product_attention {lib_ms:.4f} ms), max |err| "
-          f"{err:.3g}")
+    print(f"[flash] {(B, S, H, K, Dh)} bf16 causal: {ms:.4f} ms = "
+          f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bound:.4f} ms by {by}, "
+          f"plain {plain_ms:.3f} ms, F.scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms = {ms / lib_ms:.2f}x), max |err| {err:.3g}")
     return {"flash_attention": {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -750,7 +804,7 @@ def phase_paper_models(torch) -> None:
                                         m["n_classes"], seed=1,
                                         feature_vocab=fv)
         geo = GeoDataset.partition(data, ["bj", "sh"], [1, 1])
-        out = {}
+        out, curves = {}, {}
         for strategy, interval, topk in runs:
             loaders = [geo.loader("bj", 32, seed=0),
                        geo.loader("sh", 32, seed=1)]
@@ -781,6 +835,7 @@ def phase_paper_models(torch) -> None:
                     f"{name} {strategy}: finite losses")
             key = f"{strategy}@{interval}" + (f" top-k {topk}" if topk
                                               else "")
+            curves[key] = hist["loss"]
             out[key] = {"loss_first": round(hist["loss"][0], 4),
                         "loss_last4": round(statistics.mean(
                             hist["loss"][-4:]), 4),
@@ -790,6 +845,15 @@ def phase_paper_models(torch) -> None:
                         "topk_launches": launches["topk_compress"]}
         print(f"[paper] {name} ({n_leaves} leaves), 2 pods, batch 32, 16 "
               f"steps: {json.dumps(out)}")
+        # at 2 pods the ring neighbour's copy is the other pod's, so ama's
+        # (p + peer) / 2 is sma's mean: the two runs must agree step for
+        # step (with cuDNN's deterministic algorithms, phase_device)
+        gap = max(abs(x - y) for x, y in zip(curves["ama@8"],
+                                              curves["sma@8"]))
+        print(f"[paper] {name}: max |loss(ama@8) - loss(sma@8)| over 16 "
+              f"steps {gap:.3g}")
+        require(gap <= PAPER_AMA_SMA_TOL, f"{name}: ama@8 and sma@8 agree "
+                f"within {PAPER_AMA_SMA_TOL} at 2 pods (gap {gap:.3g})")
 
 
 def phase_entry_point_ama(torch) -> None:
@@ -926,7 +990,7 @@ def phase_serving(torch) -> dict:
           f"{FLASH_TOL['torch.bfloat16']} of ref.sdpa (max |err| "
           f"{max(checked):.3g}); request 0 alone == beside neighbours")
     print(f"[serve] prefill s per request {[round(t, 4) for t in prefill_s]}"
-          f" (the first net of its check's {check_s[0]:.4f} s, left out of "
+          f" (median {statistics.median(prefill_s):.4f}; the first net of its check's {check_s[0]:.4f} s, left out of "
           f"tok/s too), median decode step {statistics.median(step_s):.4f} s over "
           f"{len(step_s)} pool steps, {total_new} tokens in {wall:.2f} s = "
           f"{total_new / wall:.1f} generated tok/s, peak memory "
@@ -1028,19 +1092,33 @@ def ssd_serving_close(torch, x, a, Bm, Cm, y, final, chunk, init_state,
     return e
 
 
-def ssd_bound(B, S, H, P, N, L, nbytes, bc_bf16: bool):
-    """The least time for one SSD launch: the causal products' FLOPs, each
-    over the peak rate for its operands' type, or the bytes over the memory
-    rate, whichever is larger.  C B^T over the L(L+1)/2 pairs of each chunk
-    has B and C as operands: bf16 (the tensor-core rate) when they are
-    bf16.  The masked scores times x, the carried-state term and the state
-    update have an f32 operand (x or the state): the f32 rate."""
+def ssd_flops(B, S, H, P, N, L) -> tuple:
+    """The causal products of one SSD call: (C B^T over the L(L+1)/2 pairs
+    of each chunk, the masked scores times x, and the two products that
+    take B or C as one operand: the local state x^T (B w) and the
+    carried-state term C state^T)."""
     blocks = B * H * (S // L)
     pairs = L * (L + 1) // 2
-    cb_flops = blocks * 2 * pairs * N
-    f32_flops = blocks * (2 * pairs * P + 4 * L * N * P)
-    f_ms = (f32_flops / F32_FLOP_PER_S + cb_flops / (
-        BF16_FLOP_PER_S if bc_bf16 else F32_FLOP_PER_S)) * 1e3
+    return (blocks * 2 * pairs * N, blocks * 2 * pairs * P,
+            blocks * 4 * L * N * P)
+
+
+def ssd_bound(B, S, H, P, N, L, nbytes, bc_bf16: bool):
+    """The least time for one SSD call: the causal products' FLOPs, each
+    over the peak rate of the tensor-core arithmetic that keeps the spec's
+    f32 accuracy, or the bytes over the memory rate, whichever is larger.
+    C B^T with bf16 B and C runs at the bf16 rate (a product of two bf16
+    values is exact in f32).  A product with an f32 operand runs as 3xTF32,
+    hi*hi + hi*lo + lo*hi: three TF32 products where both operands are f32
+    (the scores times x; every product when B and C are f32), two where the
+    other is bf16, which is exact in TF32 and has no lo part (the local and
+    carried-state products with bf16 B and C)."""
+    cb, sx, state = ssd_flops(B, S, H, P, N, L)
+    if bc_bf16:
+        f_ms = (cb / BF16_FLOP_PER_S
+                + (3 * sx + 2 * state) / TF32_FLOP_PER_S) * 1e3
+    else:
+        f_ms = 3 * (cb + sx + state) / TF32_FLOP_PER_S * 1e3
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
 
@@ -1083,11 +1161,26 @@ def phase_ssd(torch) -> dict:
              ((1, 512, 8, 64, 128, 256), {"bc_dtype": bf16}),
              ((1, 512, 8, 64, 128, 256), {"bc_dtype": bf16, "expand": True}),
              (main, {"bc_dtype": bf16, "expand": True})]
+    # chunks 64, 128 and 256 (f32 and bf16 B/C), 16 chunks, the scoring
+    # shape (B 2), init_state with bf16 and stride-0 B/C
+    cases += [((1, 1024, 8, 64, 128, c), {"bc_dtype": d, "expand": True,
+                                          "init": True})
+              for c in (64, 128, 256) for d in (torch.float32, bf16)]
+    cases += [((1, 4096, 16, 64, 128, 256), {"bc_dtype": bf16,
+                                              "expand": True}),
+              ((MAMBA_SCORE_BATCH,) + main[1:], {"bc_dtype": bf16,
+                                                  "expand": True}),
+              ((2, 512, 8, 64, 128, 256), {"bc_dtype": bf16, "init": True}),
+              ((2, 512, 8, 64, 128, 256), {"bc_dtype": bf16, "init": True,
+                                           "expand": True}),
+              ((2, 192, 3, 80, 100, 96), {"bc_dtype": bf16, "init": True})]
     errs = [check(*shape, **kw)[1] for shape, kw in cases]
     print(f"[ssd] kernel within {SSD_Y_TOL} (y / max|y|) and "
           f"{SSD_STATE_TOL} (state) of ref.ssd on {len(cases)} cases (the "
           f"reference's kernel tests, S == chunk, S < chunk, init_state, "
-          f"bf16 B/C, stride-0 B/C, the serving prefill's shape); max y "
+          f"f32 and bf16 B/C, stride-0 B/C, chunks 64-256, 16 chunks, "
+          f"ragged P-tiles, the serving prefill's and the scoring "
+          f"forward's shapes); max y "
           f"err {max(errs):.3g}")
 
     B, S, H, P, N, L = main
@@ -1104,8 +1197,10 @@ def phase_ssd(torch) -> dict:
               + y.numel() * 4 + f.numel() * 4)
     bound, by = ssd_bound(B, S, H, P, N, L, nbytes,
                           bc_bf16=Bm.dtype == torch.bfloat16)
+    flops = sum(ssd_flops(B, S, H, P, N, L))
     print(f"[ssd] {(B, S, H, P, N)} chunk {L}, x/a f32, B/C bf16 stride-0: "
-          f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
+          f"{ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s (bound {bound:.4f} "
+          f"ms by {by}, the f32-operand products priced as 3xTF32; plain "
           f"{plain_ms:.3f} ms, no single PyTorch call), max |y err| "
           f"{abs_err:.3g} ({err:.3g} of max|y|)")
     return {"ssd_scan": {
@@ -1269,7 +1364,7 @@ def phase_mamba_serving(torch):
           f"SSD; worst over layers (of max|y|, max|state|): "
           f"{json.dumps(worst)}")
     print(f"[mamba] prefill s per request {[round(t, 4) for t in prefill_s]}"
-          f" (the first net of its check's {check_s[0]:.4f} s, left out of "
+          f" (median {statistics.median(prefill_s):.4f}; the first net of its check's {check_s[0]:.4f} s, left out of "
           f"tok/s too), median decode step {statistics.median(step_s):.4f} s over "
           f"{len(step_s)} pool steps, {total_new} tokens in {wall:.2f} s = "
           f"{total_new / wall:.1f} generated tok/s, peak memory "

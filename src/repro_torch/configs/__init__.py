@@ -18,6 +18,15 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
+# every arch id of the reference's registry (repro/configs/__init__.py), in
+# its order: a name outside it is unknown (KeyError, as the reference
+# raises); a name in it that is not in ARCH_IDS is not ported yet
+REFERENCE_ARCH_IDS = (
+    "qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "mamba2-1.3b",
+    "whisper-tiny", "granite-8b", "kimi-k2-1t-a32b", "gemma3-12b",
+    "minitron-8b", "qwen2-vl-2b", "gemma2-27b",
+)
+
 
 @dataclass(frozen=True)
 class Arch:
@@ -28,6 +37,9 @@ class Arch:
 
 
 def get_arch(name: str) -> Arch:
+    if name not in REFERENCE_ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(REFERENCE_ARCH_IDS)}")
     if name not in _MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {sorted(_MODULES)}); "

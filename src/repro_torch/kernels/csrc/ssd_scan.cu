@@ -4,61 +4,74 @@
 //   _kernel (wrapper ssd_scan).
 // The spec is repro_torch/kernels/ref.py::ssd (the chunked algorithm of
 // models/ssm.py::ssd_chunked, all in f32).  Per (batch row b, head h) and
-// per chunk of L steps, with a_cum = cumsum(a) over the chunk:
-//   y     = ((C B^T) o tril exp(a_cum[i] - a_cum[j])) x     intra-chunk
-//         + (C state^T) * exp(a_cum)                       carried state
-//   state = state * exp(a_cum[L-1]) + x^T (B * exp(a_cum[L-1] - a_cum))
-// where y uses the state that enters the chunk.  The kernel agrees with the
-// spec to f32 rounding, not to the bit: sums run in another order, and the
-// log-decay prefix is kept in f64 (below).
+// per chunk c of L steps, with a_cum = cumsum(a) over the chunk:
+//   y_c     = ((C B^T) o tril exp(a_cum[i] - a_cum[j])) x    intra-chunk
+//           + (C state_c^T) * exp(a_cum)                     carried state
+//   local_c = x^T (B * exp(a_cum[L-1] - a_cum))
+//   state_{c+1} = state_c * exp(a_cum[L-1]) + local_c
+// The kernel agrees with the spec to f32 rounding, not to the bit: sums run
+// in another order, products run as 3xTF32 (below), and the log-decay
+// prefix is kept in f64.
 //
 // Bound: operations.  At the serving prefill's shape (S 2048, 64 heads,
-// P 64, N 128, L 256) the useful work is ~10.8 GFLOP per launch: 4.3 of
+// P 64, N 128, L 256) the useful work is ~10.8 GFLOP per call: 4.3 of
 // C B^T, whose operands are bf16 there, and 6.5 of products with an f32
-// operand, against ~70 MB of x, y, B, C and the states.  Design:
-//   - no sequential grid axis: one thread block owns one (P-tile, head,
-//     batch row) and loops over the chunks itself; the (N, P-tile) f32
-//     state stays in shared memory from the first chunk to the last;
-//   - a chunk is worked in 64-row sub-tiles, since whole f32 B and C chunks
-//     (128 KB each at L 256, N 128) do not fit beside each other: for each
-//     i-tile the carried-state term goes first into a 64 x P-tile register
-//     accumulator, then each j-tile <= i-tile (the causal skip) adds its
-//     masked scores times x; the last i-tile, whose j-tiles cover the whole
-//     chunk, also accumulates the state update in registers, and the new
-//     state is written only after every i-tile has read the incoming one;
-//   - the cumulative log decay of the chunk is one warp scan in f64, kept
-//     in shared memory, and a_cum[i] - a_cum[j] is taken in f64 before its
-//     exp: at the model's real decays (|a| up to a few hundred per step in
-//     the fast heads) a_cum reaches ~1e4, where one f32 ulp (~1e-3) would
-//     already move exp(a_cum[i] - a_cum[j]) by 1e-3; exp is taken only where j <= i, and
-//     0 is written above the diagonal without evaluating it, as the
-//     reference's `where`; below the diagonal tile the decay factors into
-//     one exp per row and one per column (exp(a_cum[i] - a_cum[i0]) *
-//     exp(a_cum[i0] - a_cum[j]), both <= 1 for a decay a <= 0), so only the
-//     diagonal tiles take an exp per score;
-//   - B and C sub-tiles stay in shared memory row-major in their own type
-//     (bf16 on the serving path: half the bytes of f32);
-//   - C B^T: with bf16 B and C the product of two bf16 values is exact in
-//     f32, so it runs on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-//     accumulate: the f32 spec's arithmetic, summed in another order); with
-//     f32 B and C it runs as scalar f32 FMAs, each thread owning a 4 x 4
-//     block of scores;
-//   - the products with f32 operands (the masked scores times x, the
-//     carried-state term and the state update) run as scalar f32 FMAs:
-//     each thread owns a 4 x P-tile/16 block of y and a P-tile/16 x 8 block
-//     of the state, and every shared-memory load feeds 2-8 FMAs;
-//   - parallelism: B*H blocks (64 at the prefill shape) are fewer than the
-//     card's block slots, so the P axis is halved (recomputing the scores
-//     per P-tile, cheap on the tensor cores) while twice the blocks still
-//     fit in one wave at the occupancy the smaller tile allows;
-//   - x, a, B and C are read in place through their strides: B and C may be
-//     a stride-0 view over heads (one B/C group), so no repeated copy is
-//     made; a tile's loads are all issued before its first store.
-// Explicit fmaf throughout: the build passes -fmad=false for the codec's
-// sake.  wgmma and TMA are the next step for speed.  Shared memory per
-// block: 4 * (Np*Pt + 64*Pt + 64*68 + 3*64) + 8 * L bytes plus two 64-row
-// B/C tiles of Np + 8 (bf16) or Np + 4 (f32) elements a row, Np = N
-// rounded up to 16: 78 KB at N 128, P-tile 32, L 256 with bf16 B and C.
+// operand, against ~70 MB of x, y, B, C and the states.  Design: Mamba2's
+// own split of the chunked algorithm, so that only a short pass is
+// sequential.  One call is three launches on the caller's stream:
+//   1. chunk_state_kernel, parallel over (P-tile, head, chunk, batch row):
+//      the chunk's local state, x^T (B * w) with w = exp(a_cum[L-1] -
+//      a_cum), written to a per-chunk state buffer, and the chunk's decay
+//      exp(a_cum[L-1]); 8 warps, each a 16 x 64 block of the 64 x 128 state
+//      tile;
+//   2. state_pass_kernel, parallel over (state element, head, batch row):
+//      walks the chunks in order, replacing each chunk's local state by the
+//      state that enters it and writing the final state (N*P values a
+//      chunk; each step's load is issued before the previous step's
+//      store);
+//   3. chunk_scan_kernel, parallel over (P-tile, head, chunk, batch row,
+//      128-row i-tile): the carried-state term and the intra-chunk term of
+//      y together, so that y is written once; 8 warps of 16 rows each.
+//      The i-tiles run longest first (the grid's slowest axis, backwards).
+//      Against each 64-key j-tile a warp is in one of three cases, alike
+//      for all its rows: every key after every row (the warp skips it),
+//      every key before every row, or the diagonal.
+// Arithmetic, all on the tensor cores:
+//   - C B^T with bf16 B and C: mma.sync.m16n8k16, bf16 in, f32 accumulate
+//     (the product of two bf16 values is exact in f32: the spec's f32
+//     arithmetic summed in another order), fragments by ldmatrix;
+//   - every product with an f32 operand (the masked scores times x, the
+//     carried-state term, the local state; and C B^T when B and C are f32)
+//     as 3xTF32 on mma.sync.m16n8k8: each f32 operand is split into hi
+//     (its top 19 bits) and lo = v - hi, and the product taken as hi*hi +
+//     hi*lo + lo*hi, which keeps about f32's accuracy (one TF32 product
+//     keeps ~3 decimal digits and would miss the 1e-5 bound).  A bf16
+//     operand is exact in tf32 and is not split: two products, not three.
+//     Each of the three terms runs over all of a row's n-tiles before the
+//     next, so consecutive products go to different accumulators;
+//   - the f32 scores, held in the accumulator layout of C B^T, are the A
+//     fragment of the scores-times-x product as they stand (the k index is
+//     permuted alike in A and B; see tensor_core.cuh);
+//   - N is padded to 128 and a P-tile to 64 with zeros in shared memory, so
+//     that every loop has a compile-time trip count and the unrolled
+//     products form one basic block the compiler can schedule.
+// The log-decay prefix is taken in f64 (each lane sums a run of steps, one
+// warp scan joins the runs), and a_cum[i] - a_cum[j] is taken in f64 before
+// its exp: at the model's real decays (|a| up to a few hundred per step in
+// the fast heads) a_cum reaches ~1e4, where one f32 ulp (~1e-3) would
+// already move exp(a_cum[i] - a_cum[j]) by 1e-3.  Where every key of a
+// j-tile lies before every row of the warp, the decay factors through the
+// tile's end e into one exp per row and one per key (exp(a_cum[i] -
+// a_cum[e]) * exp(a_cum[e] - a_cum[j]), both <= 1 for a decay a <= 0); on
+// the diagonal each score takes its own exp, and only where j <= i (0
+// elsewhere without evaluating it, as the reference's `where`).
+// Loads: the B, C and x sub-tiles and the incoming state are staged with
+// 16-byte cp.async (zero-filled past the ragged edges; an unaligned chunk
+// of a strided view is read element by element instead), the B/x j-tiles
+// double-buffered; x, a, B and C are read in place through their strides,
+// so B and C may be a stride-0 view over heads (one B/C group) with no
+// expanded copy.  Shared memory of the scan at the prefill shape: 105 KB,
+// two blocks of 8 warps a SM; of the chunk states: 71 KB, three blocks.
 //
 // C interface (bound with ctypes); the launcher returns cudaGetLastError().
 
@@ -68,17 +81,18 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kT = 64;                  // rows of a chunk sub-tile
-constexpr int kLd = kT + 4;             // row stride of the score tile
-constexpr int kThreads = 256;           // 16 x 16
+constexpr int kT = 64;                  // rows of a sub-tile (l, i or j)
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxN = 128;              // state_dim
-constexpr int kNM = 8;                  // state columns per thread (update)
 constexpr int kMaxPt = 64;              // P columns per block
+constexpr int kLdX = kMaxPt + 4;        // row stride of an x tile (f32)
 constexpr int kMaxL = 4096;             // chunk length
-
-static_assert(16 * kNM == kMaxN, "the update's threads cover kMaxN");
+constexpr int kPassThreads = 256;
 
 struct Args {
   const float* x;
@@ -88,477 +102,602 @@ struct Args {
   const float* s0;
   float* y;
   float* sf;
-  int seq, heads, p, n, len, pt;        // len: chunk length; pt: P per block
+  float* states;                        // (B, nc, H, P, N) f32
+  float* decay;                         // (B, nc, H) f32
+  int seq, heads, p, n, len, nc;        // len: chunk length
   // (batch, seq, head) element strides of x, a, b, c, y; s0: (batch, head, p)
   long long xs[3], as[3], bs[3], cs[3], ys[3], ss[3];
 };
 
 template <typename TB>
-constexpr bool kTensorCores = std::is_same<TB, __nv_bfloat16>::value;
+constexpr bool kBf16 = std::is_same<TB, __nv_bfloat16>::value;
 
-__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+__host__ __device__ inline int pad64(int n) { return (n + 63) & ~63; }
 
-// the row stride, in elements, of the row-major B/C sub-tiles: N rounded up
-// to 16 (the mma's k), plus a skew that keeps rows 16-byte aligned and
-// sends fragment loads of neighbouring rows to other banks
+// the row stride, in elements, of a B/C sub-tile: kMaxN (N zero-filled up
+// to it, so that every loop over N has a compile-time trip count) plus a
+// skew that keeps rows 16-byte aligned and sends the fragment loads of
+// neighbouring rows to other banks
 template <typename TB>
-__host__ __device__ inline int tile_ld(int n) {
-  return pad16(n) + (kTensorCores<TB> ? 8 : 4);
-}
+constexpr int kLdB = kMaxN + (kBf16<TB> ? 8 : 4);
+constexpr int kLdS = kMaxN + 4;         // row stride of a state tile (f32)
 
-// four consecutive values of a sub-tile row (16-byte aligned), as f32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// dst[r * ld + c] = g[(row0 + r) * rs + c] for r < rows, c < n, zero up to
-// the padded width.  Thread (tx, ty) takes rows ty + 16k and columns
-// tx + 16m, with trip counts fixed at compile time, and issues all its
-// global loads before its first store: one memory latency per tile.
+// dst[r * ld + c] = src[r * rs + c] for r < rows_ok, c < cols_ok; zero
+// elsewhere in [0, rows) x [0, cols).  cols is a multiple of one 16-byte
+// chunk; a chunk that is whole and aligned goes by cp.async, any other is
+// read element by element.
 template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* g,
-                                          long long row0, long long rs,
-                                          int rows, int n) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4, np = pad16(n);
-  T v[kT / 16][kMaxN / 16];
+__device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
+                                           long long rs, int rows,
+                                           int rows_ok, int cols,
+                                           int cols_ok) {
+  constexpr int E = 16 / sizeof(T);
+  const int nch = cols / E;
+  // chunk i = threadIdx.x + kThreads * k is (row r, chunk c), kept by
+  // increments rather than a division per chunk
+  int r = threadIdx.x / nch, c = threadIdx.x % nch;
+  const int dr = kThreads / nch, dc = kThreads % nch;
+  for (int i = threadIdx.x; i < rows * nch; i += kThreads) {
+    T* d = dst + r * ld + c * E;
+    const T* s = src + (long long)r * rs + c * E;
+    if (r < rows_ok && (c + 1) * E <= cols_ok &&
+        (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      tc::cp_async16(d, s, true);
+    } else {
 #pragma unroll
-  for (int k = 0; k < kT / 16; ++k) {
-    const int r = ty + 16 * k;
-    const T* row = g + (row0 + r) * rs;
-#pragma unroll
-    for (int m = 0; m < kMaxN / 16; ++m) {
-      const int c = tx + 16 * m;
-      v[k][m] = (r < rows && c < n) ? row[c] : T(0.f);
+      for (int e = 0; e < E; ++e)
+        d[e] = (r < rows_ok && c * E + e < cols_ok) ? s[e] : T(0.f);
+    }
+    r += dr;
+    c += dc;
+    if (c >= nch) {
+      c -= nch;
+      ++r;
     }
   }
-#pragma unroll
-  for (int k = 0; k < kT / 16; ++k)
-#pragma unroll
-    for (int m = 0; m < kMaxN / 16; ++m) {
-      const int c = tx + 16 * m;
-      if (c < np) dst[(ty + 16 * k) * ld + c] = v[k][m];
-    }
 }
 
-// dst[r * pt + c] = g[(row0 + r) * rs + c] for r < rows, c < live, else 0;
-// pt <= 16 * PC
-template <int PC>
-__device__ __forceinline__ void load_x(float* dst, const float* g,
-                                       long long row0, long long rs,
-                                       int rows, int pt, int live) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float v[kT / 16][PC];
-#pragma unroll
-  for (int k = 0; k < kT / 16; ++k) {
-    const int r = ty + 16 * k;
-    const float* row = g + (row0 + r) * rs;
-#pragma unroll
-    for (int m = 0; m < PC; ++m) {
-      const int c = tx + 16 * m;
-      v[k][m] = (r < rows && c < live) ? row[c] : 0.f;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kT / 16; ++k)
-#pragma unroll
-    for (int m = 0; m < PC; ++m) {
-      const int c = tx + 16 * m;
-      if (c < pt) dst[(ty + 16 * k) * pt + c] = v[k][m];
-    }
-}
-
-// one 16 x 8 x 16 tensor-core product, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// the masked score of row r (in the i-tile) and column c (in the j-tile).
-// Below the diagonal tile every (r, c) is visible and, with i0 between
-// them, exp(a_cum[r] - a_cum[c]) = rf[r] * cf[c]; on the diagonal tile each
-// score takes its own exp, and only where c <= r.
-__device__ __forceinline__ float masked(float s, int r, int c, int i0, int j0,
-                                        int L, const double* acum,
-                                        const float* rf, const float* cf) {
-  if (j0 < i0) return s * rf[r] * cf[c];
-  const int ri = i0 + r, cj = j0 + c;
-  return (cj <= ri && ri < L) ? s * expf((float)(acum[ri] - acum[cj])) : 0.f;
-}
-
-template <typename TB, int PC>
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  const int N = a.n, Np = pad16(a.n), Pt = a.pt, L = a.len;
-  const int ld = tile_ld<TB>(N);
-  float* st = reinterpret_cast<float*>(smem4);  // [Np][Pt] state, n-major
-  double* acum = reinterpret_cast<double*>(st + Np * Pt);       // [L]
-  TB* ct = reinterpret_cast<TB*>(acum + ((L + 1) & ~1));  // [kT][ld] C
-  TB* bt = ct + kT * ld;                                  // [kT][ld] B
-  float* xt = reinterpret_cast<float*>(bt + kT * ld);     // [kT][Pt] x
-  float* sc = xt + kT * Pt;                     // [kT][kLd] masked scores
-  float* ws = sc + kT * kLd;                    // [kT] exp(last - a_cum)
-  float* rf = ws + kT;                          // [kT] exp(a_cum[r] - a_cum[i0])
-  float* cf = rf + kT;                          // [kT] exp(a_cum[i0] - a_cum[c])
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int p0 = blockIdx.x * Pt, h = blockIdx.y, b = blockIdx.z;
-  const int live = min(Pt, a.p - p0);           // P columns of this block
-  const float* xg = a.x + b * a.xs[0] + h * a.xs[2] + p0;
-  const float* ag = a.a + b * a.as[0] + h * a.as[2];
-  const TB* bg = static_cast<const TB*>(a.b) + b * a.bs[0] + h * a.bs[2];
-  const TB* cg = static_cast<const TB*>(a.c) + b * a.cs[0] + h * a.cs[2];
-  float* yg = a.y + b * a.ys[0] + h * a.ys[2] + p0;
-  const float* s0g = a.s0 + b * a.ss[0] + h * a.ss[1] + p0 * a.ss[2];
-
-  for (int i = tid; i < Pt * Np; i += kThreads) {
-    const int p = i / Np, n = i % Np;
-    st[n * Pt + p] = (p < live && n < N) ? s0g[p * a.ss[2] + n] : 0.f;
-  }
-
-  const int n_chunks = a.seq / L, n_tiles = (L + kT - 1) / kT;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const long long r0 = (long long)ch * L;
-    __syncthreads();              // the previous chunk's readers are done
-    if (tid < 32) {               // inclusive scan of a, 32 steps at a time
-      double carry = 0.0;
-      for (int base = 0; base < L; base += 32) {
-        const int l = base + tid;
-        double v = l < L ? (double)ag[(r0 + l) * a.as[1]] : 0.0;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const double u = __shfl_up_sync(0xffffffffu, v, o);
-          if (tid >= o) v += u;
-        }
-        v += carry;
-        if (l < L) acum[l] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
-    }
-    __syncthreads();
-    const double last = acum[L - 1];
-
-    float up[PC][kNM];            // the state update, in the last i-tile
-    // ---- y of each 64-row i-tile, from the incoming state
-    for (int it = 0; it < n_tiles; ++it) {
-      const int i0 = it * kT, ni = min(kT, L - i0);
-      const bool last_tile = it == n_tiles - 1;
-      load_tile(ct, ld, cg, r0 + i0, a.cs[1], ni, N);
-      if (tid < kT)
-        rf[tid] = tid < ni ? expf((float)(acum[i0 + tid] - acum[i0])) : 0.f;
-      __syncthreads();
-
-      float acc[4][PC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < PC; ++k) acc[i][k] = 0.f;
-      // carried-state term: (C state^T) * exp(a_cum)
-      for (int n = 0; n < Np; n += 4) {
-        float4 cv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = load4(&ct[(ty * 4 + i) * ld + n]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int k = 0; k < PC; ++k) {
-            const int col = tx + 16 * k;
-            const float sv = col < Pt ? st[(n + q) * Pt + col] : 0.f;
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc[i][k] = fmaf(lane4(cv[i], q), sv, acc[i][k]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i0 + ty * 4 + i;
-        const float e = r < L ? expf((float)acum[r]) : 0.f;
-#pragma unroll
-        for (int k = 0; k < PC; ++k) acc[i][k] = acc[i][k] * e;
-      }
-      if (last_tile) {
-        const float keep = expf((float)last);
-#pragma unroll
-        for (int k = 0; k < PC; ++k)
-#pragma unroll
-          for (int m = 0; m < kNM; ++m) {
-            const int n = ty * kNM + m, col = tx + 16 * k;
-            up[k][m] = (n < Np && col < Pt) ? st[n * Pt + col] * keep : 0.f;
-          }
-      }
-
-      // intra-chunk term over the j-tiles at or below the diagonal
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * kT, nj = min(kT, L - j0);
-        __syncthreads();          // the previous j-tile's readers are done
-        load_tile(bt, ld, bg, r0 + j0, a.bs[1], nj, N);
-        load_x<PC>(xt, xg, r0 + j0, a.xs[1], nj, Pt, live);
-        if (tid < kT) {
-          if (last_tile)
-            ws[tid] = tid < nj ? expf((float)(last - acum[j0 + tid])) : 0.f;
-          if (jt < it) cf[tid] = expf((float)(acum[i0] - acum[j0 + tid]));
-        }
-        __syncthreads();
-
-        if constexpr (kTensorCores<TB>) {
-          // warp w: score rows 16 (w % 4) .., columns 32 (w / 4) ..
-          const int lane = tid & 31, w = tid >> 5;
-          const int g = lane >> 2, t = lane & 3;
-          const int rb = (w & 3) * 16, cb = (w >> 2) * 32;
-          float d[4][4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) d[j][q] = 0.f;
-          const __nv_bfloat16* ar = ct + (rb + g) * ld + 2 * t;
-          for (int k0 = 0; k0 < Np; k0 += 16) {
-            const uint32_t a0 = ld32(ar + k0), a1 = ld32(ar + 8 * ld + k0);
-            const uint32_t a2 = ld32(ar + k0 + 8);
-            const uint32_t a3 = ld32(ar + 8 * ld + k0 + 8);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const __nv_bfloat16* br = bt + (cb + 8 * j + g) * ld + 2 * t;
-              mma_bf16(d[j], a0, a1, a2, a3, ld32(br + k0),
-                       ld32(br + k0 + 8));
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = cb + 8 * j + 2 * t;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = rb + g + 8 * half;
-              *reinterpret_cast<float2*>(&sc[r * kLd + c]) = make_float2(
-                  masked(d[j][2 * half], r, c, i0, j0, L, acum, rf, cf),
-                  masked(d[j][2 * half + 1], r, c + 1, i0, j0, L, acum, rf,
-                         cf));
-            }
-          }
-        } else {
-          // thread (tx, ty): score rows 4 ty .., columns tx + 16 j
-          float s[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-          for (int n = 0; n < Np; n += 4) {
-            float4 cv[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              cv[i] = load4(&ct[(ty * 4 + i) * ld + n]);
-              bv[i] = load4(&bt[(tx + 16 * i) * ld + n]);
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  s[i][j] = fmaf(lane4(cv[i], q), lane4(bv[j], q), s[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = ty * 4 + i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              sc[r * kLd + tx + 16 * j] =
-                  masked(s[i][j], r, tx + 16 * j, i0, j0, L, acum, rf, cf);
-          }
-        }
-
-        if (last_tile && ty * kNM < Np) {
-          // state update: x^T (B * exp(last - a_cum)), as (x * w)^T B;
-          // thread (tx, ty) owns state rows n = 8 ty .. 8 ty + 7
-          const int n0 = ty * kNM;
-          for (int l = 0; l < nj; ++l) {
-            const float w = ws[l];
-            float xv[PC];
-#pragma unroll
-            for (int k = 0; k < PC; ++k) {
-              const int col = tx + 16 * k;
-              xv[k] = col < Pt ? xt[l * Pt + col] * w : 0.f;
-            }
-            const float4 b0 = load4(&bt[l * ld + n0]);
-            const float4 b1 = load4(&bt[l * ld + n0 + 4]);
-#pragma unroll
-            for (int m = 0; m < 4; ++m)
-#pragma unroll
-              for (int k = 0; k < PC; ++k) {
-                up[k][m] = fmaf(xv[k], lane4(b0, m), up[k][m]);
-                up[k][m + 4] = fmaf(xv[k], lane4(b1, m), up[k][m + 4]);
-              }
-          }
-        }
-        __syncthreads();          // sc is complete
-
-        const int nj4 = (nj + 3) & ~3;  // rows past nj hold zeros
-        for (int cc = 0; cc < nj4; cc += 4) {
-          float4 sr[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            sr[i] = *reinterpret_cast<const float4*>(
-                &sc[(ty * 4 + i) * kLd + cc]);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int k = 0; k < PC; ++k) {
-              const int col = tx + 16 * k;
-              const float xv = col < Pt ? xt[(cc + q) * Pt + col] : 0.f;
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                acc[i][k] = fmaf(lane4(sr[i], q), xv, acc[i][k]);
-            }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= ni) continue;
-#pragma unroll
-        for (int k = 0; k < PC; ++k) {
-          const int col = tx + 16 * k;
-          if (col < live) yg[(r0 + i0 + r) * a.ys[1] + col] = acc[i][k];
-        }
-      }
-      __syncthreads();            // before the next i-tile reloads ct
-    }
-
-    // every reader of the incoming state is past the barrier above
-#pragma unroll
-    for (int k = 0; k < PC; ++k)
-#pragma unroll
-      for (int m = 0; m < kNM; ++m) {
-        const int n = ty * kNM + m, col = tx + 16 * k;
-        if (n < Np && col < Pt) st[n * Pt + col] = up[k][m];
-      }
-  }
-
+// acum[l] = sum_{m <= l} a[row0 + m] in f64, for l < rows.  Every thread
+// loads a part of a into stage (so the strided loads are in flight
+// together); then warp 0 sums: each lane a run of consecutive steps, one
+// warp scan of the runs' totals, and each lane its run's prefix sums.
+// Called by the whole block; ends in a barrier.
+__device__ __forceinline__ void scan_decay(double* acum, float* stage,
+                                           const float* ag, long long rs,
+                                           long long row0, int rows) {
+  for (int l = threadIdx.x; l < rows; l += kThreads)
+    stage[l] = ag[(row0 + l) * rs];
   __syncthreads();
-  float* sfg = a.sf + ((long long)(b * a.heads + h) * a.p + p0) * N;
-  for (int i = tid; i < live * N; i += kThreads) {
-    const int p = i / N, n = i % N;
-    sfg[p * N + n] = st[n * Pt + p];
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, run = (rows + 31) / 32;
+    const int lo = min(rows, lane * run), hi = min(rows, lo + run);
+    double total = 0.0;
+    for (int l = lo; l < hi; ++l) total += (double)stage[l];
+    double incl = total;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    double v = incl - total;           // the sum before this lane's run
+    for (int l = lo; l < hi; ++l) {
+      v += (double)stage[l];
+      acum[l] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// the two f32 values at p (8-byte aligned), and a bf16 pair widened
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// d[n] += a b[n] for every n, each operand f32 split into (hi, lo) or,
+// where kSplitA / kSplitB is false, exact in tf32 (a bf16 value widened,
+// passed as hi with lo unused): hi*hi + hi*lo + lo*hi, two products where
+// one side is exact.  Each term runs over all n before the next, so that
+// consecutive products go to different accumulators.
+template <bool kSplitA, bool kSplitB, int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[NT][4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const float (&b)[NT][2]) {
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if constexpr (kSplitB) {
+        tc::split_tf32(b[n][k], bh[n][k], bl[n][k]);
+      } else {
+        bh[n][k] = __float_as_uint(b[n][k]);
+      }
+    }
+  }
+  if constexpr (kSplitA) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        tc::mma_tf32(d[n], al, bh[n][0], bh[n][1]);
+    }
+  }
+  if constexpr (kSplitB) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        tc::mma_tf32(d[n], ah, bl[n][0], bl[n][1]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    tc::mma_tf32(d[n], ah, bh[n][0], bh[n][1]);
   }
 }
 
-template <typename TB>
-size_t smem_bytes(int n, int pt, int len) {
-  const size_t np = pad16(n);
-  return sizeof(float) * (np * pt + (size_t)kT * pt + (size_t)kT * kLd +
-                          3 * kT) +
-         sizeof(double) * (size_t)((len + 1) & ~1) +
-         2 * sizeof(TB) * (size_t)kT * tile_ld<TB>(n);
-}
-
-// set the kernel's shared-memory ceiling to smem (once it is needed) and
-// report how many of its blocks fit on one SM at that size
-template <typename TB, int PC>
-cudaError_t configure(size_t smem, int* per_sm) {
-  static size_t configured = 0;
-  if (smem > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<TB, PC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = smem;
+// an A fragment's four values split, or (kSplit false) passed as exact
+template <bool kSplit>
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (kSplit) {
+      tc::split_tf32(v[e], hi[e], lo[e]);
+    } else {
+      hi[e] = __float_as_uint(v[e]);
+      lo[e] = 0u;
+    }
   }
-  return per_sm == nullptr
-             ? cudaSuccess
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   per_sm, ssd_kernel<TB, PC>, kThreads, smem);
 }
 
-template <typename TB>
-cudaError_t configure_pt(int pt, size_t smem, int* per_sm) {
-  const int pc = (pt + 15) / 16;
-  if (pc <= 1) return configure<TB, 1>(smem, per_sm);
-  if (pc <= 2) return configure<TB, 2>(smem, per_sm);
-  return configure<TB, 4>(smem, per_sm);
-}
+// ------------------------------------------------ 1. chunk-local states
 
 template <typename TB>
-int launch(Args& a, int batch, int n_sm, cudaStream_t stream) {
-  // halve the P tile while twice the blocks still fit in one wave
-  int pt = a.p < kMaxPt ? a.p : kMaxPt;
-  while (pt >= 32) {
-    const int half = (pt + 1) / 2;
-    const int blocks = ((a.p + half - 1) / half) * a.heads * batch;
-    int per_sm = 0;
-    const cudaError_t err = configure_pt<TB>(
-        half, smem_bytes<TB>(a.n, half, a.len), &per_sm);
-    if (err != cudaSuccess) return (int)err;
-    if (blocks > n_sm * per_sm) break;
-    pt = half;
+size_t state_smem(int len) {
+  return sizeof(double) * pad64(len) + sizeof(float) * pad64(len) +
+         2 * (sizeof(TB) * (size_t)kT * kLdB<TB> +
+              sizeof(float) * (size_t)kT * kLdX);
+}
+
+// block (P-tile x head, chunk, batch row); warp w owns state rows
+// p0 + 16 (w % 4) .. + 15 and columns 64 (w / 4) .. + 63
+template <typename TB>
+__global__ void __launch_bounds__(kThreads)
+chunk_state_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  const int L = a.len, N = a.n;
+  constexpr int ld = kLdB<TB>, Pt = kMaxPt, kNW = kMaxN / 2;
+  double* acum = reinterpret_cast<double*>(smem4);          // [pad64(L)]
+  float* w = reinterpret_cast<float*>(acum + pad64(L));     // [pad64(L)]
+  TB* bt = reinterpret_cast<TB*>(w + pad64(L));             // [2][kT][ld]
+  float* xt = reinterpret_cast<float*>(bt + 2 * kT * ld);   // [2][kT][kLdX]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pm = 16 * (warp & 3), nb = kNW * (warp >> 2);
+  const int n_pt = (a.p + Pt - 1) / Pt;
+  const int h = blockIdx.x / n_pt, p0 = (blockIdx.x % n_pt) * Pt;
+  const int ch = blockIdx.y, b = blockIdx.z;
+  const int live = min(Pt, a.p - p0);
+  const long long r0 = (long long)ch * L;
+  const float* xg = a.x + b * a.xs[0] + h * a.xs[2] + r0 * a.xs[1] + p0;
+  const float* ag = a.a + b * a.as[0] + h * a.as[2];
+  const TB* bg = static_cast<const TB*>(a.b) + b * a.bs[0] + h * a.bs[2] +
+                 r0 * a.bs[1];
+  const int n_lt = (L + kT - 1) / kT;
+
+  stage_tile(bt, ld, bg, a.bs[1], kT, min(kT, L), kMaxN, N);
+  stage_tile(xt, kLdX, xg, a.xs[1], kT, min(kT, L), Pt, live);
+  tc::cp_async_commit();
+  scan_decay(acum, w, ag, a.as[1], r0, L);
+  const double last = acum[L - 1];
+  for (int l = threadIdx.x; l < pad64(L); l += kThreads)
+    w[l] = l < L ? expf((float)(last - acum[l])) : 0.f;
+  if (threadIdx.x == 0 && p0 == 0)
+    a.decay[((long long)b * a.nc + ch) * a.heads + h] = expf((float)last);
+
+  const bool rows_live = pm < live;
+  float acc[kNW / 8][4];
+#pragma unroll
+  for (int j = 0; j < kNW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int lt = 0; lt < n_lt; ++lt) {
+    const int st = lt & 1, l0 = lt * kT;
+    if (lt + 1 < n_lt) {
+      const int l1 = l0 + kT;
+      stage_tile(bt + (st ^ 1) * kT * ld, ld, bg + l1 * a.bs[1], a.bs[1], kT,
+                 min(kT, L - l1), kMaxN, N);
+      stage_tile(xt + (st ^ 1) * kT * kLdX, kLdX, xg + l1 * a.xs[1],
+                 a.xs[1], kT, min(kT, L - l1), Pt, live);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();          // tile lt has landed (and w is written)
+    if (rows_live) {
+      const TB* bs = bt + st * kT * ld;
+      const float* xs = xt + st * kT * kLdX;
+#pragma unroll
+      for (int ks = 0; ks < kT / 8; ++ks) {
+        // A = (x * w)^T: rows p, k = l (t -> l 2t, t + 4 -> l 2t + 1)
+        const int la = 8 * ks + 2 * t;
+        const float w0 = w[l0 + la], w1 = w[l0 + la + 1];
+        const float* x0 = xs + la * kLdX + pm + g;
+        const float av[4] = {x0[0] * w0, x0[8] * w0, x0[kLdX] * w1,
+                             x0[kLdX + 8] * w1};
+        uint32_t ah[4], al[4];
+        split4<true>(av, ah, al);
+        const TB* b0 = bs + la * ld + nb + g;
+        float bv[kNW / 8][2];
+#pragma unroll
+        for (int j = 0; j < kNW / 8; ++j) {
+          bv[j][0] = ld1(b0 + 8 * j);
+          bv[j][1] = ld1(b0 + ld + 8 * j);
+        }
+        mma_3xtf32<true, !kBf16<TB>>(acc, ah, al, bv);
+      }
+    }
+    __syncthreads();          // readers of stage st are done
   }
-  a.pt = pt;
-  const size_t smem = smem_bytes<TB>(a.n, pt, a.len);
-  const cudaError_t err = configure_pt<TB>(pt, smem, nullptr);
+
+  if (!rows_live) return;
+  float* out = a.states +
+               (((long long)b * a.nc + ch) * a.heads + h) * a.p * N;
+#pragma unroll
+  for (int j = 0; j < kNW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = pm + g + 8 * (e >> 1);
+      const int n = nb + 8 * j + 2 * t + (e & 1);
+      if (p < live && n < N) out[(long long)(p0 + p) * N + n] = acc[j][e];
+    }
+}
+
+// ------------------------------------------------- 2. passing the state
+
+// thread e of (head, batch row) walks the chunks in order: slot c of the
+// state buffer becomes the state entering chunk c
+__global__ void __launch_bounds__(kPassThreads)
+state_pass_kernel(const Args a) {
+  const int e = blockIdx.x * kPassThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long pn = (long long)a.p * a.n;
+  if (e >= pn) return;
+  const int p = e / a.n, n = e % a.n;
+  float run = a.s0 == nullptr
+                  ? 0.f
+                  : a.s0[b * a.ss[0] + h * a.ss[1] + p * a.ss[2] + n];
+  const long long stride = (long long)a.heads * pn;  // one chunk further
+  float* slot = a.states + ((long long)b * a.nc * a.heads + h) * pn + e;
+  const float* dk = a.decay + (long long)b * a.nc * a.heads + h;
+  float local = *slot;
+  for (int c = 0; c < a.nc; ++c) {
+    // load chunk c + 1's local state before chunk c's slot is written
+    const float next = c + 1 < a.nc ? slot[stride] : 0.f;
+    *slot = run;
+    run = run * dk[(long long)c * a.heads] + local;
+    local = next;
+    slot += stride;
+  }
+  a.sf[((long long)b * a.heads + h) * pn + e] = run;
+}
+
+// ------------------------------------------------------- 3. chunk scan
+
+constexpr int kTI = 16 * kWarps;        // rows of a scan block's i-tile
+
+// one stage: a B j-tile and an x j-tile, or (stage 1, before the j loop)
+// the incoming state
+template <typename TB>
+constexpr size_t kScanStage =
+    sizeof(TB) * kT * kLdB<TB> + sizeof(float) * kT * kLdX >
+            sizeof(float) * kMaxPt * kLdS
+        ? sizeof(TB) * kT * kLdB<TB> + sizeof(float) * kT * kLdX
+        : sizeof(float) * kMaxPt * kLdS;
+
+template <typename TB>
+size_t scan_smem(int len) {
+  return sizeof(double) * pad64(len) + sizeof(float) * pad64(len) +
+         sizeof(TB) * (size_t)kTI * kLdB<TB> + 2 * kScanStage<TB>;
+}
+
+// block (P-tile x head, batch row x chunk, i-tile); warp w owns y rows
+// i0 + 16w .. + 15 of the chunk and the block's 64 P columns.  Against a
+// j-tile of 64 keys each warp is in one of three cases, alike for all its
+// rows: every key after every row (skipped), every key before every row
+// (the decay factored through the j-tile's end), or the diagonal (one exp
+// per visible score).
+template <typename TB>
+__global__ void __launch_bounds__(kThreads)
+chunk_scan_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  const int L = a.len, N = a.n;
+  constexpr int ld = kLdB<TB>, lds = kLdS, Pt = kMaxPt;
+  constexpr size_t stage = kScanStage<TB>;
+  double* acum = reinterpret_cast<double*>(smem4);          // [pad64(L)]
+  float* cf = reinterpret_cast<float*>(acum + pad64(L));    // [pad64(L)]
+  TB* ct = reinterpret_cast<TB*>(cf + pad64(L));            // [kTI][ld]
+  char* stages = reinterpret_cast<char*>(ct + kTI * ld);    // 2 x stage
+  float* sin = reinterpret_cast<float*>(stages + stage);    // [Pt][lds]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;
+  const int n_pt = (a.p + Pt - 1) / Pt;
+  const int h = blockIdx.x / n_pt, p0 = (blockIdx.x % n_pt) * Pt;
+  const int b = blockIdx.y / a.nc, ch = blockIdx.y % a.nc;
+  const int it = gridDim.z - 1 - blockIdx.z;        // longest first
+  const int i0 = it * kTI, ni = min(kTI, L - i0);
+  const int live = min(Pt, a.p - p0);
+  const long long r0 = (long long)ch * L;
+  const float* xg = a.x + b * a.xs[0] + h * a.xs[2] + r0 * a.xs[1] + p0;
+  const float* ag = a.a + b * a.as[0] + h * a.as[2];
+  const TB* bg = static_cast<const TB*>(a.b) + b * a.bs[0] + h * a.bs[2] +
+                 r0 * a.bs[1];
+  const TB* cg = static_cast<const TB*>(a.c) + b * a.cs[0] + h * a.cs[2] +
+                 (r0 + i0) * a.cs[1];
+  const float* sg = a.states +
+                    (((long long)b * a.nc + ch) * a.heads + h) * a.p * N +
+                    (long long)p0 * N;
+  auto bt = [&](int s) {
+    return reinterpret_cast<TB*>(stages + s * stage);
+  };
+  auto xt = [&](int s) {
+    return reinterpret_cast<float*>(stages + s * stage + sizeof(TB) * kT * ld);
+  };
+
+  // C's i-tile and the incoming state (in stage 1), then j-tile 0
+  stage_tile(ct, ld, cg, a.cs[1], kTI, ni, kMaxN, N);
+  stage_tile(sin, lds, sg, (long long)N, Pt, live, kMaxN, N);
+  tc::cp_async_commit();
+  stage_tile(bt(0), ld, bg, a.bs[1], kT, min(kT, L), kMaxN, N);
+  stage_tile(xt(0), kLdX, xg, a.xs[1], kT, min(kT, L), Pt, live);
+  tc::cp_async_commit();
+  const int n_rows = i0 + ni;               // a_cum is needed up to here
+  scan_decay(acum, cf, ag, a.as[1], r0, n_rows);
+  // key c's factor to the end of its 64-key tile, exp(a_cum[e] - a_cum[c])
+  for (int c = threadIdx.x; c < n_rows; c += kThreads) {
+    const int e = (c / kT + 1) * kT;
+    cf[c] = e < n_rows ? expf((float)(acum[e] - acum[c])) : 0.f;
+  }
+  tc::cp_async_wait<1>();
+  __syncthreads();            // C, the state and the factors are in place
+
+  const int rw = 16 * warp;                 // the warp's first row (tile)
+  const int ra = rw + g, rb = ra + 8;       // this thread's rows (tile)
+  const bool rows_live = rw < ni;
+  float acc[kMaxPt / 8][4];
+#pragma unroll
+  for (int n = 0; n < kMaxPt / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // ---- carried-state term: (C state^T) * exp(a_cum)
+  if (rows_live) {
+#pragma unroll 4
+    for (int ks = 0; ks < kMaxN / 8; ++ks) {
+      const TB* c0 = ct + ra * ld + 8 * ks + 2 * t;
+      const float2 lo_row = ld2(c0), hi_row = ld2(c0 + 8 * ld);
+      const float av[4] = {lo_row.x, hi_row.x, lo_row.y, hi_row.y};
+      uint32_t ah[4], al[4];
+      split4<!kBf16<TB>>(av, ah, al);     // bf16 C is exact in tf32
+      float sv[kMaxPt / 8][2];
+#pragma unroll
+      for (int n = 0; n < kMaxPt / 8; ++n) {
+        const float2 s2 = ld2(sin + (8 * n + g) * lds + 8 * ks + 2 * t);
+        sv[n][0] = s2.x;
+        sv[n][1] = s2.y;
+      }
+      mma_3xtf32<!kBf16<TB>, true>(acc, ah, al, sv);
+    }
+    const float e0 = ra < ni ? expf((float)acum[i0 + ra]) : 0.f;
+    const float e1 = rb < ni ? expf((float)acum[i0 + rb]) : 0.f;
+#pragma unroll
+    for (int n = 0; n < kMaxPt / 8; ++n) {
+      acc[n][0] *= e0; acc[n][1] *= e0;
+      acc[n][2] *= e1; acc[n][3] *= e1;
+    }
+  }
+  __syncthreads();            // stage 1 (the state) is free
+
+  // ---- intra-chunk term over the j-tiles up to the i-tile's last row
+  const int n_jt = (n_rows + kT - 1) / kT;
+  for (int jt = 0; jt < n_jt; ++jt) {
+    const int st = jt & 1, j0 = jt * kT;
+    if (jt + 1 < n_jt) {
+      const int j1 = j0 + kT;
+      stage_tile(bt(st ^ 1), ld, bg + j1 * a.bs[1], a.bs[1], kT,
+                 min(kT, L - j1), kMaxN, N);
+      stage_tile(xt(st ^ 1), kLdX, xg + j1 * a.xs[1], a.xs[1], kT,
+                 min(kT, L - j1), Pt, live);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();          // j-tile jt has landed
+    const int rg = i0 + rw;                 // the warp's first row (chunk)
+    if (rows_live && j0 <= rg + 15) {
+      const bool below = j0 + kT <= rg;     // every key before every row
+      const TB* bs = bt(st);
+      const float* xs = xt(st);
+      float s[kT / 8][4];
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+      // S = C B^T for the warp's 16 rows and the tile's keys
+      if constexpr (kBf16<TB>) {
+        const TB* crow = ct + (rw + (lane & 15)) * ld + (lane >> 4) * 8;
+#pragma unroll
+        for (int kk = 0; kk < kMaxN / 16; ++kk) {
+          uint32_t af[4];
+          tc::ldmatrix_x4(af, crow + 16 * kk);
+#pragma unroll
+          for (int jj = 0; jj < kT / 16; ++jj) {
+            uint32_t bf[4];
+            tc::ldmatrix_x4(bf, bs + (16 * jj + lr + (lm >> 1) * 8) * ld +
+                                    16 * kk + (lm & 1) * 8);
+            tc::mma_bf16(s[2 * jj], af, bf[0], bf[1]);
+            tc::mma_bf16(s[2 * jj + 1], af, bf[2], bf[3]);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int ks = 0; ks < kMaxN / 8; ++ks) {
+          const TB* c0 = ct + ra * ld + 8 * ks + 2 * t;
+          const float2 lo_row = ld2(c0), hi_row = ld2(c0 + 8 * ld);
+          const float av[4] = {lo_row.x, hi_row.x, lo_row.y, hi_row.y};
+          uint32_t ah[4], al[4];
+          split4<true>(av, ah, al);
+          float bv[kT / 8][2];
+#pragma unroll
+          for (int j = 0; j < kT / 8; ++j) {
+            const float2 b2 = ld2(bs + (8 * j + g) * ld + 8 * ks + 2 * t);
+            bv[j][0] = b2.x;
+            bv[j][1] = b2.y;
+          }
+          mma_3xtf32<true, true>(s, ah, al, bv);
+        }
+      }
+
+      // the decay mask
+      if (below) {
+        // exp(a_cum[r] - a_cum[c]) = exp(a_cum[r] - a_cum[e]) *
+        // exp(a_cum[e] - a_cum[c]) through the tile's end e <= r: both <= 1
+        const double ae = acum[j0 + kT];
+        const float f0 = ra < ni ? expf((float)(acum[i0 + ra] - ae)) : 0.f;
+        const float f1 = rb < ni ? expf((float)(acum[i0 + rb] - ae)) : 0.f;
+#pragma unroll
+        for (int j = 0; j < kT / 8; ++j) {
+          const float c0 = cf[j0 + 8 * j + 2 * t];
+          const float c1 = cf[j0 + 8 * j + 2 * t + 1];
+          s[j][0] *= f0 * c0; s[j][1] *= f0 * c1;
+          s[j][2] *= f1 * c0; s[j][3] *= f1 * c1;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1 ? rb : ra;
+            const int kc = j0 + 8 * j + 2 * t + (e & 1);
+            s[j][e] = (kc <= i0 + r && r < ni)
+                          ? s[j][e] * expf((float)(acum[i0 + r] - acum[kc]))
+                          : 0.f;
+          }
+      }
+
+      // y += S x: the S tile is the A fragment (k 2t -> t, 2t+1 -> t+4)
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j) {
+        const float av[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t ah[4], al[4];
+        split4<true>(av, ah, al);
+        const float* x0 = xs + (8 * j + 2 * t) * kLdX + g;
+        float xv[kMaxPt / 8][2];
+#pragma unroll
+        for (int n = 0; n < kMaxPt / 8; ++n) {
+          xv[n][0] = x0[8 * n];
+          xv[n][1] = x0[kLdX + 8 * n];
+        }
+        mma_3xtf32<true, true>(acc, ah, al, xv);
+      }
+    }
+    __syncthreads();          // readers of stage st are done
+  }
+
+  if (!rows_live) return;
+  float* yg = a.y + b * a.ys[0] + h * a.ys[2] + (r0 + i0) * a.ys[1] + p0;
+#pragma unroll
+  for (int n = 0; n < kMaxPt / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1 ? rb : ra, col = 8 * n + 2 * t + (e & 1);
+      if (r < ni && col < live) yg[r * a.ys[1] + col] = acc[n][e];
+    }
+}
+
+// raise the kernel's shared-memory ceiling to smem once it is needed
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, size_t* configured) {
+  if (smem <= *configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) *configured = smem;
+  return err;
+}
+
+template <typename TB>
+int launch(Args& a, int batch, cudaStream_t stream) {
+  static size_t state_conf = 0, scan_conf = 0;
+  // P columns per block: all of P up to 64, in whole 8-column mma tiles
+  const int n_pt = (a.p + kMaxPt - 1) / kMaxPt;
+  const int n_it = (a.len + kTI - 1) / kTI;
+  if ((long long)batch * a.nc > 65535 || a.nc > 65535 ||
+      (long long)n_pt * a.heads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+
+  const size_t s1 = state_smem<TB>(a.len);
+  cudaError_t err = allow_smem(chunk_state_kernel<TB>, s1, &state_conf);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((a.p + pt - 1) / pt), (unsigned)a.heads,
-                  (unsigned)batch);
-  const int pc = (pt + 15) / 16;
-  if (pc <= 1)
-    ssd_kernel<TB, 1><<<grid, kThreads, smem, stream>>>(a);
-  else if (pc <= 2)
-    ssd_kernel<TB, 2><<<grid, kThreads, smem, stream>>>(a);
-  else
-    ssd_kernel<TB, 4><<<grid, kThreads, smem, stream>>>(a);
+  chunk_state_kernel<TB><<<dim3((unsigned)(n_pt * a.heads), (unsigned)a.nc,
+                                (unsigned)batch),
+                           kThreads, s1, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const long long pn = (long long)a.p * a.n;
+  state_pass_kernel<<<dim3((unsigned)((pn + kPassThreads - 1) /
+                                      kPassThreads),
+                           (unsigned)a.heads, (unsigned)batch),
+                      kPassThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t s3 = scan_smem<TB>(a.len);
+  err = allow_smem(chunk_scan_kernel<TB>, s3, &scan_conf);
+  if (err != cudaSuccess) return (int)err;
+  chunk_scan_kernel<TB><<<dim3((unsigned)(n_pt * a.heads),
+                               (unsigned)(batch * a.nc), (unsigned)n_it),
+                          kThreads, s3, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (B, S, H, P) f32, a (B, S, H) f32, b and c (B, S, H, N) f32 or bf16
-// (bc_bf16), s0 (B, H, P, N) f32 -> y (B, S, H, P) f32, sf (B, H, P, N) f32
-// contiguous.  strides: 18 element strides, (batch, seq, head) of x, a, b,
-// c and y, then (batch, head, p) of s0; the last dimension of x, b, c, y
-// and s0 is contiguous.  chunk_len divides seq.
+// (bc_bf16), s0 (B, H, P, N) f32 or null (zeros) -> y (B, S, H, P) f32,
+// sf (B, H, P, N) f32
+// contiguous; states (B, S / chunk_len, H, P, N) and decay (B, S /
+// chunk_len, H) f32 contiguous are the caller's scratch.  strides: 18
+// element strides, (batch, seq, head) of x, a, b, c and y, then (batch,
+// head, p) of s0; the last dimension of x, b, c, y and s0 is contiguous.
+// chunk_len divides seq.
 extern "C" int ssd_scan_launch(const float* x, const float* a, const void* b,
                                const void* c, const float* s0, float* y,
-                               float* sf, int bc_bf16, int batch, int seq,
-                               int heads, int p, int n, int chunk_len,
+                               float* sf, float* states, float* decay,
+                               int bc_bf16, int batch, int seq, int heads,
+                               int p, int n, int chunk_len,
                                const long long* strides, void* stream) {
   if (batch <= 0 || heads <= 0 || p <= 0 || n <= 0 || n > kMaxN ||
       chunk_len <= 0 || chunk_len > kMaxL || seq % chunk_len != 0 ||
       batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
-  static int n_sm = 0;
-  if (n_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err != cudaSuccess) return (int)err;
-  }
   Args args;
   args.x = x; args.a = a; args.b = b; args.c = c; args.s0 = s0;
-  args.y = y; args.sf = sf;
+  args.y = y; args.sf = sf; args.states = states; args.decay = decay;
   args.seq = seq; args.heads = heads; args.p = p; args.n = n;
-  args.len = chunk_len; args.pt = 0;
+  args.len = chunk_len; args.nc = seq / chunk_len;
   for (int i = 0; i < 3; ++i) {
     args.xs[i] = strides[i];
     args.as[i] = strides[3 + i];
@@ -568,8 +707,8 @@ extern "C" int ssd_scan_launch(const float* x, const float* a, const void* b,
     args.ss[i] = strides[15 + i];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return bc_bf16 ? launch<__nv_bfloat16>(args, batch, n_sm, s)
-                 : launch<float>(args, batch, n_sm, s);
+  return bc_bf16 ? launch<__nv_bfloat16>(args, batch, s)
+                 : launch<float>(args, batch, s);
 }
 
 // the kernel's limits, for the host side's checks: 0 -> largest state_dim,

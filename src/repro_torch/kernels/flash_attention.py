@@ -1,13 +1,20 @@
 """Flash attention: the host side of the CUDA kernel.
 
 Counterpart of the wrapper half of ``repro/kernels/flash_attention.py`` (its
-lines 106-160).  The kernel itself is ``csrc/flash_attention.cu``: one thread
-block per ``(q-tile, head, batch row)``, a loop over k-tiles with an online
-softmax in f32, causal / sliding-window / soft-capped GQA masks built from
-positions ``0..S-1``, fully masked k-tiles skipped.  Unlike the Pallas
-wrapper, which pads ``q``, ``k`` and ``v`` to the block size, the CUDA
-kernel masks the ragged edge itself and reads the arrays in place through
-their strides: no padded copies.
+lines 106-160).  The kernel itself is ``csrc/flash_attention.cu``.  On bf16
+inputs (the serving path) it runs FlashAttention-2's shape on the tensor
+cores: one block per (q-tile, head, batch row), 16 query rows a warp, K and
+V tiles of 64 keys staged in shared memory in bf16 with ``cp.async`` and
+double-buffered, ``QK^T`` and ``PV`` on ``mma.sync`` with f32 accumulation
+and an online softmax on the accumulator fragments.  f32 inputs keep the
+first port's scalar kernel.  Both build causal / sliding-window /
+soft-capped GQA masks from positions ``0..S-1`` and skip fully masked
+k-tiles.  Unlike the Pallas wrapper, which pads ``q``, ``k`` and ``v`` to
+the block size, the CUDA kernel masks the ragged edge itself and reads the
+arrays in place through their strides: no padded copies.  The bf16 kernel's
+``cp.async`` loads take 16 aligned bytes, so a bf16 view whose base or
+strides are not 16-byte aligned is refused (:func:`check_aligned`), not
+copied.
 
 The public entry point is ``repro_torch.kernels.ops.flash_attention``, which
 dispatches by device; this module checks what the kernel takes and launches
@@ -23,10 +30,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-# the CUDA kernel's tile: query rows per block, keys per k-tile
-# (csrc/flash_attention.cu kBQ, kBK; checked against the library at load)
-DEFAULT_BLOCK_Q = 64
-DEFAULT_BLOCK_K = 32
+# the bf16 tensor-core kernel's tile at Dh <= 128: query rows per block,
+# keys per k-tile (csrc/flash_attention.cu; checked against the library at
+# load)
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 64
+ALIGN_BYTES = 16                   # one cp.async of the bf16 kernel
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -66,6 +75,27 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention needs a contiguous last dimension")
 
 
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless every tensor's base address and every
+    stride of an axis longer than one are multiples of 16 bytes: the bf16
+    kernel stages rows with 16-byte ``cp.async`` copies and makes no
+    aligned copy of its own."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % ALIGN_BYTES:
+            raise ValueError(f"flash_attention's bf16 kernel needs a "
+                             f"{ALIGN_BYTES}-byte aligned base address, got "
+                             f"one {t.data_ptr() % ALIGN_BYTES} bytes past "
+                             f"(view of shape {tuple(t.shape)}, offset "
+                             f"{t.storage_offset()})")
+        for dim in range(t.dim() - 1):
+            if t.shape[dim] > 1 and (t.stride(dim) * size) % ALIGN_BYTES:
+                raise ValueError(f"flash_attention's bf16 kernel needs "
+                                 f"{ALIGN_BYTES}-byte aligned strides, got "
+                                 f"stride {t.stride(dim)} (x {size} bytes) "
+                                 f"on axis {dim} of {tuple(t.shape)}")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "typed", False):
@@ -94,6 +124,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda takes CUDA tensors on one "
                          "device")
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v)
     B, Sq, H, Dh = q.shape
     out = torch.empty(B, Sq, H, Dh, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(

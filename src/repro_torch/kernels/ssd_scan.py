@@ -1,16 +1,22 @@
 """Mamba2 SSD chunked scan: the host side of the CUDA kernel.
 
 Counterpart of the wrapper half of ``repro/kernels/ssd_scan.py`` (its lines
-73-115).  The kernel itself is ``csrc/ssd_scan.cu``: one thread block per
-(P-tile, head, batch row) loops over the chunks with the f32 state in shared
-memory, works each chunk in 64-row sub-tiles and skips the tiles above the
-causal diagonal.  Like the flash wrapper, and unlike the Pallas one, it reads
-x, a, B and C in place through their strides, so B and C may be a stride-0
-view over heads (one B/C group) and no repeated copy is made.
+73-115).  The kernel itself is ``csrc/ssd_scan.cu``, Mamba2's own split of
+the chunked algorithm in three launches: the chunk-local states, in parallel
+over (P-tile, head, chunk, batch row); the pass of the state over the
+chunks, in order; and y (the intra-chunk and carried-state terms), in
+parallel over 128-row tiles of every chunk.  Every product runs on the
+tensor cores (``C B^T`` in bf16 when B and C are bf16, the products with an
+f32 operand as 3xTF32).  The per-chunk states and decays are scratch that
+this wrapper allocates with ``torch.empty``: ``B * (S / L) * H * P * N``
+f32 values (16.8 MB at mamba2-1.3b's prefill).  Like the flash wrapper, and
+unlike the Pallas one, it reads x, a, B and C in place through their
+strides, so B and C may be a stride-0 view over heads (one B/C group) and
+no repeated copy is made.
 
 The public entry point is ``repro_torch.kernels.ops.ssd_scan``, which
-dispatches by device; this module checks what the kernel takes and launches
-it.
+dispatches by device (one call is one count in ``LAUNCHES``, whatever its
+launches); this module checks what the kernel takes and launches it.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from repro_torch.models.ssm import check_chunking
 MAX_STATE_DIM = 128
 MAX_CHUNK = 4096
 BC_DTYPES = (torch.float32, torch.bfloat16)   # of B and C (x and a: f32)
-_MAX_GRID_YZ = 65535               # gridDim.y (heads), gridDim.z (batch)
+_MAX_GRID_YZ = 65535               # gridDim.y (batch x chunks), gridDim.z
 
 
 def check_inputs(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
@@ -66,8 +72,10 @@ def check_inputs(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     if L > MAX_CHUNK:
         raise ValueError(f"chunk {L} > {MAX_CHUNK}, the largest the SSD "
                          f"kernel takes")
-    if Bsz > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
-        raise ValueError(f"at most {_MAX_GRID_YZ} batch rows and heads")
+    if Bsz > _MAX_GRID_YZ or H > _MAX_GRID_YZ \
+            or Bsz * (S // L) > _MAX_GRID_YZ:
+        raise ValueError(f"at most {_MAX_GRID_YZ} batch rows, heads and "
+                         f"(batch row, chunk) pairs")
     if any(t.stride(-1) != 1 for t in (x, Bm, Cm)):
         raise ValueError("ssd_scan needs a contiguous last dimension")
     return L
@@ -77,8 +85,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     if not getattr(lib, "typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
-                                        I, I, P, P]
+        lib.ssd_scan_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
+                                        I, I, I, I, P, P]
         lib.ssd_scan_launch.restype = I
         lib.ssd_scan_limit.argtypes = [I]
         lib.ssd_scan_limit.restype = I
@@ -104,10 +112,7 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         raise ValueError("ssd_scan_cuda takes CUDA tensors on one device")
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
-    if init_state is None:
-        init_state = torch.zeros(Bsz, H, P, N, dtype=torch.float32,
-                                 device=dev)
-    else:
+    if init_state is not None:
         if init_state.device != dev:
             raise ValueError("init_state must be on x's device")
         init_state = init_state.float()
@@ -115,13 +120,21 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
             raise ValueError("init_state needs a contiguous last dimension")
     y = torch.empty(Bsz, S, H, P, dtype=x.dtype, device=dev)
     final = torch.empty(Bsz, H, P, N, dtype=torch.float32, device=dev)
+    # scratch: each chunk's local state, then the state entering it; and
+    # each chunk's decay exp(sum of a over the chunk)
+    states = torch.empty(Bsz, S // L, H, P, N, dtype=torch.float32,
+                         device=dev)
+    decay = torch.empty(Bsz, S // L, H, dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 18)(
         *x.stride()[:3], *a.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
-        *y.stride()[:3], *init_state.stride()[:3])
+        *y.stride()[:3],
+        *((0, 0, 0) if init_state is None else init_state.stride()[:3]))
     lib = _lib()
     err = lib.ssd_scan_launch(
         x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
+        None if init_state is None else init_state.data_ptr(),
+        y.data_ptr(), final.data_ptr(),
+        states.data_ptr(), decay.data_ptr(),
         int(Bm.dtype == torch.bfloat16), Bsz, S, H, P, N, L,
         ctypes.cast(strides, ctypes.c_void_p),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -97,3 +97,38 @@ def test_flash_refuses_gradients_and_unsupported_shapes():
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q.detach(), k, k, window=0)
     assert ops.LAUNCHES["flash_attention"] == 0   # the CPU path launches none
+
+
+@pytest.mark.parametrize("view", ["offset", "seq_stride", "head_stride"])
+def test_bf16_kernel_refuses_misaligned_views(view):
+    # the bf16 kernel's cp.async loads take 16 aligned bytes; the check runs
+    # on the host, so it is held here on CPU tensors (the CPU dispatch runs
+    # the plain version and takes any view)
+    from repro_torch.kernels.flash_attention import check_aligned
+
+    base = torch.zeros(2, 64, 4, 72, dtype=torch.bfloat16)
+    check_aligned(base[..., :64], base[..., 8:72])
+    if view == "offset":
+        bad = base[..., 1:65]
+    elif view == "seq_stride":
+        bad = torch.zeros(2, 64, 4 * 64 + 4, dtype=torch.bfloat16
+                          )[..., :256].reshape(2, 64, 4, 64)
+    else:
+        bad = torch.zeros(2, 64, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        check_aligned(base[..., :64], bad)
+    out = ops.flash_attention(bad, bad, bad)
+    torch.testing.assert_close(out, tref.sdpa(bad, bad, bad))
+
+
+def test_bf16_kernel_takes_the_models_projections():
+    # layers.attention_apply's q, k, v at granite's head layout (H 32, K 8,
+    # Dh 128) are fresh projections: aligned, so the kernel takes them
+    from repro_torch.kernels.flash_attention import check_aligned
+
+    x = torch.zeros(1, 16, 512, dtype=torch.bfloat16)
+    q = (x @ torch.zeros(512, 32 * 128, dtype=torch.bfloat16)
+         ).reshape(1, 16, 32, 128)
+    k = (x @ torch.zeros(512, 8 * 128, dtype=torch.bfloat16)
+         ).reshape(1, 16, 8, 128)
+    check_aligned(q, k, k)

@@ -54,10 +54,11 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def _flash_case(cuda, B, S, H, K, Dh, dtype, *, causal=True, window=None,
-                softcap=0.0, seed=0):
+                softcap=0.0, seed=0, Sk=None):
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    q, k, v = (torch.randn(B, S, n, Dh, generator=gen, device=cuda
-                           ).to(dtype) for n in (H, K, K))
+    q = torch.randn(B, S, H, Dh, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(B, Sk or S, K, Dh, generator=gen, device=cuda
+                        ).to(dtype) for _ in range(2))
     before = ops.LAUNCHES["flash_attention"]
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
@@ -79,10 +80,11 @@ def test_flash_matches_plain(cuda, B, S, H, K, Dh, dtype):
     _flash_case(cuda, B, S, H, K, Dh, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [16, 64, 256])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
-def test_flash_window_softcap_matches_plain(cuda, window, softcap):
-    _flash_case(cuda, 1, 333, 4, 2, 64, torch.float32, window=window,
+def test_flash_window_softcap_matches_plain(cuda, window, softcap, dtype):
+    _flash_case(cuda, 1, 333, 4, 2, 64, dtype, window=window,
                 softcap=softcap)
 
 
@@ -91,13 +93,64 @@ def test_flash_noncausal_matches_plain(cuda, dtype):
     _flash_case(cuda, 2, 77, 2, 2, 32, dtype, causal=False)
 
 
-def test_flash_reads_strided_views_in_place(cuda):
+# the tensor-core (bf16) kernel: every head dim, one tile and less, Sq != Sk
+# both ways, MQA, non-causal, and windows that start inside a k-tile
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_head_dims(cuda, Dh, causal):
+    _flash_case(cuda, 2, 333, 8, 2, Dh, torch.bfloat16, causal=causal)
+
+
+@pytest.mark.parametrize("S", [1, 5, 17, 64, 65, 129])
+def test_flash_bf16_short_sequences(cuda, S):
+    _flash_case(cuda, 3, S, 4, 2, 128, torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", [(100, 300), (300, 100), (17, 1000),
+                                   (1000, 17)])
+def test_flash_bf16_sq_ne_sk(cuda, Sq, Sk, causal):
+    _flash_case(cuda, 2, Sq, 4, 2, 64, torch.bfloat16, causal=causal,
+                Sk=Sk)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_bf16_mqa(cuda, Dh):
+    _flash_case(cuda, 1, 1000, 16, 1, Dh, torch.bfloat16)
+
+
+@pytest.mark.parametrize("window,softcap", [(1, 0.0), (100, 50.0),
+                                            (700, 0.0)])
+def test_flash_bf16_window_at_scale(cuda, window, softcap):
+    _flash_case(cuda, 1, 2048, 32, 8, 128, torch.bfloat16, window=window,
+                softcap=softcap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_reads_strided_views_in_place(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn(2, 100, 4 + 2 + 2, 64, generator=gen, device=cuda)
+    qkv = torch.randn(2, 100, 4 + 2 + 2, 64, generator=gen,
+                      device=cuda).to(dtype)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     out = ops.flash_attention(q, k, v)
-    torch.testing.assert_close(out, ref.sdpa(q, k, v), atol=2e-5,
-                               rtol=2e-5)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.sdpa(q, k, v).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_flash_bf16_refuses_misaligned_views(cuda):
+    # a view one element past an aligned base: cp.async cannot take it, and
+    # the wrapper makes no aligned copy
+    base = torch.randn(1, 64, 4, 72, device=cuda).to(torch.bfloat16)
+    q = base[..., 1:65]
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, q, q)
+    wide = torch.randn(1, 64, 4 * 64 + 4, device=cuda).to(torch.bfloat16)
+    q = wide[..., :256].reshape(1, 64, 4, 64)      # seq stride 260 elements
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == before
 
 
 # the reference's SSD tolerance (tests/test_kernels.py): y / max|y| and the
@@ -155,6 +208,39 @@ def test_ssd_at_the_serving_prefill_shape(cuda):
     # x and a f32, B and C bf16 as one group's stride-0 view over heads
     _ssd_case(cuda, 1, 2048, 64, 64, 128, 256, bc_dtype=torch.bfloat16,
               expand=True)
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_ssd_chunk_lengths(cuda, chunk, bc_dtype):
+    _ssd_case(cuda, 1, 1024, 8, 64, 128, chunk, bc_dtype=bc_dtype,
+              expand=True, init=True)
+
+
+def test_ssd_sixteen_chunks(cuda):
+    # S 4096 at chunk 256: the state passes over 16 chunks
+    _ssd_case(cuda, 1, 4096, 16, 64, 128, 256, bc_dtype=torch.bfloat16,
+              expand=True)
+
+
+def test_ssd_at_the_scoring_shape(cuda):
+    # mamba2-1.3b's scoring forward: B 2, S 2048
+    _ssd_case(cuda, 2, 2048, 64, 64, 128, 256, bc_dtype=torch.bfloat16,
+              expand=True)
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("expand", [False, True])
+def test_ssd_init_state_and_bc_layouts(cuda, bc_dtype, expand):
+    _ssd_case(cuda, 2, 512, 8, 64, 128, 256, bc_dtype=bc_dtype,
+              expand=expand, init=True)
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_ragged_p_tiles_and_state_dim(cuda, bc_dtype):
+    # P 80: a full 64-column P-tile and a ragged one; N 100 and L 96: zero
+    # padding up to the kernel's compile-time widths and a ragged i-tile
+    _ssd_case(cuda, 2, 192, 3, 80, 100, 96, bc_dtype=bc_dtype, init=True)
 
 
 def test_ssd_reads_strided_views_in_place(cuda):

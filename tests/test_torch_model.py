@@ -13,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_arch as jget_arch
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
 from repro_torch import convert
 from repro_torch import tree as T
+from repro_torch.configs import ARCH_IDS as TARCH_IDS
+from repro_torch.configs import REFERENCE_ARCH_IDS
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
@@ -139,8 +142,25 @@ def test_layers_match():
     np.testing.assert_array_equal(np.asarray(bias_j), bias_t.numpy())
 
 
-def test_unported_families_raise():
+@pytest.mark.parametrize("name", sorted(
+    set(JARCH_IDS) - set(TARCH_IDS)))
+def test_unported_families_raise(name):
+    # the reference builds it; the port names the ROADMAP item instead
+    assert jget_arch(name).name == name
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tget_arch("qwen3-moe-30b-a3b")
+        tget_arch(name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttransformer.check_supported(TCFG.replace(arch_type="moe"))
+
+
+def test_arch_registry_matches_the_reference():
+    assert REFERENCE_ARCH_IDS == tuple(JARCH_IDS)
+    assert set(TARCH_IDS) < set(JARCH_IDS)
+
+
+@pytest.mark.parametrize("name", ["no-such-arch", "granite-9b", ""])
+def test_unknown_arch_raises_key_error_as_the_reference(name):
+    with pytest.raises(KeyError):
+        jget_arch(name)
+    with pytest.raises(KeyError):
+        tget_arch(name)

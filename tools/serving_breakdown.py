@@ -15,10 +15,11 @@ with ``torch.profiler`` over CPU and CUDA activity:
 Each window runs twice, after a warm-up: first on the host clock alone
 (ending in the engine's own host sync; before any profiling, since launches
 stay slower once the profiler has attached), then under the profiler, whose
-CUDA kernel events give the device time, the launches and the kernels that
-took the most device time.  The busy share is device time over the
-unprofiled wall time (the rest is the card waiting on the host).  The last
-line is one JSON object with all of it.
+CUDA kernel events give the device time, the launches, the kernels that
+took the most device time and the port's own kernels summed per ``ops``
+entry point (one SSD call is three launches).  The busy share is device
+time over the unprofiled wall time (the rest is the card waiting on the
+host).  The last line is one JSON object with all of it.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -43,6 +44,11 @@ from repro_torch.serving.engine import ContinuousEngine
 
 CONFIGS = {"granite-8b": granite_8b.CONFIG.replace(attention_impl="pallas"),
            "mamba2-1.3b": mamba2_1_3b.CONFIG}
+# the port's own kernels, by the names of their CUDA functions: one call of
+# ops.ssd_scan is three launches, and their sum is the SSD's share
+PORT_KERNELS = {"flash_attention": ("flash_mma_kernel", "flash_f32_kernel"),
+                "ssd_scan": ("chunk_state_kernel", "state_pass_kernel",
+                             "chunk_scan_kernel")}
 
 
 def _device_us(evt) -> float:
@@ -58,11 +64,19 @@ def _window(prof, wall_s: float, per: int, top: int) -> dict:
     device_s = sum(_device_us(e) for e in evts) / 1e6
     launches = sum(e.count for e in evts)
     evts.sort(key=_device_us, reverse=True)
+    port = {}
+    for name, fns in PORT_KERNELS.items():
+        mine = [e for e in evts if any(f in e.key for f in fns)]
+        if mine:
+            us = sum(_device_us(e) for e in mine)
+            port[name] = {"ms": us / 1e3 / per, "share": us / 1e6 / device_s,
+                          "launches": sum(e.count for e in mine) / per}
     return {
         "wall_s": wall_s,
         "device_s": device_s / per,
         "busy_share": device_s / per / wall_s,
         "launches": launches / per,
+        "port_kernels": port,
         "top": [{"name": e.key[:80], "ms": _device_us(e) / 1e3 / per,
                  "share": _device_us(e) / 1e6 / device_s,
                  "count": e.count / per} for e in evts[:top]],
@@ -130,6 +144,9 @@ def main(argv=None) -> dict:
         for t in w["top"]:
             print(f"    {t['ms']:9.3f} ms {100 * t['share']:5.1f}%  "
                   f"x{t['count']:.0f}  {t['name']}")
+        for name, t in w["port_kernels"].items():
+            print(f"    {t['ms']:9.3f} ms {100 * t['share']:5.1f}%  "
+                  f"x{t['launches']:.0f}  all launches of ops.{name}")
     print(json.dumps(out))
     return out
 
