@@ -15,7 +15,10 @@ Phases (any failure raises and the script exits non-zero):
    (one ``nvcc`` per source, all started together); hold
    ``wan_encode`` and ``wan_decode`` bit-equal to their plain versions on
    every tier (int8, fp8, int4) at 64M values per pod x 2 pods and on edge
-   cases; then time both at the main path's size (the whole granite-8b
+   cases: ragged n, ties, all-zero blocks, column slices (one not 16-byte
+   aligned), blocks 128 to 65536, every key in one high-byte bin, ties at
+   the threshold over many threads, ``k_block`` 1, 300 and ``k_block ==
+   block``; then time both at the main path's size (the whole granite-8b
    2-layer gradient, 838,881,280 values per pod x 2 pods) beside their
    bound, their plain version and the one PyTorch call that computes the
    same function, where there is one.
@@ -43,9 +46,8 @@ Phases (any failure raises and the script exits non-zero):
    heads, chunks 64-256, 16 chunks, the scoring forward's B 2 and the
    serving prefill's shape (B 1, S 2048, H 64, P 64, N 128, chunk 256, x
    and a f32, B and C bf16); then time it there (ms, TFLOP/s) beside its
-   bound (the f32-operand products priced as 3xTF32, and the earlier f32
-   pricing beside it) and its plain version (no single PyTorch call
-   computes SSD).
+   bound (the f32-operand products priced as 3xTF32) and its plain
+   version (no single PyTorch call computes SSD).
 5. Serving path: granite-8b at its published size (36 layers, bf16,
    random weights from a seed, ``attention_impl="pallas"``), two replicas
    (us-east, eu-west) sharing the parameters behind a balanced
@@ -77,16 +79,22 @@ Phases (any failure raises and the script exits non-zero):
    decompressed dense) on each of granite-8b's 12 leaf shapes at 2 layers
    as ``_ship_ring`` cuts them into chunks of 2**26 values, in f32 and
    bf16, and on ties, zeros, -0.0, pad winners (n 1027), ``k // nb == 0``,
-   ``nb * k_block < k``, ``k_block`` 512 and ``n < block``; then time it
-   at the largest leaf (embed, 2 pods x 3 chunks) and over a whole round's
-   12 launches beside its bound, its plain version and the nearest
-   PyTorch call (``torch.topk`` per block: no tie order, magnitudes).
+   ``nb * k_block < k``, ``k_block`` 512, ``n < block`` and the inputs
+   that split the kernel's branches (large values every 16, 32 or 128
+   positions, all equal, a tie at the threshold split across lanes); then
+   time it at the largest leaf (embed, 2 pods x 3 chunks) and over a whole
+   round's 12 launches beside its bound, its plain version and the nearest
+   PyTorch call (``torch.topk`` per block: no tie order, magnitudes), and
+   the embed leaf once more with large values every 16 positions, which
+   sends every tile down the kernel's general branch.
 3b. Sync strategies at full width: phase 3's setup (granite-8b x2 layers,
    2 pods, batch 8, seq 512, sgd, interval 2, 4 steps) under sparse
    ``asgd_ga``, ``ama`` and ``asp`` (top-k 0.01, no codec), ``sma`` and
    ``asgd``; every top-k launch held bit-equal to the plain version
    (``TOPK_CHECK_HOOK``), 24 launches per sparse strategy, none for the
-   others, no codec, flash or SSD launch.
+   others, no codec, flash or SSD launch; then sparse ``asgd_ga`` once
+   more without the check, whose round times are unfenced (the check
+   synchronizes the device after each launch).
 3c. The paper's models (LeNet, ResNet, DeepFM) at their own sizes, 2 pods,
    Fig 11's ``asgd@1``, ``asgd_ga@8``, ``ama@8``, ``sma@8`` and ``ama@8``
    at top-k 0.01, 16 steps each; at 2 pods ``ama@8`` and ``sma@8`` must
@@ -260,15 +268,27 @@ def phase_kernels(torch) -> dict:
     edge = torch.randn(PODS, 777_777, generator=gen, device="cuda")
     edge[:, :5000] = 0.25                    # ties
     edge[:, 9000:20000] = 0.0                # all-zero blocks
+    # every key in one high-byte bin; ties at the threshold over many
+    # threads
+    one_bin = torch.sign(edge) * (1 + torch.rand(
+        PODS, edge.shape[1], generator=gen, device="cuda"))
+    halves = torch.round(edge * 2) / 2
     for tier in ("int8", "fp8", "int4"):
         check(big, k, BLOCK, tier)
         check(edge, k, BLOCK, tier)          # ragged n, odd k (41)
         check(edge[:, 1000:500_000], 7, 128, tier)   # column slice
+        check(edge[:, 3:500_003], k, BLOCK, tier)    # not 16-byte aligned
         check(edge, 655, 65536, tier)        # largest block: 128 KB smem
         check(torch.zeros(3000, device="cuda"), 5, 1024, tier)
+        check(one_bin, k, BLOCK, tier)
+        check(halves, k, BLOCK, tier)
+        check(halves, 655, 65536, tier)
+        check(edge, 1, BLOCK, tier)          # k_block 1
+        check(edge, 300, BLOCK, tier)        # above 256: the general path
+        check(edge[:, :5000], 128, 128, tier)        # k_block == block
         print(f"[kernels] {tier}: encode and decode bit-equal to plain on "
               f"{PODS} x {64 << 20} values and the edge cases")
-    del big, edge
+    del big, edge, one_bin, halves
 
     # time both at the main path's size (int8, the main path's tier)
     x = torch.randn(PODS, N_MAIN, generator=gen, device="cuda")
@@ -573,17 +593,48 @@ def granite_leaf_sizes(torch) -> list:
     return sizes
 
 
-def phase_topk(torch) -> dict:
+def topk_adversarial(case: str, x):
+    """``x`` ``(rows, n)`` (n a multiple of 1024 for ``tie_at_threshold``)
+    made into an input that splits the top-k kernel's branches, in place:
+    with large values every 16 positions two lanes of each 1024-value tile
+    hold 64 of them, more than 32 keys above the lane-maxima bound, so
+    every tile takes the general branch; every 32, one lane holds 32 (the
+    general branch too); every 128, one lane holds 8 (the fast path)."""
+    if case.startswith("stride"):
+        x[:, ::int(case[6:])] *= 50
+    elif case == "all_equal":
+        x.fill_(0.75)
+    elif case == "tie_at_threshold":
+        # per tile five 3.0s and ten -2.0s in different lanes and register
+        # slots: at k_block 10 the 10th key ties at 2.0, split across lanes
+        x.clamp_(-0.9, 0.9)
+        tiles = x.view(x.shape[0], -1, 1024)
+        tiles[..., [33, 250, 511, 700, 1000]] = 3.0
+        tiles[..., [7, 40, 100, 300, 301, 555, 703, 901, 1017, 1023]] = -2.0
+    else:
+        raise ValueError(case)
+    return x
+
+
+TOPK_ADVERSARIAL = ("stride16", "stride32", "stride128", "all_equal",
+                    "tie_at_threshold")
+
+
+def ship_args(n: int) -> tuple:
+    """``(chunk, k)`` of a leaf of ``n`` values per pod, as ``_ship_ring``
+    cuts it at top-k ``TOPK``."""
     from repro_torch.core.sync import CHUNK
+
+    chunk = min(CHUNK, n)
+    return chunk, max(1, int(chunk * TOPK))
+
+
+def phase_topk(torch) -> dict:
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sizes = granite_leaf_sizes(torch)
     torch.cuda.empty_cache()
-
-    def ship_args(n):
-        chunk = min(CHUNK, n)
-        return chunk, max(1, int(chunk * TOPK))
 
     def check(x, chunk, k, what):
         got = ops.topk_compress_chunked(x, chunk, k, block=TOPK_BLOCK)
@@ -607,6 +658,8 @@ def phase_topk(torch) -> dict:
                 (base[:, :8192].clone(), 8192, 81, "nb * k_block < k"),
                 (base, 4096, 2048, "k_block 512"),
                 (base[:, :300].clone(), 300, 20, "n < block")]
+        edge += [(topk_adversarial(case, base[:, :299_008].clone()),
+                  299_008, 2990, case) for case in TOPK_ADVERSARIAL]
         for x, chunk, k, what in edge:
             check(x.to(dtype), chunk, k, f"{what} {dtype}")
         print(f"[topk] {dtype}: kernel bit-equal to plain (vals, idx, "
@@ -638,7 +691,16 @@ def phase_topk(torch) -> dict:
               f"k {k}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, plain "
               f"{plain_ms:.2f} ms, nearest torch.topk per block "
               f"{lib_ms:.4f} ms: no tie order, magnitudes)")
-    del x32, x, got
+    # the embed leaf with every tile on the general branch
+    xg = topk_adversarial("stride16", x32)
+    got = ops.topk_compress_chunked(xg, chunk, k)
+    topk_equal(torch, got, ops.topk_compress_chunked(
+        xg, chunk, k, use_kernel=False), chunk, "general branch, embed")
+    general_ms = time_ms(torch, lambda: ops.topk_compress_chunked(
+        xg, chunk, k), reps=10)
+    print(f"[topk] embed leaf, large values every 16 positions (every tile "
+          f"on the general branch), f32: {general_ms:.4f} ms")
+    del x32, x, xg, got
     torch.cuda.empty_cache()
 
     # a whole round: the 12 leaves, one launch each
@@ -682,12 +744,14 @@ def phase_topk(torch) -> dict:
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": lib_ms,
         "library_call": "torch.topk(x.abs().view(-1, 1024), k_block) per "
-                        "leaf: the nearest call, not the same function"}}
+                        "leaf: the nearest call, not the same function",
+        "general_branch_ms": general_ms}}
 
 
 def phase_strategies(torch) -> int:
-    """Phase 3's setup under each sync strategy; returns the top-k launches
-    of the sparse runs."""
+    """Phase 3's setup under each sync strategy, every top-k launch held to
+    the plain version, then sparse ``asgd_ga`` again unchecked (its rounds
+    unfenced); returns the top-k launches of the checked sparse runs."""
     from repro_torch import tree as T
     from repro_torch.configs import granite_8b
     from repro_torch.core import sync as S
@@ -702,8 +766,9 @@ def phase_strategies(torch) -> int:
     cfg = granite_8b.CONFIG.replace(n_layers=2)
     clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
                                   data_size=1.0) for i in range(PODS))
-    total = 0
-    for strategy, topk in STRATEGIES_3B:
+    total, fenced_net = 0, {}
+    runs = [(name, topk, True) for name, topk in STRATEGIES_3B]
+    for strategy, topk, fenced in runs + [("asgd_ga", TOPK, False)]:
         sync = S.SyncConfig(strategy, 2, compress_topk=topk)
         plan = build_training_plan(TrainingRequest(
             model=cfg.name, clouds=clouds, sync=sync, n_iters=4,
@@ -738,7 +803,7 @@ def phase_strategies(torch) -> int:
                        for x in leaves) / PODS / 1e6
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ops.TOPK_CHECK_HOOK = check_hook
+        ops.TOPK_CHECK_HOOK = check_hook if fenced else None
         ops.reset_launches()
         state, hist = trainer.fit(state, batches, 4, model_mb=model_mb)
         torch.cuda.synchronize()
@@ -750,7 +815,8 @@ def phase_strategies(torch) -> int:
                              "flash_attention": 0, "ssd_scan": 0,
                              "topk_compress": expect},
                 f"{strategy} launches {launches}")
-        require(len(checked) == expect, f"{len(checked)} launches checked")
+        require(len(checked) == (expect if fenced else 0),
+                f"{len(checked)} launches checked")
         losses = hist["loss_per_pod"]
         require(all(math.isfinite(v) for row in losses for v in row),
                 f"{strategy}: finite losses {losses}")
@@ -762,14 +828,21 @@ def phase_strategies(torch) -> int:
         require(len(rounds) == (0 if strategy == "asgd" else 2),
                 f"{strategy}: {len(rounds)} sync rounds")
         frac = float(state.sync_state.significant_frac)
-        print(f"[strategies] {strategy}@2 top-k {topk}: losses {losses}; "
-              f"step s {[round(t, 4) for t in trainer.step_seconds]}, "
-              f"sync-round s {[round(t, 4) for t in net]} (net of the "
-              f"check's {[round(v, 4) for v in check_s.values()]}), peak "
-              f"memory {peak_gb:.2f} GB, launches {launches}"
-              + (f", significant_frac {frac:.4g}" if strategy == "asp"
-                 else ""))
-        total += launches["topk_compress"]
+        steps = [round(t, 4) for t in trainer.step_seconds]
+        if fenced:
+            fenced_net[strategy] = [round(t, 4) for t in net]
+            print(f"[strategies] {strategy}@2 top-k {topk}: losses {losses}; "
+                  f"step s {steps}, sync-round s {fenced_net[strategy]} (net "
+                  f"of the check's {[round(v, 4) for v in check_s.values()]}"
+                  f"), peak memory {peak_gb:.2f} GB, launches {launches}"
+                  + (f", significant_frac {frac:.4g}" if strategy == "asp"
+                     else ""))
+            total += launches["topk_compress"]
+        else:
+            print(f"[strategies] {strategy}@2 top-k {topk} unchecked: losses "
+                  f"{losses}; step s {steps}, sync-round s "
+                  f"{[round(t, 4) for t in rounds]} unfenced (checked and "
+                  f"fenced: {fenced_net[strategy]}), launches {launches}")
         del trainer, state, leaves, batches
         torch.cuda.empty_cache()
     return total

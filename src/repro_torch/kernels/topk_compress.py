@@ -3,13 +3,14 @@ the CUDA kernel.
 
 Counterpart of the wrapper half of ``repro/kernels/topk_compress.py`` (its
 lines 50-77).  The kernel itself is ``csrc/topk_compress.cu``: one warp per
-block of ``block`` values, ``k_block`` rounds of a warp argmax on (|x|,
--index).  The wrapper does what the Pallas wrapper does around its launch
-(the block size, ``k_block``, the clamp of pad winners to ``n - 1`` and the
-cut to ``k``), with one difference in form: it takes a whole leaf
-``(rows, numel)`` cut into chunks of ``chunk`` values, as the sync layer's
-``_ship_ring`` cuts it, and covers every (row, chunk) in one launch.  The
-chunk and block pads are zeros that the kernel reads as zeros without a
+block of ``block`` values, a threshold from the lanes' maxima and one
+sorted compaction (``k_block`` rounds of a warp argmax on (|x|, -index)
+where that does not cover the block).  The wrapper does what the Pallas
+wrapper does around its launch (the block size, ``k_block``, the clamp of
+pad winners to ``n - 1`` and the cut to ``k``), with one difference in
+form: it takes a whole leaf ``(rows, numel)`` cut into chunks of ``chunk``
+values, as the sync layer's ``_ship_ring`` cuts it, and covers every (row,
+chunk) in one launch.  The chunk and block pads are zeros that the kernel reads as zeros without a
 padded copy being made.
 
 The public entry points are ``repro_torch.kernels.ops.topk_compress`` and

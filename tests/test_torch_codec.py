@@ -169,3 +169,37 @@ def test_unknown_tier_and_device_raise():
     assert tops.LAUNCHES == {"wan_encode": 0, "wan_decode": 0,
                              "flash_attention": 0, "ssd_scan": 0,
                              "topk_compress": 0}
+
+
+def _adversarial(case, n, seed):
+    """Inputs that split the CUDA encode's selection paths."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n).astype(np.float32)
+    if case == "one_bin":           # every key in one high-byte bin
+        x = (np.sign(x) * rng.uniform(1, 2, size=n)).astype(np.float32)
+    elif case in ("ties_spread", "large_block_ties"):
+        x = (np.round(x * 2) / 2).astype(np.float32)   # ties at t
+    elif case == "half_zero":       # a zero half in every block of 4096
+        x.reshape(-1, 4096)[:, :2048] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("value_dtype", TIERS)
+@pytest.mark.parametrize("case,n,k_block,block", [
+    ("one_bin", 9000, 41, 4096),
+    ("ties_spread", 9000, 41, 4096),
+    ("k_eq_block", 700, 128, 128),
+    ("k_one", 9000, 1, 4096),
+    ("k_large", 9000, 300, 4096),
+    ("half_zero", 8192, 41, 4096),
+    ("large_block_ties", 70_000, 655, 65536)])
+def test_codec_adversarial_matches_jax_oracle(case, n, k_block, block,
+                                              value_dtype):
+    x = _adversarial(case, n, seed=n + k_block)
+    a, da = _jax_round_trip(jnp.asarray(x), k_block=k_block, n=n,
+                            block=block, value_dtype=value_dtype)
+    b = tops.wan_encode(torch.from_numpy(x), k_block, block=block,
+                        value_dtype=value_dtype)
+    _assert_same(a, b)
+    db = tops.wan_decode(*b, n, block=block, value_dtype=value_dtype)
+    np.testing.assert_array_equal(np.asarray(da), db.numpy())

@@ -300,7 +300,9 @@ def test_topk_granite_leaves(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["ties", "zeros", "negzero", "pad_wins",
                                   "k_lt_nb", "short", "k_block_512",
-                                  "n_lt_block"])
+                                  "n_lt_block", "stride32", "stride128",
+                                  "stride16", "all_equal",
+                                  "tie_at_threshold"])
 def test_topk_edge_cases(cuda, case, dtype):
     gen = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn(3, 300_000, generator=gen, device=cuda)
@@ -322,6 +324,24 @@ def test_topk_edge_cases(cuda, case, dtype):
         chunk, k = 4096, 2048
     elif case == "n_lt_block":
         x, chunk, k = x[:, :300].clone(), 300, 20
+    elif case in ("stride32", "stride128", "stride16", "all_equal",
+                  "tie_at_threshold"):
+        # the inputs that split the kernel's branches: 292 whole tiles of
+        # 1024, k_block 10; large values every 32 (one lane holds 32 of
+        # them) or 16 positions (two lanes hold 64) put more than 32 keys
+        # above the lane-maxima bound, every 128 (one lane holds 8) not
+        x, chunk, k = x[:, :299_008].clone(), 299_008, 2990
+        if case.startswith("stride"):
+            x[:, ::int(case[6:])] *= 50
+        elif case == "all_equal":
+            x.fill_(0.75)
+        else:
+            # per tile five 3.0s and ten -2.0s in different lanes and
+            # register slots: the 10th key ties at 2.0, split across lanes
+            x.clamp_(-0.9, 0.9)
+            x.view(3, -1, 1024)[..., [33, 250, 511, 700, 1000]] = 3.0
+            x.view(3, -1, 1024)[..., [7, 40, 100, 300, 301, 555, 703, 901,
+                                      1017, 1023]] = -2.0
     _topk_case(x.to(dtype), chunk, k)
 
 
@@ -334,3 +354,53 @@ def test_topk_flat_and_rows_entry_points(cuda):
         assert torch.equal(vk, vp) and torch.equal(ik, ip)
     with pytest.raises(ValueError):
         ops.topk_compress(x, 10, block=2048)
+
+
+@pytest.mark.parametrize("value_dtype", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("case,n,k_block,block", [
+    ("one_bin", 300_000, 41, 4096),        # every key in one high-byte bin
+    ("ties_spread", 300_000, 41, 4096),    # ties at t over many threads
+    ("k_eq_block", 5000, 128, 128),
+    ("k_one", 300_000, 1, 4096),
+    ("k_large", 300_000, 300, 4096),       # > 256: no floor
+    ("half_zero", 299_008, 41, 4096),      # a zero half drops the floor
+    ("large_block", 300_000, 655, 65536),
+    ("large_block_ties", 300_000, 655, 65536),
+    ("small_k_large_block", 300_000, 41, 65536)])
+def test_encode_adversarial(cuda, case, n, k_block, block, value_dtype):
+    """Inputs that split the encode's selection: the candidate list that
+    warp 0 finishes (one_bin, ties_spread, k_one, k_eq_block), the general
+    path (more than 256 candidates: k_large, half_zero; and the 65536
+    blocks, whose keys stay in shared memory)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, n, generator=gen, device=cuda)
+    if case == "one_bin":
+        x = torch.sign(x) * (1 + torch.rand(2, n, generator=gen,
+                                            device=cuda))
+    elif case in ("ties_spread", "large_block_ties"):
+        x = torch.round(x * 2) / 2
+    elif case == "half_zero":
+        x.view(2, -1, block)[..., :block // 2] = 0.0
+    kern = ops.wan_encode(x, k_block, block=block, value_dtype=value_dtype)
+    plain = ops.wan_encode(x, k_block, block=block, value_dtype=value_dtype,
+                           use_kernel=False)
+    for a, b in zip(kern, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    dk = ops.wan_decode(*kern, n, block=block, value_dtype=value_dtype)
+    dp = ops.wan_decode(*plain, n, block=block, value_dtype=value_dtype,
+                        use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("block", [128, 1000, 1024, 2048, 4096])
+def test_encode_unaligned_and_odd_blocks(cuda, block):
+    """Scalar loads: a column slice whose start is not 16-byte aligned, an
+    odd row stride, and a block that is not a multiple of 4."""
+    gen = torch.Generator(device=cuda).manual_seed(block)
+    full = torch.randn(2, 70_001, generator=gen, device=cuda)
+    for x in (full[:, 3:60_000], full[:, 4:60_004], full):
+        kern = ops.wan_encode(x, 13, block=block)
+        plain = ops.wan_encode(x, 13, block=block, use_kernel=False)
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)

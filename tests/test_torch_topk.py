@@ -185,3 +185,38 @@ def test_topk_property_bit_equal(n, k, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=n).astype(np.float32)
     _check(x, k, 64)
+
+
+def _adversarial(case: str, n: int, seed: int) -> np.ndarray:
+    """Inputs that split the CUDA kernel's branches, blocks of 1024."""
+    x = np.random.default_rng(seed).normal(size=n).astype(np.float32)
+    tiles = x.reshape(-1, 1024)
+    if case == "stride32":          # lane 0 of each tile owns 32 large values
+        x[::32] *= 50
+    elif case == "stride128":       # lane 0 owns 8
+        x[::128] *= 50
+    elif case == "stride16":        # two lanes own 64: > 32 keys above L
+        x[::16] *= 50
+    elif case == "all_equal":
+        x[:] = 0.75
+    elif case == "tie_at_threshold":
+        # five 3.0s and ten -2.0s a tile, in different lanes and register
+        # slots: the 10th key ties at 2.0, split across lanes
+        np.clip(x, -0.9, 0.9, out=x)
+        tiles[:, [33, 250, 511, 700, 1000]] = 3.0
+        tiles[:, [7, 40, 100, 300, 301, 555, 703, 901, 1017, 1023]] = -2.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["stride32", "stride128", "stride16",
+                                  "all_equal", "tie_at_threshold"])
+def test_topk_adversarial_inputs(case, dtype):
+    """The inputs that take each branch of the CUDA kernel (the fast
+    threshold-and-compact path, its ties at L, and the round loop for more
+    than 32 keys above L), k_block 10 as on the main path."""
+    x = _adversarial(case, 4096, seed=len(case))
+    idx = _check(x, 40, 1024, dtype, pallas=dtype == "float32")
+    if case == "tie_at_threshold":
+        np.testing.assert_array_equal(
+            idx[:10], [33, 250, 511, 700, 1000, 7, 40, 100, 300, 301])
