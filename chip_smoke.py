@@ -38,6 +38,18 @@ Phases (any failure raises and the script exits non-zero):
    ``flat - local`` and the kernel's decode of the shipped payload must
    equal the plain decode, bit for bit.  The launch counts of this run
    show that the rounds went through the kernels.
+3d. The control loop: phase 3's model and batch through
+   ``repro_torch.launch.train.main`` with ``--bucket-policy layer-class
+   --adaptive-sync --wan-trace ... --events ...`` (``CONTROL_*``): the
+   ``BucketedSyncController`` retunes each bucket group's tier and top-k
+   as a bandwidth collapse and recovery reach it over the ``EventBus``,
+   the ``ElasticityController`` re-plans on a straggler and on pod1
+   leaving and rejoining (2 -> 1 -> 2 pods, applied at sync barriers).
+   Every round, at whatever tiers it runs, is held as phase 3's are, per
+   bucket group; at least two retunes, a round at an fp8 or int4 rung and
+   the 2 -> 1 -> 2 reconfig must happen.  Prints the decision stream, the
+   applied reconfigs, launches by tier, round times by knobs (first round
+   at new knobs apart), the reconfig barriers' times and peak memory.
 4. Entry point: ``repro_torch.launch.train.main`` on the tiny preset.
 2c. SSD scan: hold the kernel to its plain version (``ref.ssd``) within
    the reference's tolerance (``y / max|y|`` within 1e-5, the final state
@@ -59,6 +71,12 @@ Phases (any failure raises and the script exits non-zero):
    is held to ``ref.sdpa`` on the same q, k, v, and request 0 decoded alone
    in a fresh pool must give the tokens it got beside its neighbours.
 6. Entry point: ``repro_torch.launch.serve.main`` on the smoke config.
+5c. gemma3-12b at its published size (48 layers, d_model 3840, 16 heads,
+   8 KV heads, head_dim 256, window 1024 on 5 of every 6 layers, vocab
+   262,144 tied, bf16, random weights from a seed, ``attention_impl=
+   "pallas"``): one ``ContinuousEngine`` prefill of a 2048-token prompt
+   (48 flash launches; layers 0 and 5 held to ``ref.sdpa``) and 8 decode
+   steps; prints the prefill time and the flash kernel's share of it.
 7. Mamba2 serving: mamba2-1.3b at its published size (48 layers, bf16,
    random weights from a seed), two replicas as in phase 5; 8 requests
    whose prompt lengths are phase 5's rounded down to a multiple of 256
@@ -166,6 +184,23 @@ MAMBA_LOGIT_TOL = 2e-2
 PAPER_AMA_SMA_TOL = 1e-6
 # the legacy sparse shipping: top-k block (the reference's default)
 TOPK_BLOCK = 1024
+# phase 3d, the control loop: 2 pods at interval 2, the codec at int8
+# with top-k 0.05.  The elasticity controller's 100 Mbps reference puts its
+# interval at 1 for every bandwidth of the run, so its first bandwidth
+# event (step 1) re-plans once and later ones do not; a 250 Mbps collapse
+# at step 3 pushes the per-bucket controller down the ladder (at
+# granite-8b's 1.68 GB, to int4 rungs), the straggler's re-plan at 14
+# resets the knobs and the controller walks again, pod1 leaves at 24 and
+# rejoins at 28 (2 -> 1 -> 2 pods); a round every 4 steps, so each set of
+# knobs runs warm rounds after its first
+CONTROL_STEPS = 44
+CONTROL_TRACE = "2000@0,1900@1,250@3,2000@20"
+CONTROL_EVENTS = ("straggler:pod0x2.0@14,bandwidth:1800@19,"
+                  "cloud_left:pod1@24,cloud_joined:pod1@28")
+CONTROL_EF_GUARD = 0.98
+# phase 5c: gemma3-12b's prefill, 2048 prompt tokens and 8 new ones
+GEMMA_NEW_TOKENS = 8
+GEMMA_CHECKED_LAYERS = (0, 5)       # a windowed layer and a global one
 STRATEGIES_3B = (("asgd_ga", TOPK), ("ama", TOPK), ("asp", TOPK),
                  ("sma", 0.0), ("asgd", 0.0))
 
@@ -486,7 +521,7 @@ def phase_main_path(torch) -> dict:
     batches = make_batches(plan, cfg.vocab_size, 512, "cuda")
     rounds = []
 
-    def check_round(state, payloads, shipped):
+    def check_round(state, payloads, shipped, sync):
         """Hold the round to its definition; these compare launches are
         not the main path's and leave its counts as they were."""
         counts = dict(ops.LAUNCHES)
@@ -538,6 +573,138 @@ def phase_main_path(torch) -> dict:
           f"EF residual norms {rounds}, peak memory {peak_gb:.2f} GB, "
           f"launches {launches}")
     return launches
+
+
+def phase_control_loop(torch, device: str = "cuda", cfg=None,
+                       seq: int = 512) -> dict:
+    """Phase 3d: the launcher's control loop (``--events``, ``--wan-trace``,
+    ``--adaptive-sync`` under ``--bucket-policy layer-class``) training
+    granite-8b x2 layers at full width; every codec round held to its
+    definition at the tiers it runs.  Returns the codec launches."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.core import sync as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
+    per_tier: dict = {}
+    checked = []
+    mark = {}
+
+    def check_round(state, payloads, shipped, sync):
+        """EF residual == flat - local; each bucket's kernel decode of the
+        shipped payload == its plain decode, bit for bit, at the bucket's
+        tier; the round's launches are one encode and two decodes per
+        chunk.  The compare launches leave the counts as they were."""
+        counts = dict(ops.LAUNCHES)
+        enc = counts["wan_encode"] - mark["wan_encode"]
+        dec = counts["wan_decode"] - mark["wan_decode"]
+        require(torch.equal(state.sync_state.ef_residual,
+                            payloads.flat - payloads.local),
+                f"round {len(checked)}: EF residual == flat - local")
+        layout = S.bucket_layout(sync, state.sync_state.ga_buffer)
+        n_chunks = 0
+        for g, name in enumerate(layout.names):
+            size = layout.sizes[g]
+            if not size:
+                continue
+            bcfg = sync.for_bucket(name)
+            block = min(bcfg.codec_block, max(1, size))
+            widths = S._chunk_widths(bcfg, size)
+            kern = S._decode_bucket(bcfg, shipped[name], size)
+            plain = S._cat([ops.wan_decode(
+                c.q, c.idx.to(torch.int32), c.scales, m, block=block,
+                value_dtype=bcfg.value_dtype, use_kernel=False)
+                for c, m in zip(shipped[name], widths)])
+            require(torch.equal(kern, plain),
+                    f"round {len(checked)} {name} ({bcfg.value_dtype}@"
+                    f"{bcfg.compress_topk}): peer decode kernel == plain")
+            tier = per_tier.setdefault(bcfg.value_dtype,
+                                       {"wan_encode": 0, "wan_decode": 0})
+            tier["wan_encode"] += len(widths)
+            tier["wan_decode"] += 2 * len(widths)
+            n_chunks += len(widths)
+        require(enc == n_chunks and dec == 2 * n_chunks,
+                f"round {len(checked)}: {enc} encodes, {dec} decodes for "
+                f"{n_chunks} chunks")
+        ratios = (state.sync_state.resid_norm
+                  / state.sync_state.msg_norm.clamp_min(1e-30)).amax(0)
+        checked.append([round(float(r), 4) for r in ratios.cpu()])
+        ops.LAUNCHES.update(counts)
+        mark.update(counts)
+
+    argv = ["--pods", str(PODS), "--steps", str(CONTROL_STEPS), "--batch",
+            "8", "--seq", str(seq), "--interval", "2", "--compress-topk",
+            "0.05", "--int8", "--error-feedback", "--bucket-policy",
+            "layer-class", "--adaptive-sync", "--wan-trace", CONTROL_TRACE,
+            "--ef-guard", str(CONTROL_EF_GUARD), "--events", CONTROL_EVENTS,
+            "--log-every", "0", "--device", device]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    mark.update(ops.LAUNCHES)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = train.main(argv, model_cfg=cfg, round_hook=check_round)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else float("nan"))
+    text = buf.getvalue()
+    print("\n".join(line for line in text.splitlines()
+                    if line.startswith(("[control-plane]", "[train]",
+                                        "[autotune]", "[elasticity]"))))
+    applied = [n for _, n, _ in summary["reconfigs_at"]]
+    rounds = summary["rounds"]
+    require(len(checked) == len(rounds) > 0,
+            f"{len(checked)} of {len(rounds)} codec rounds checked")
+    require(summary["retunes"] >= 2, f"{summary['retunes']} retunes")
+    low = [r for r in rounds if "fp8" in r[1] or "int4" in r[1]]
+    require(len(low) > 0, "a round ran at an fp8 or int4 rung")
+    require(1 in applied and applied.index(1) < len(applied) - 1
+            and applied[applied.index(1) + 1:].count(2) > 0
+            and summary["final_pods"] == 2,
+            f"pods 2 -> 1 -> 2 through applied reconfigs {applied}")
+    require(math.isfinite(summary["loss_last"]), "finite loss")
+    total = {k: sum(t[k] for t in per_tier.values())
+             for k in ("wan_encode", "wan_decode")}
+    require(launches == {"wan_encode": total["wan_encode"],
+                         "wan_decode": total["wan_decode"],
+                         "flash_attention": 0, "ssd_scan": 0,
+                         "topk_compress": 0},
+            f"control-loop launches {launches} == per-tier sums {total}")
+    # a round's time by the knobs it ran at: the first round at new knobs
+    # (after a retune or a reconfig) apart from the warm ones after it
+    dec_steps = [d["step"] for d in summary["decisions"]]
+    rc_steps = [s for s, _, _ in summary["reconfigs_at"]]
+    first, warm, prev = [], {}, 0
+    for i, (step, label, sec) in enumerate(rounds):
+        if (i == 0 or label != rounds[i - 1][1]
+                or any(prev < s <= step for s in dec_steps)
+                or any(prev <= s < step for s in rc_steps)):
+            first.append([step, label, round(sec, 4)])
+        else:
+            warm.setdefault(label, []).append(round(sec, 4))
+        prev = step
+    print(f"[control] {cfg.name} x{cfg.n_layers} layers, {PODS} pods, "
+          f"batch 8, seq {seq}: {summary['retunes']} retunes, "
+          f"{summary['reconfigs']} reconfigs applied (pods {applied}), "
+          f"final pods {summary['final_pods']}, final tier "
+          f"{summary['final_tier']}, max EF ratio {summary['max_ef_ratio']} "
+          f"(per bucket {summary['max_ef_ratio_by_bucket']}, guard "
+          f"{CONTROL_EF_GUARD})")
+    for d in summary["decisions"]:
+        print(f"[control] decision at step {d['step']}: {d['tiers']}, "
+              f"interval {d['interval']}: {d['summary']}")
+    print(f"[control] rounds (step, knobs, s): "
+          f"{[[r[0], r[1], round(r[2], 4)] for r in rounds]}")
+    print(f"[control] per-round worst-pod EF ratios by bucket: {checked}")
+    print(f"[control] warm round s by knobs: "
+          f"{warm}; first round at new knobs (retune or reconfig) {first}; "
+          f"reconfig barriers (step, pods, s) "
+          f"{[[a, b, round(t, 4)] for a, b, t in summary['reconfigs_at']]}"
+          f"; launches by tier {per_tier}; peak memory {peak_gb:.2f} GB")
+    return {k: launches[k] for k in ("wan_encode", "wan_decode")}
 
 
 def phase_entry_point(torch) -> None:
@@ -1085,6 +1252,109 @@ def phase_serve_entry_point(torch) -> None:
             "6 requests served and routed")
 
 
+def phase_gemma3_prefill(torch) -> dict:
+    """Phase 5c: gemma3-12b at its published size, one prefill of a
+    2048-token prompt through the flash kernel (48 launches: 40 windowed
+    layers, 8 global) and 8 decode steps; layers 0 (window 1024) and 5
+    (global) held to ``ref.sdpa`` on the same q, k, v."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg = gemma3_12b.CONFIG.replace(attention_impl="pallas")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count(), f"{n_params} params")
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in T.leaves(params)) / 1e9
+    with torch.no_grad():
+        transformer.prefill(params, cfg, torch.zeros(
+            1, 64, dtype=torch.int32, device="cuda"), 96)
+    torch.cuda.synchronize()
+
+    seen, checked = [0], {}
+
+    def check_hook(q, k, v, out, *, causal, window, softcap):
+        """Hold layers 0 and 5 of the prefill to ref.sdpa; the plain
+        version launches no kernel of the port, and the counts are put
+        back as they were all the same."""
+        layer = seen[0]
+        seen[0] += 1
+        if layer in GEMMA_CHECKED_LAYERS:
+            counts = dict(ops.LAUNCHES)
+            expect = ref.sdpa(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+            checked[layer] = (window, flash_close(
+                torch, out, expect, f"gemma3 prefill layer {layer}"))
+            ops.LAUNCHES.update(counts)
+
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, SERVE_PROMPT_LEN).astype(np.int32)
+    engine = ContinuousEngine(None, params, n_slots=1,
+                              cache_len=SERVE_PROMPT_LEN + GEMMA_NEW_TOKENS,
+                              cfg=cfg, module="transformer")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    check_s = [0.0]
+    ops.FLASH_CHECK_HOOK = clocked(torch, check_hook, check_s)
+    ops.reset_launches()
+    engine.insert(prompt, GEMMA_NEW_TOKENS, rid=0)
+    ops.FLASH_CHECK_HOOK = None
+    tokens = None
+    while tokens is None:
+        for f in engine.step():
+            tokens = f.tokens
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches == {"wan_encode": 0, "wan_decode": 0,
+                         "flash_attention": cfg.n_layers, "ssd_scan": 0,
+                         "topk_compress": 0},
+            f"gemma3 launches {launches}: {cfg.n_layers} flash launches "
+            f"in one prefill")
+    require(sorted(checked) == list(GEMMA_CHECKED_LAYERS)
+            and checked[0][0] == 1024 and checked[5][0] is None,
+            f"layers 0 (window 1024) and 5 (global) checked: {checked}")
+    require(len(tokens) == GEMMA_NEW_TOKENS
+            and all(0 <= int(t) < cfg.vocab_size for t in tokens),
+            f"{len(tokens)} tokens within the vocabulary")
+    prefill_s = engine.prefill_seconds[0] - check_s[0]
+    step_s = statistics.median(engine.step_seconds)
+
+    # the flash kernel's share of the prefill: its time at the prefill's
+    # two layer shapes, as many times as the prefill launches each
+    q, k, v = (torch.randn(1, SERVE_PROMPT_LEN, n, cfg.resolved_head_dim,
+                           device="cuda", dtype=torch.bfloat16)
+               for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    windows = [s.window for s in cfg.pattern] * cfg.n_groups
+    ms = {w: time_ms(torch, lambda w=w: ops.flash_attention(
+        q, k, v, window=w), reps=20) for w in set(windows)}
+    flash_ms = sum(ms[w] for w in windows)
+    print(f"[gemma3] {cfg.name} x{cfg.n_layers} layers, {n_params:,} params "
+          f"({weights_gb:.2f} GB bf16), d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.resolved_head_dim}, window 1024 on "
+          f"{windows.count(1024)} layers; prompt {SERVE_PROMPT_LEN} tokens, "
+          f"{GEMMA_NEW_TOKENS} new: launches {launches}; layers 0 and 5 "
+          f"within {FLASH_TOL['torch.bfloat16']} + "
+          f"{FLASH_TOL['torch.bfloat16']}|ref| of ref.sdpa (max |err| "
+          f"{ {l: round(e, 5) for l, (_, e) in checked.items()} })")
+    print(f"[gemma3] prefill {prefill_s:.4f} s (net of its check's "
+          f"{check_s[0]:.4f} s), median decode step {step_s:.4f} s over "
+          f"{len(engine.step_seconds)} steps; flash at the prefill's shapes "
+          f"{ {str(w): round(t, 4) for w, t in ms.items()} } ms a launch, "
+          f"{flash_ms:.3f} ms a prefill = "
+          f"{flash_ms / (prefill_s * 1e3):.1%} of it; peak memory "
+          f"{peak_gb:.2f} GB")
+    del params, engine, q, k, v
+    return launches
+
+
 def ssd_close(torch, y, final, y_ref, f_ref, what: str) -> tuple:
     """Hold an SSD output to its plain version at the reference's
     tolerance; returns the largest |diff| of y, absolute and over max|y|."""
@@ -1520,6 +1790,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_main_path(torch)
     torch.cuda.empty_cache()
+    control_launches = phase_control_loop(torch)
+    torch.cuda.empty_cache()
     topk_launches = phase_strategies(torch)
     phase_paper_models(torch)
     phase_entry_point(torch)
@@ -1528,14 +1800,19 @@ def main() -> int:
     serve_launches = phase_serving(torch)
     torch.cuda.empty_cache()
     phase_serve_entry_point(torch)
+    gemma_launches = phase_gemma3_prefill(torch)
+    torch.cuda.empty_cache()
     mamba_launches, params = phase_mamba_serving(torch)
     phase_mamba_scoring(torch, params)
     del params
     torch.cuda.empty_cache()
     phase_mamba_entry_point(torch)
     for name in ("wan_encode", "wan_decode"):
-        kernels[name]["launches"] = train_launches[name]
-    kernels["flash_attention"]["launches"] = serve_launches["flash_attention"]
+        kernels[name]["launches"] = (train_launches[name]
+                                     + control_launches[name])
+    kernels["flash_attention"]["launches"] = (
+        serve_launches["flash_attention"]
+        + gemma_launches["flash_attention"])
     kernels["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
     kernels["topk_compress"]["launches"] = topk_launches
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,8 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-``granite-8b`` (dense) and ``mamba2-1.3b`` (SSM) are ported; the
-reference's other architectures need the MoE, hybrid and encoder-decoder
-model families (ROADMAP.md Queue 1 item 13).
+Ported: the dense decoders ``granite-8b``, ``gemma3-12b`` (5:1 local:global
+windows, head_dim 256), ``minitron-8b`` and ``gemma2-27b`` (alternating
+windows, attention and final-logit soft-caps), and the SSM
+``mamba2-1.3b``.  The reference's other architectures need the MoE,
+hybrid and encoder-decoder model families (ROADMAP.md Queue 1 item 13) or
+multimodal positions (item 9b).
 """
 from __future__ import annotations
 
@@ -12,8 +15,11 @@ from dataclasses import dataclass
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
-    "granite-8b": ("granite_8b", "transformer"),
     "mamba2-1.3b": ("mamba2_1_3b", "transformer"),
+    "granite-8b": ("granite_8b", "transformer"),
+    "gemma3-12b": ("gemma3_12b", "transformer"),
+    "minitron-8b": ("minitron_8b", "transformer"),
+    "gemma2-27b": ("gemma2_27b", "transformer"),
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -48,3 +54,8 @@ def get_arch(name: str) -> Arch:
     mod = importlib.import_module(f"repro_torch.configs.{modname}")
     return Arch(name=name, config=mod.CONFIG, smoke=mod.smoke_config(),
                 module=kind)
+
+
+def all_archs():
+    """Every ported arch, in the reference's registry order."""
+    return [get_arch(n) for n in ARCH_IDS]

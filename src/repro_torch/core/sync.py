@@ -108,8 +108,98 @@ class BucketSpec:
                 return name
         return self.vector_bucket if inner_ndim <= 1 else self.fallback
 
+    @classmethod
+    def parse(cls, spec: str) -> "BucketSpec":
+        """Build a spec from the launcher's ``--bucket-patterns`` string.
+
+        Named presets: ``default`` (the four-class table) and
+        ``moe-router`` (:data:`MOE_ROUTER_BUCKET_SPEC` — routers split out
+        of the expert group).  Otherwise, semicolon-separated
+        ``name=sub1|sub2`` pattern groups in precedence order, plus the
+        optional directives ``vector=name`` / ``fallback=name`` (defaults:
+        ``norm`` / ``dense`` if those names exist, else the last group /
+        the first pattern-less group)::
+
+            router=router;moe=moe|expert;embed=embed|vocab;norm=norm|bias;dense=
+
+        Groups may be declared pattern-less (``dense=``) just to exist as
+        a fallback target."""
+        key = spec.strip().lower()
+        if key in ("", "default"):
+            return DEFAULT_BUCKET_SPEC
+        if key == "moe-router":
+            return MOE_ROUTER_BUCKET_SPEC
+        names: list = []
+        patterns: list = []
+        vector = fallback = None
+        for entry in spec.split(";"):
+            entry = entry.strip()
+            if not entry:
+                continue
+            name, eq, subs = entry.partition("=")
+            name = name.strip()
+            if not eq:
+                raise ValueError(
+                    f"--bucket-patterns entry {entry!r} is not "
+                    f"'name=sub1|sub2' (or 'vector=name'/'fallback=name')")
+            if name == "vector":
+                vector = subs.strip()
+                continue
+            if name == "fallback":
+                fallback = subs.strip()
+                continue
+            if name not in names:
+                names.append(name)
+            pats = tuple(s.strip().lower() for s in subs.split("|")
+                         if s.strip())
+            if pats:
+                patterns.append((name, pats))
+        if not names:
+            raise ValueError(f"--bucket-patterns {spec!r} defines no bucket "
+                             f"groups")
+        for role, target in (("vector", vector), ("fallback", fallback)):
+            if target is not None and target not in names:
+                # refusing (not creating) catches a typoed group name —
+                # a phantom group would silently swallow every fallthrough
+                # leaf while the declared group stays empty
+                raise ValueError(
+                    f"--bucket-patterns {role}={target!r} names an "
+                    f"undeclared bucket group (declared: {tuple(names)}); "
+                    f"declare it, e.g. '{target}='")
+        vector = vector or ("norm" if "norm" in names else names[-1])
+        # fallback default: 'dense' if declared, else the first
+        # pattern-LESS group (declaring 'name=' with no patterns is the
+        # documented way to create a catch-all), else the last group —
+        # NEVER the first: groups are listed most-specific-first, and a
+        # fallback into the most specific group would silently give every
+        # unmatched dense matrix e.g. router-grade treatment
+        if fallback is None:
+            pattern_names = {n for n, _ in patterns}
+            patternless = [n for n in names if n not in pattern_names]
+            fallback = ("dense" if "dense" in names
+                        else (patternless[0] if patternless else names[-1]))
+        return cls(names=tuple(names), patterns=tuple(patterns),
+                   vector_bucket=vector, fallback=fallback)
+
 
 DEFAULT_BUCKET_SPEC = BucketSpec()
+
+# the MoE recipe's spec: routers in their OWN group instead of riding the
+# expert group.  Router gradients are dense and convergence-critical (they
+# steer token routing; quantization error there mis-routes tokens), while
+# expert blocks see token-routed sparsity that tolerates aggressive top-k —
+# one (top-k, dtype) rung cannot serve both, which is why this table exists.
+# Precedence: router patterns FIRST, so ``moe/router`` no longer falls to
+# the ``moe`` group's broader patterns.
+MOE_ROUTER_BUCKET_SPEC = BucketSpec(
+    names=("embed", "norm", "dense", "moe", "router"),
+    patterns=(
+        ("router", ("router", "gating")),
+        ("moe", ("moe", "expert")),
+        ("embed", ("embed", "emb", "vocab", "wte", "wpe", "lm_head",
+                   "tok_", "token")),
+        ("norm", ("norm", "ln1", "ln2", "rms", "bias", "scale")),
+    ))
 
 
 @dataclass(frozen=True)

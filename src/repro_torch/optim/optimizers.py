@@ -7,6 +7,7 @@ bf16.  The trainer calls ``update`` once per pod on that pod's slices.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Tuple
 
@@ -118,6 +119,20 @@ def get_optimizer(name: str, **kw) -> Optimizer:
 
 def constant_schedule(lr: float) -> Callable[[int], float]:
     return lambda step: float(lr)
+
+
+def warmup_cosine_schedule(peak_lr: float, warmup: int, total: int,
+                           floor: float = 0.0) -> Callable[[int], float]:
+    """Linear warmup to ``peak_lr`` over ``warmup`` steps, then a cosine
+    decay to ``floor`` at ``total``; in f32, as the reference computes it."""
+    def fn(step) -> float:
+        step = torch.tensor(step, dtype=torch.float32)
+        warm = peak_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + (peak_lr - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return float(torch.where(step < warmup, warm, cos))
+
+    return fn
 
 
 def global_norm(tree: Pytree) -> torch.Tensor:

@@ -93,7 +93,8 @@ class Trainer:
 
         Payloads ship over the inline ring (``torch.roll`` over the pod
         dimension).  ``round_hook``, if given, is called after each codec
-        round as ``round_hook(state, payloads, shipped)``, outside the
+        round as ``round_hook(state, payloads, shipped, sync)`` (``sync``:
+        the round's config, whose tiers a retune changes), outside the
         round's timing: a check uses it to hold the round against its
         plain version.  Other strategies' rounds have no hook of their own;
         ``kernels.ops.TOPK_CHECK_HOOK`` sees each sparse ship."""
@@ -218,12 +219,14 @@ class Trainer:
                 self.cfg.sync, model_mb,
                 bucket_weights=self.bucket_weights(state)) * self.cfg.n_pods
         if is_sync_step(self.cfg.sync, host_step) and self.cfg.n_pods > 1:
+            # the step's queued device work is not the round's
+            _wait(self.device)
             t0 = time.perf_counter()
             state, rnd = self._sync_round(state)
             _wait(self.device)
             self.sync_seconds.append(time.perf_counter() - t0)
             if self.round_hook is not None and rnd is not None:
-                self.round_hook(state, *rnd)
+                self.round_hook(state, *rnd, self.cfg.sync)
         return state
 
     # ------------------------------------------------------ elasticity
