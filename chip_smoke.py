@@ -119,6 +119,35 @@ Phases (any failure raises and the script exits non-zero):
    agree within 1e-6, step for step.
 4b. Entry point: ``repro_torch.launch.train.main --sync ama
    --compress-topk 0.02``.
+6a. qwen3-moe-30b-a3b at its published size (48 layers, 128 experts
+   top-8, GQA 32/4, 30.5 B parameters, bf16, random weights from a seed,
+   ``attention_impl="pallas"``) through a 4-slot ``ContinuousEngine``:
+   prompts of 2048, 1536, 1024 and 512 tokens, 16 new each, 48 flash
+   launches a prefill, every one held to ``ref.sdpa``; the MoE layers'
+   share of a prefill's device time (router, expert products, dispatch
+   and combine, by CUDA events).  Then a 16-slot pool at 1 layer with a
+   zero router (every slot ties and picks experts 0-7): its tokens must
+   equal each request's alone in the pool (each slot routed on its own),
+   while the 16 tokens routed together overflow their experts.
+6b. kimi-k2 at full width, 1 of 61 layers (384 experts top-8, capacity
+   factor 1.0): a 2048-token prefill and 8 decode steps; prints the
+   (token, expert) assignments the capacity dropped.
+6c. jamba-1.5-large at one period (7 Mamba layers with 256 SSM heads in 8
+   B/C groups, 1 attention layer, MoE 16 experts top-2 on 4), d_ff cut
+   from 24576 to 8192 to fit one card: requests of 2048 and 1024 tokens,
+   16 new each; 7 SSD and 1 flash launch a prefill, each held to its
+   plain version (the SSD at G 8, B and C expanded by a copy, whose bytes
+   and time it prints).
+6d. whisper-tiny whole: the encoder over (4, 1500, 384) stub frames (4
+   non-causal flash launches at head_dim 64, each held to ``ref.sdpa``),
+   then ``ServingEngine.generate`` with its output as ``audio_emb``,
+   32-token prompts and 32 new tokens; in f32, decode == forward at the
+   reference's tolerance.
+6e. qwen3-moe-30b-a3b x1 layer trained through ``launch/train.py`` (2
+   pods, global batch 8, seq 512, sgd, ``asgd_ga`` interval 2, int8 top-k
+   0.05 with error feedback, ``--bucket-policy layer-class
+   --bucket-patterns moe-router``), 8 steps: finite losses, non-empty
+   ``moe`` and ``router`` buckets, every codec round held as in 3d.
 
 Every time is a CUDA-event median of calls made back to back, taken the
 same way for a kernel, its plain version and the library call.  The line
@@ -210,17 +239,17 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def clocked(torch, hook, spent: list):
-    """``hook`` fenced by device syncs, its seconds added to ``spent[0]``.
-    A check hook runs inside a timed serving run (all of it inside the
-    first prefill); the run's prefill seconds and tok/s leave its time
-    out."""
+def clocked(torch, hook, spent: list, at=lambda: 0):
+    """``hook`` fenced by device syncs, its seconds added to
+    ``spent[at()]``.  A check hook runs inside a timed serving run; the
+    run's prefill seconds and tok/s leave its time out (``at``: the index
+    of the prefill it runs in, where each prefill holds checks)."""
     def run(*args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hook(*args, **kw)
         torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t0
+        spent[at()] += time.perf_counter() - t0
     return run
 
 
@@ -575,18 +604,14 @@ def phase_main_path(torch) -> dict:
     return launches
 
 
-def phase_control_loop(torch, device: str = "cuda", cfg=None,
-                       seq: int = 512) -> dict:
-    """Phase 3d: the launcher's control loop (``--events``, ``--wan-trace``,
-    ``--adaptive-sync`` under ``--bucket-policy layer-class``) training
-    granite-8b x2 layers at full width; every codec round held to its
-    definition at the tiers it runs.  Returns the codec launches."""
-    from repro_torch.configs import granite_8b
+def bucketed_round_check(torch):
+    """A ``round_hook`` for the launcher's codec rounds under any bucket
+    policy, and what it fills: launches by tier, each round's worst-pod EF
+    ratios by bucket, and the launch counts at the last round.  Call
+    ``mark.update(ops.LAUNCHES)`` just after resetting the counts."""
     from repro_torch.core import sync as S
     from repro_torch.kernels import ops
-    from repro_torch.launch import train
 
-    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
     per_tier: dict = {}
     checked = []
     mark = {}
@@ -632,6 +657,22 @@ def phase_control_loop(torch, device: str = "cuda", cfg=None,
         checked.append([round(float(r), 4) for r in ratios.cpu()])
         ops.LAUNCHES.update(counts)
         mark.update(counts)
+
+    return check_round, per_tier, checked, mark
+
+
+def phase_control_loop(torch, device: str = "cuda", cfg=None,
+                       seq: int = 512) -> dict:
+    """Phase 3d: the launcher's control loop (``--events``, ``--wan-trace``,
+    ``--adaptive-sync`` under ``--bucket-policy layer-class``) training
+    granite-8b x2 layers at full width; every codec round held to its
+    definition at the tiers it runs.  Returns the codec launches."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
+    check_round, per_tier, checked, mark = bucketed_round_check(torch)
 
     argv = ["--pods", str(PODS), "--steps", str(CONTROL_STEPS), "--batch",
             "8", "--seq", str(seq), "--interval", "2", "--compress-topk",
@@ -1772,6 +1813,677 @@ def phase_mamba_entry_point(torch) -> None:
             "6 mamba requests served and routed")
 
 
+# phases 6a-6e: the MoE, hybrid and encoder-decoder families
+MOE_SERVE_PROMPTS = (2048, 1536, 1024, 512)
+MOE_NEW_TOKENS = 16
+MOE_POOL = 16                       # the colliding pool of phase 6a
+MOE_POOL_PROMPT, MOE_POOL_NEW = 64, 8
+KIMI_NEW_TOKENS = 8
+JAMBA_PROMPTS = (2048, 1024)        # multiples of the 256-token SSD chunk
+JAMBA_D_FF = 8192                   # cut from 24576 to fit one card
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 32, 32
+# the reference's whisper decode-vs-forward tolerance
+# (tests/test_models.py::test_whisper_decode_matches_forward), in f32
+WHISPER_STEP_ATOL, WHISPER_STEP_RTOL = 2e-3, 2e-2
+MOE_TRAIN_STEPS = 8
+
+
+def flash_hook_all(torch, checked: list):
+    """A flash check hook holding every launch to ``ref.sdpa`` on the same
+    q, k, v; the plain version launches no kernel of the port, and the
+    counts are put back as they were all the same."""
+    from repro_torch.kernels import ops, ref
+
+    def hook(q, k, v, out, *, causal, window, softcap):
+        counts = dict(ops.LAUNCHES)
+        expect = ref.sdpa(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+        checked.append(flash_close(torch, out, expect,
+                                   f"launch {len(checked)} "
+                                   f"{tuple(q.shape)}/{k.shape[2]}"))
+        ops.LAUNCHES.update(counts)
+    return hook
+
+
+def only(launches: dict, **want) -> dict:
+    """The five kernels' counts with ``want`` and zeros elsewhere."""
+    return {k: want.get(k, 0) for k in launches}
+
+
+def serve_pool(engine, prompts, new_tokens) -> dict:
+    """Every prompt through a ``ContinuousScheduler`` over ``engine``;
+    returns rid -> tokens."""
+    from repro_torch.serving.engine import ContinuousScheduler
+
+    sched = ContinuousScheduler(engine)
+    for p in prompts:
+        sched.submit(p, new_tokens)
+    return sched.run()
+
+
+def moe_time_split(torch, run) -> dict:
+    """Device time of one ``run()`` (a prefill) and of its MoE layers, by
+    CUDA events around every ``moe_apply`` and, inside it, the router and
+    the expert products; dispatch and combine are the rest of the layer."""
+    from repro_torch.models import moe, transformer
+
+    spans = {"moe": [], "router": [], "experts": []}
+
+    def timed(name, fn):
+        def wrapped(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans[name].append((a, b))
+            return out
+        return wrapped
+
+    saved = (transformer.M.moe_apply, moe._route, moe._experts)
+    transformer.M.moe_apply = timed("moe", moe.moe_apply)
+    moe._route = timed("router", moe._route)
+    moe._experts = timed("experts", moe._experts)
+    try:
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        transformer.M.moe_apply, moe._route, moe._experts = saved
+    ms = {k: sum(x.elapsed_time(y) for x, y in v) for k, v in spans.items()}
+    ms["dispatch_combine"] = ms["moe"] - ms["router"] - ms["experts"]
+    ms["total"] = a.elapsed_time(b)
+    return ms
+
+
+def phase_qwen3_moe(torch) -> dict:
+    """Phase 6a: qwen3-moe-30b-a3b at its published size (48 layers, 128
+    experts top-8, 30.5 B parameters, bf16, random weights from a seed,
+    ``attention_impl="pallas"``) through a 4-slot ``ContinuousEngine``:
+    prompts of 2048, 1536, 1024 and 512 tokens, 16 new tokens each; every
+    flash launch held to ``ref.sdpa``.  Then a 16-slot pool of the same
+    model at 1 layer with a zero router (every slot ties and picks experts
+    0-7): each slot is routed alone, so the pool's tokens equal each
+    request's alone in the pool, while the 16 tokens routed together
+    overflow their experts."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg = qwen3_moe_30b_a3b.CONFIG.replace(attention_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count(), f"{n_params} params")
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in T.leaves(params)) / 1e9
+    with torch.no_grad():
+        transformer.prefill(params, cfg, torch.zeros(
+            1, 64, dtype=torch.int32, device="cuda"), 96)
+    torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in MOE_SERVE_PROMPTS]
+    cache_len = max(MOE_SERVE_PROMPTS) + 32
+    engine = ContinuousEngine(None, params, n_slots=SERVE_SLOTS,
+                              cache_len=cache_len, cfg=cfg,
+                              module="transformer")
+    checked, check_s = [], [0.0] * len(prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.FLASH_CHECK_HOOK = clocked(torch, flash_hook_all(torch, checked),
+                                   check_s,
+                                   lambda: len(engine.prefill_seconds))
+    ops.reset_launches()
+    results = serve_pool(engine, prompts, MOE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    ops.FLASH_CHECK_HOOK = None
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_prefills = len(engine.prefill_seconds)
+    require(n_prefills == len(prompts), f"{n_prefills} prefills")
+    require(launches == only(launches,
+                             flash_attention=cfg.n_layers * n_prefills),
+            f"qwen3-moe launches {launches}: {cfg.n_layers} flash launches "
+            f"per prefill")
+    require(len(checked) == cfg.n_layers * n_prefills,
+            f"{len(checked)} flash launches held to ref.sdpa")
+    require(sorted(results) == list(range(len(prompts)))
+            and all(len(t) == MOE_NEW_TOKENS
+                    and all(0 <= int(x) < cfg.vocab_size for x in t)
+                    for t in results.values()),
+            f"every request finished with {MOE_NEW_TOKENS} tokens in the "
+            f"vocabulary")
+    # the prefills are net of their checks: each check is fenced and timed
+    prefill_s = [t - c for t, c in zip(engine.prefill_seconds, check_s)]
+    step_s = statistics.median(engine.step_seconds)
+
+    # the MoE layers' share of one 2048-token prefill's device time, and
+    # the flash kernel's time at the prefill's shape (off the record)
+    tok = torch.from_numpy(prompts[0])[None].cuda()
+    with torch.no_grad():
+        split = moe_time_split(torch, lambda: transformer.prefill(
+            params, cfg, tok, cache_len))
+    q = torch.randn(1, MOE_SERVE_PROMPTS[0], cfg.n_heads,
+                    cfg.resolved_head_dim, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(1, MOE_SERVE_PROMPTS[0], cfg.n_kv_heads,
+                        cfg.resolved_head_dim, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    flash_ms = time_ms(torch, lambda: ops.flash_attention(q, k, v), reps=20)
+    n_steps = len(engine.step_seconds)
+    del q, k, v, engine
+    print(f"[qwen3-moe] {cfg.name} x{cfg.n_layers} layers, {n_params:,} "
+          f"params ({weights_gb:.2f} GB bf16), {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k}, heads {cfg.n_heads}/{cfg.n_kv_heads}; init "
+          f"{init_s:.1f} s, init peak {init_peak:.2f} GB")
+    print(f"[qwen3-moe] prompts {list(MOE_SERVE_PROMPTS)}, "
+          f"{MOE_NEW_TOKENS} new each through a {SERVE_SLOTS}-slot pool: "
+          f"launches {launches}; all {len(checked)} flash launches within "
+          f"{FLASH_TOL['torch.bfloat16']} + {FLASH_TOL['torch.bfloat16']}"
+          f"|ref| of ref.sdpa (max |err| {max(checked):.3g})")
+    print(f"[qwen3-moe] prefill s {[round(t, 4) for t in prefill_s]} (net "
+          f"of the checks, {[round(t, 4) for t in check_s]} s), median decode "
+          f"step {step_s:.4f} s over {n_steps} steps; peak memory "
+          f"{peak_gb:.2f} GB")
+    print(f"[qwen3-moe] a {MOE_SERVE_PROMPTS[0]}-token prefill by CUDA "
+          f"events: {split['total']:.2f} ms, MoE layers {split['moe']:.2f} "
+          f"ms = {split['moe'] / split['total']:.1%} (router "
+          f"{split['router']:.2f}, expert products {split['experts']:.2f}, "
+          f"dispatch and combine {split['dispatch_combine']:.2f} ms); flash "
+          f"{flash_ms:.4f} ms a launch at (1, {MOE_SERVE_PROMPTS[0]}, "
+          f"{cfg.n_heads}, {cfg.n_kv_heads}, {cfg.resolved_head_dim}), "
+          f"{flash_ms * cfg.n_layers:.2f} ms a prefill")
+
+    # the colliding pool: layer 0 of the same weights, a zero router
+    cfg1 = cfg.replace(n_layers=1)
+    blocks = T.tree_map(lambda x: x[:1], params["blocks"])
+    blocks["pos0"]["moe"]["router"] = torch.zeros_like(
+        blocks["pos0"]["moe"]["router"])
+    params1 = {"embed": params["embed"], "blocks": blocks,
+               "final_norm": params["final_norm"]}
+    pool_prompts = [rng.integers(0, cfg.vocab_size, MOE_POOL_PROMPT + i
+                                 ).astype(np.int32) for i in range(MOE_POOL)]
+    pool_len = MOE_POOL_PROMPT + MOE_POOL + MOE_POOL_NEW
+
+    def pool():
+        return ContinuousEngine(None, params1, n_slots=MOE_POOL,
+                                cache_len=pool_len, cfg=cfg1,
+                                module="transformer")
+
+    crowd = pool()
+    for rid, p in enumerate(pool_prompts):
+        crowd.insert(p, MOE_POOL_NEW, rid=rid)
+    together = {}
+    while crowd.live_slots:
+        for f in crowd.step():
+            together[f.rid] = list(f.tokens)
+    alone = {}
+    for rid, p in enumerate(pool_prompts):
+        solo = pool()
+        solo.insert(p, MOE_POOL_NEW, rid=rid)
+        while solo.live_slots:
+            for f in solo.step():
+                alone[f.rid] = list(f.tokens)
+    require(together == alone, "a 16-slot pool's tokens == each request "
+            "alone in the pool (every slot routed on its own)")
+    C16 = moe.expert_capacity(MOE_POOL, cfg1)
+    cache = transformer.init_cache(cfg1, MOE_POOL, pool_len, device="cuda")
+    tok = torch.tensor([[int(p[0])] for p in pool_prompts],
+                       dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        rows, _ = transformer.decode_step(
+            params1, cfg1, tok, T.tree_map(torch.clone, cache), 0,
+            moe_per_row=True)
+        shared, _ = transformer.decode_step(
+            params1, cfg1, tok, T.tree_map(torch.clone, cache), 0)
+    gap = (rows - shared).abs().amax(dim=(1, 2))
+    require(C16 < MOE_POOL and bool((gap[C16:] > 0).all()),
+            f"routed together, slots {C16}.. overflow experts 0-7 "
+            f"(capacity {C16})")
+    print(f"[qwen3-moe] 16-slot pool at 1 layer, zero router (every slot "
+          f"ties: experts 0-7): tokens == each request alone in the pool "
+          f"(16 runs); the 16 tokens routed together get a capacity of "
+          f"{C16} per expert and slots {C16}-15 lose their experts (max "
+          f"|logit diff| {float(gap[C16:].min()):.3g}-"
+          f"{float(gap[C16:].max()):.3g})")
+    del params, params1, blocks, crowd, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kimi_k2(torch) -> dict:
+    """Phase 6b: kimi-k2 at full width, 1 of 61 layers (d_model 7168, 64/8
+    heads, 384 experts top-8 at capacity factor 1.0, vocab 163,840; bf16,
+    random weights from a seed, ``attention_impl="pallas"``): one 2048-token
+    prefill and 8 decode steps; prints the (token, expert) assignments the
+    prefill's capacity dropped."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import kimi_k2_1t_a32b
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe, transformer
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg = kimi_k2_1t_a32b.CONFIG.replace(n_layers=1, attention_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count(), f"{n_params} params")
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in T.leaves(params)) / 1e9
+    with torch.no_grad():
+        transformer.prefill(params, cfg, torch.zeros(
+            1, 64, dtype=torch.int32, device="cuda"), 96)
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, SERVE_PROMPT_LEN).astype(np.int32)
+    engine = ContinuousEngine(None, params, n_slots=1,
+                              cache_len=SERVE_PROMPT_LEN + KIMI_NEW_TOKENS,
+                              cfg=cfg, module="transformer")
+    drops = []
+    count_slots = moe._capacity_slots
+
+    def counted(top_e, C, E):
+        slot = count_slots(top_e, C, E)
+        if top_e.shape[1] > 1:                       # the prefill's layer
+            drops.append((int((slot == E * C).sum()), slot.numel(),
+                          int((slot == E * C).all(-1).sum()), C))
+        return slot
+
+    checked, check_s = [], [0.0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moe._capacity_slots = counted
+    ops.FLASH_CHECK_HOOK = clocked(torch, flash_hook_all(torch, checked),
+                                   check_s)
+    ops.reset_launches()
+    try:
+        tokens = serve_pool(engine, [prompt], KIMI_NEW_TOKENS)[0]
+        torch.cuda.synchronize()
+    finally:
+        moe._capacity_slots = count_slots
+        ops.FLASH_CHECK_HOOK = None
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches == only(launches, flash_attention=1),
+            f"kimi-k2 launches {launches}: one flash launch")
+    require(len(checked) == 1, "the flash launch held to ref.sdpa")
+    require(len(tokens) == KIMI_NEW_TOKENS
+            and all(0 <= int(t) < cfg.vocab_size for t in tokens),
+            "tokens within the vocabulary")
+    (dropped, slots, lost, C), = drops
+    prefill_s = engine.prefill_seconds[0] - check_s[0]
+    step_s = statistics.median(engine.step_seconds)
+    print(f"[kimi-k2] {cfg.name} x1 of 61 layers, {n_params:,} params "
+          f"({weights_gb:.2f} GB bf16), d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor}; "
+          f"init peak {init_peak:.2f} GB")
+    print(f"[kimi-k2] prefill {SERVE_PROMPT_LEN} tokens, "
+          f"{KIMI_NEW_TOKENS} new: launches {launches}, flash within "
+          f"{FLASH_TOL['torch.bfloat16']} of ref.sdpa (max |err| "
+          f"{checked[0]:.3g}); capacity {C} per expert: {dropped} of {slots} "
+          f"(token, expert) assignments dropped ({dropped / slots:.2%}), "
+          f"{lost} tokens lost all {cfg.moe.top_k}")
+    print(f"[kimi-k2] prefill {prefill_s:.4f} s (net of its check), median "
+          f"decode step {step_s:.4f} s over {len(engine.step_seconds)} "
+          f"steps; peak memory {peak_gb:.2f} GB")
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_jamba(torch) -> dict:
+    """Phase 6c: jamba-1.5-large at one period (8 layers: 7 Mamba, 1
+    attention; MoE 16 experts top-2 on 4; d_model 8192, 64/8 heads, 256 SSM
+    heads of P 64, N 128 in 8 B/C groups, chunk 256, vocab 65,536) with d_ff
+    cut from 24,576 to 8,192 to fit one card; bf16, random weights from a
+    seed, ``attention_impl="pallas"``.  Two requests of 2048 and 1024
+    tokens, 16 new each, through a 2-slot ``ContinuousEngine``: 7 SSD and 1
+    flash launch a prefill, every one held to its plain version."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import jamba_1_5_large_398b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg = jamba_1_5_large_398b.CONFIG.replace(
+        n_layers=8, d_ff=JAMBA_D_FF, attention_impl="pallas")
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count(), f"{n_params} params")
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in T.leaves(params)) / 1e9
+    with torch.no_grad():
+        transformer.prefill(params, cfg, torch.zeros(
+            1, MAMBA_CHUNK, dtype=torch.int32, device="cuda"), 300)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in JAMBA_PROMPTS]
+    engine = ContinuousEngine(None, params, n_slots=len(JAMBA_PROMPTS),
+                              cache_len=max(JAMBA_PROMPTS) + 32, cfg=cfg,
+                              module="transformer")
+    G, H, N = cfg.ssm.n_groups, cfg.ssm_heads, cfg.ssm.state_dim
+    flash_checked, ssd_checked, groups = [], [], []
+    check_s = [0.0] * len(prompts)
+
+    def at():
+        return len(engine.prefill_seconds)
+
+
+    def ssd_hook(x, a, Bm, Cm, y, final, *, chunk, init_state):
+        counts = dict(ops.LAUNCHES)
+        # B and C reach the kernel expanded from G groups to H heads
+        g = Bm.reshape(*Bm.shape[:2], G, H // G, N)
+        groups.append(bool((g == g[:, :, :, :1]).all())
+                      and Bm.shape[2] == H)
+        ssd_checked.append(ssd_serving_close(
+            torch, x, a, Bm, Cm, y, final, chunk, init_state,
+            f"jamba SSD launch {len(ssd_checked)}"))
+        ops.LAUNCHES.update(counts)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.FLASH_CHECK_HOOK = clocked(
+        torch, flash_hook_all(torch, flash_checked), check_s, at)
+    ops.SSD_CHECK_HOOK = clocked(torch, ssd_hook, check_s, at)
+    ops.reset_launches()
+    try:
+        results = serve_pool(engine, prompts, MOE_NEW_TOKENS)
+        torch.cuda.synchronize()
+    finally:
+        ops.FLASH_CHECK_HOOK = ops.SSD_CHECK_HOOK = None
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_ssm = sum(1 for s in cfg.pattern if s.kind == "ssm")
+    n_attn = len(cfg.pattern) - n_ssm
+    n = len(prompts)
+    require(launches == only(launches, flash_attention=n_attn * n,
+                             ssd_scan=n_ssm * n),
+            f"jamba launches {launches}: {n_ssm} SSD and {n_attn} flash "
+            f"launches a prefill")
+    require(len(ssd_checked) == n_ssm * n and len(flash_checked) == n_attn * n
+            and all(groups), "every SSD and flash launch held, B/C expanded "
+            f"from {G} groups")
+    require(sorted(results) == list(range(n))
+            and all(len(t) == MOE_NEW_TOKENS
+                    and all(0 <= int(x) < cfg.vocab_size for x in t)
+                    for t in results.values()),
+            f"both requests finished with {MOE_NEW_TOKENS} tokens")
+    # the B/C copy: each SSM layer expands (1, S, G, N) to (1, S, H, N),
+    # for B and for C, in bf16
+    copy_mb = {S: 2 * S * H * N * 2 / 1e6 for S in JAMBA_PROMPTS}
+    grouped_mb = {S: 2 * S * G * N * 2 / 1e6 for S in JAMBA_PROMPTS}
+    prefill_s = [t - c for t, c in zip(engine.prefill_seconds, check_s)]
+    step_s = statistics.median(engine.step_seconds)
+    worst = {k: max(e[k] for e in ssd_checked) for k in ssd_checked[0]}
+    n_steps = len(engine.step_seconds)
+    del engine
+
+    # the SSD kernel and the B/C copy at the 2048-token prefill's shape,
+    # and the flash kernel at its attention layer's (off the record)
+    S0, P, L = JAMBA_PROMPTS[0], cfg.ssm.head_dim, cfg.ssm.chunk_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(1, S0, H, P, generator=gen, device="cuda")
+    a = -torch.rand(1, S0, H, generator=gen, device="cuda")
+    Bg, Cg = (torch.randn(1, S0, G, N, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    Bm, Cm = (t.repeat_interleave(H // G, dim=2) for t in (Bg, Cg))
+    ssd_ms = time_ms(torch, lambda: ops.ssd_scan(x, a, Bm, Cm, chunk=L),
+                     reps=20)
+    copy_ms = time_ms(torch, lambda: (Bg.repeat_interleave(H // G, dim=2),
+                                      Cg.repeat_interleave(H // G, dim=2)),
+                      reps=20)
+    # inputs read once (B and C as the kernel reads them: expanded), the
+    # outputs written once
+    nbytes = (x.numel() * 4 + a.numel() * 4 + 2 * Bm.numel() * 2
+              + x.numel() * 4 + H * P * N * 4)
+    bound, by = ssd_bound(1, S0, H, P, N, L, nbytes, bc_bf16=True)
+    q = torch.randn(1, S0, cfg.n_heads, cfg.resolved_head_dim,
+                    device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(1, S0, cfg.n_kv_heads, cfg.resolved_head_dim,
+                        device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    flash_ms = time_ms(torch, lambda: ops.flash_attention(q, k, v), reps=20)
+    del x, a, Bg, Cg, Bm, Cm, q, k, v
+    print(f"[jamba] {cfg.name} x{cfg.n_layers} layers (one period: "
+          f"{n_ssm} Mamba, {n_attn} attention, MoE {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.top_k} on 4), d_ff {cfg.d_ff} (published "
+          f"24576), {n_params:,} params ({weights_gb:.2f} GB bf16); SSM "
+          f"heads {H} of P {cfg.ssm.head_dim}, N {N}, {G} B/C groups, chunk "
+          f"{cfg.ssm.chunk_size}")
+    print(f"[jamba] prompts {list(JAMBA_PROMPTS)}, {MOE_NEW_TOKENS} new: "
+          f"launches {launches}; every SSD launch at G {G} within "
+          f"{SERVE_SSD_TOL} of ref.ssd and {SSD_Y_TOL} of the f64 SSD "
+          f"(worst {json.dumps(worst)}); the flash launches within "
+          f"{FLASH_TOL['torch.bfloat16']} of ref.sdpa (max |err| "
+          f"{max(flash_checked):.3g})")
+    print(f"[jamba] B/C expanded by group before the kernel: "
+          f"{ {S: round(mb, 1) for S, mb in copy_mb.items()} } MB a layer "
+          f"(against { {S: round(mb, 1) for S, mb in grouped_mb.items()} } "
+          f"MB grouped), x{n_ssm} a prefill; the copy {copy_ms:.4f} ms a "
+          f"layer at {S0} tokens")
+    print(f"[jamba] at {S0} tokens: the SSD {ssd_ms:.4f} ms a launch (bound "
+          f"{bound:.4f} ms by {by}, B/C read expanded), flash "
+          f"{flash_ms:.4f} ms at (1, {S0}, {cfg.n_heads}, {cfg.n_kv_heads}, "
+          f"{cfg.resolved_head_dim})")
+    print(f"[jamba] prefill s {[round(t, 4) for t in prefill_s]} (net of "
+          f"the checks), median decode step {step_s:.4f} s over "
+          f"{n_steps} steps; peak memory {peak_gb:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whisper(torch) -> dict:
+    """Phase 6d: whisper-tiny whole (4 encoder and 4 decoder layers,
+    d_model 384, 6 heads, vocab 51,865; bf16, random weights from a seed,
+    ``attention_impl="pallas"``): the encoder over (4, 1500, 384) stub frame
+    embeddings drawn from a seed (4 flash launches, non-causal, each held to
+    ``ref.sdpa``), then ``ServingEngine.generate`` with the encoder output as
+    ``audio_emb`` (the reference's engine takes it as the encoder output):
+    32-token prompts teacher-forced, 32 new tokens.  The same model in f32
+    then holds its decode to its forward at the reference's tolerance."""
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.serving.engine import ServingEngine
+
+    arch = get_arch("whisper-tiny")
+    cfg = arch.config.replace(attention_impl="pallas")
+    arch = type(arch)(name=arch.name, config=cfg, smoke=arch.smoke,
+                      module=arch.module)
+    params = encdec.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == encdec.param_count(cfg), f"{n_params} params")
+    rng = np.random.default_rng(SEED)
+    audio = torch.from_numpy(rng.normal(size=(
+        WHISPER_BATCH, cfg.encoder_ctx, cfg.d_model)).astype(np.float32)
+        * 0.1).cuda()
+    prompt = rng.integers(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT)
+                          ).astype(np.int32)
+    engine = ServingEngine(arch, params,
+                           cache_len=WHISPER_PROMPT + WHISPER_NEW)
+    with torch.no_grad():
+        encdec.encode(params, cfg, audio[:1, :64])
+    checked, check_s = [], [0.0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.FLASH_CHECK_HOOK = clocked(torch, flash_hook_all(torch, checked),
+                                   check_s)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = encdec.encode(params, cfg, audio)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0 - check_s[0]
+    ops.FLASH_CHECK_HOOK = None
+    t0 = time.perf_counter()
+    res = engine.generate(prompt, WHISPER_NEW, audio_emb=enc)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches == only(launches, flash_attention=cfg.encoder_layers),
+            f"whisper launches {launches}: {cfg.encoder_layers} flash "
+            f"launches in the encoder")
+    require(len(checked) == cfg.encoder_layers,
+            "the encoder's flash launches held to ref.sdpa")
+    require(res.tokens.shape == (WHISPER_BATCH, WHISPER_NEW)
+            and bool(((res.tokens >= 0)
+                      & (res.tokens < cfg.vocab_size)).all()),
+            f"{WHISPER_BATCH} x {WHISPER_NEW} tokens within the vocabulary")
+
+    # the same weights in f32: teacher-forced decode == forward at the
+    # reference's tolerance, the encoder through the f32 flash kernel
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p32 = T.tree_map(lambda x: x.float(), params)
+    toks = torch.from_numpy(prompt[:1]).cuda()
+    with torch.no_grad():
+        full, _ = encdec.forward(p32, cfg32, toks, audio[:1])
+        cache = encdec.init_cache(cfg32, 1, WHISPER_PROMPT,
+                                  enc=encdec.encode(p32, cfg32, audio[:1]),
+                                  params=p32)
+        worst = 0.0
+        for t in range(WHISPER_PROMPT):
+            step, cache = encdec.decode_step(p32, cfg32, toks[:, t:t + 1],
+                                             cache, t)
+            diff = (step[:, 0] - full[:, t]).abs()
+            bound = WHISPER_STEP_ATOL + WHISPER_STEP_RTOL * full[:, t].abs()
+            require(bool((diff <= bound).all()),
+                    f"whisper f32 decode step {t} == forward within "
+                    f"{WHISPER_STEP_ATOL} + {WHISPER_STEP_RTOL}|ref|")
+            worst = max(worst, float(diff.max()))
+    n_steps = WHISPER_PROMPT + WHISPER_NEW
+    qkv = torch.randn(3, WHISPER_BATCH, cfg.encoder_ctx, cfg.n_heads,
+                      cfg.resolved_head_dim, device="cuda",
+                      dtype=torch.bfloat16)
+    flash_ms = time_ms(torch, lambda: ops.flash_attention(
+        *qkv, causal=False), reps=20)
+    del qkv
+    print(f"[whisper] {cfg.name}: {cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, {n_params:,} params, audio_emb ({WHISPER_BATCH}, "
+          f"{cfg.encoder_ctx}, {cfg.d_model}); launches {launches}; the "
+          f"encoder's {len(checked)} non-causal flash launches at "
+          f"({WHISPER_BATCH}, {cfg.encoder_ctx}, {cfg.n_heads}, "
+          f"{cfg.resolved_head_dim}) within {FLASH_TOL['torch.bfloat16']} "
+          f"of ref.sdpa (max |err| {max(checked):.3g}), {flash_ms:.4f} ms "
+          f"a launch")
+    print(f"[whisper] encode {enc_s:.4f} s (net of its check), "
+          f"{WHISPER_PROMPT}-token prompts fed and {WHISPER_NEW} tokens "
+          f"generated in {gen_s:.4f} s ({n_steps} decode steps, "
+          f"{gen_s / n_steps * 1e3:.2f} ms a step); f32 decode == forward "
+          f"over {WHISPER_PROMPT} steps (max |diff| {worst:.3g}); peak "
+          f"memory {peak_gb:.2f} GB")
+    del params, p32, engine, enc, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_training(torch) -> dict:
+    """Phase 6e: qwen3-moe-30b-a3b at full width, 1 layer, through
+    ``repro_torch.launch.train`` (``--arch qwen3-moe-30b-a3b`` cut to 1
+    layer): 2 pods, global batch 8, seq 512, sgd, ``asgd_ga`` interval 2,
+    the int8 codec at top-k 0.05 with error feedback, ``--bucket-policy
+    layer-class --bucket-patterns moe-router`` (the routers in their own
+    bucket group), 8 steps; every codec round held as phase 3d's are."""
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    from repro_torch.core import sync as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.training.trainer import Trainer
+
+    cfg = qwen3_moe_30b_a3b.CONFIG.replace(n_layers=1)
+    round_check, per_tier, checked, mark = bucketed_round_check(torch)
+    sizes, steps = {}, []
+
+    def check(state, payloads, shipped, sync):
+        layout = S.bucket_layout(sync, state.sync_state.ga_buffer)
+        sizes.update(zip(layout.names, layout.sizes))
+        round_check(state, payloads, shipped, sync)
+
+    train_step = Trainer.train_step
+
+    def timed_step(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(self, state, batch)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    argv = ["--arch", "qwen3-moe-30b-a3b", "--pods", str(PODS), "--steps",
+            str(MOE_TRAIN_STEPS), "--batch", "8", "--seq", "512", "--sync",
+            "asgd_ga", "--interval", "2", "--optimizer", "sgd",
+            "--compress-topk", "0.05", "--int8", "--error-feedback",
+            "--bucket-policy", "layer-class", "--bucket-patterns",
+            "moe-router", "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    mark.update(ops.LAUNCHES)
+    buf = io.StringIO()
+    Trainer.train_step = timed_step
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary = train.main(argv, model_cfg=cfg, round_hook=check)
+    finally:
+        Trainer.train_step = train_step
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    text = buf.getvalue()
+    lines = text.splitlines()
+    print("\n".join(line for line in lines if line.startswith("[train]")))
+    losses = [float(line.split("loss ")[1].split()[0]) for line in lines
+              if line.startswith("step ")]
+    rounds = summary["rounds"]
+    require(len(losses) == MOE_TRAIN_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"finite losses {losses}")
+    # bf16 parameters: MB per pod of each bucket group
+    mb = {n: round(v * 2 / 1e6, 3) for n, v in sizes.items()}
+    require(sizes.get("moe", 0) > 0 and sizes.get("router", 0) > 0,
+            f"moe and router buckets hold parameters: {sizes}")
+    require(len(checked) == len(rounds) == MOE_TRAIN_STEPS // 2,
+            f"{len(checked)} of {len(rounds)} codec rounds checked")
+    total = {k: sum(t[k] for t in per_tier.values())
+             for k in ("wan_encode", "wan_decode")}
+    require(launches == only(launches, **total),
+            f"MoE training launches {launches} == per-round sums {total}")
+    print(f"[moe-train] {cfg.name} x1 layer, {PODS} pods, batch 8, seq "
+          f"512, asgd_ga@2, int8 top-k 0.05 + EF, buckets {mb} MB: losses "
+          f"{[round(v, 4) for v in losses]}; launches {launches}")
+    print(f"[moe-train] step s {[round(t, 4) for t in steps]}, round s "
+          f"{[round(r[2], 4) for r in rounds]}, per-round worst-pod EF "
+          f"ratios by bucket {checked}; peak memory {peak_gb:.2f} GB")
+    return {k: launches[k] for k in ("wan_encode", "wan_decode")}
+
+
 def main() -> int:
     import torch
 
@@ -1807,13 +2519,22 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_mamba_entry_point(torch)
+    family_launches = [phase_qwen3_moe(torch), phase_kimi_k2(torch),
+                       phase_jamba(torch), phase_whisper(torch)]
+    torch.cuda.empty_cache()
+    moe_train_launches = phase_moe_training(torch)
+    torch.cuda.empty_cache()
     for name in ("wan_encode", "wan_decode"):
         kernels[name]["launches"] = (train_launches[name]
-                                     + control_launches[name])
+                                     + control_launches[name]
+                                     + moe_train_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]
-        + gemma_launches["flash_attention"])
-    kernels["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
+        + gemma_launches["flash_attention"]
+        + sum(f["flash_attention"] for f in family_launches))
+    kernels["ssd_scan"]["launches"] = (
+        mamba_launches["ssd_scan"]
+        + sum(f["ssd_scan"] for f in family_launches))
     kernels["topk_compress"]["launches"] = topk_launches
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": device}))

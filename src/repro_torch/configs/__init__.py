@@ -2,10 +2,12 @@
 
 Ported: the dense decoders ``granite-8b``, ``gemma3-12b`` (5:1 local:global
 windows, head_dim 256), ``minitron-8b`` and ``gemma2-27b`` (alternating
-windows, attention and final-logit soft-caps), and the SSM
-``mamba2-1.3b``.  The reference's other architectures need the MoE,
-hybrid and encoder-decoder model families (ROADMAP.md Queue 1 item 13) or
-multimodal positions (item 9b).
+windows, attention and final-logit soft-caps), the SSM ``mamba2-1.3b``, the
+MoE decoders ``qwen3-moe-30b-a3b`` and ``kimi-k2-1t-a32b``, the hybrid
+``jamba-1.5-large-398b`` (Mamba and attention positions, MoE on every other
+one) and the encoder-decoder ``whisper-tiny`` (module ``encdec``).  The
+reference's ``qwen2-vl-2b`` needs multimodal positions (ROADMAP.md Queue 1
+item 9b).
 """
 from __future__ import annotations
 
@@ -15,8 +17,12 @@ from dataclasses import dataclass
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "qwen3-moe-30b-a3b": ("qwen3_moe_30b_a3b", "transformer"),
+    "jamba-1.5-large-398b": ("jamba_1_5_large_398b", "transformer"),
     "mamba2-1.3b": ("mamba2_1_3b", "transformer"),
+    "whisper-tiny": ("whisper_tiny", "encdec"),
     "granite-8b": ("granite_8b", "transformer"),
+    "kimi-k2-1t-a32b": ("kimi_k2_1t_a32b", "transformer"),
     "gemma3-12b": ("gemma3_12b", "transformer"),
     "minitron-8b": ("minitron_8b", "transformer"),
     "gemma2-27b": ("gemma2_27b", "transformer"),
@@ -39,7 +45,7 @@ class Arch:
     name: str
     config: ModelConfig
     smoke: ModelConfig
-    module: str  # "transformer"
+    module: str  # "transformer" | "encdec"
 
 
 def get_arch(name: str) -> Arch:
@@ -49,7 +55,8 @@ def get_arch(name: str) -> Arch:
     if name not in _MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {sorted(_MODULES)}); "
-            f"see ROADMAP.md Queue 1 item 13")
+            f"see ROADMAP.md Queue 1 item 9b (M-RoPE, sdpa_chunked and the "
+            f"vision placeholders)")
     modname, kind = _MODULES[name]
     mod = importlib.import_module(f"repro_torch.configs.{modname}")
     return Arch(name=name, config=mod.CONFIG, smoke=mod.smoke_config(),

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.core.sync import SyncState
+from repro_torch.models import encdec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
 from repro_torch.models.ssm import SSMCache
@@ -34,12 +35,14 @@ def to_tensor(a: Any, device="cuda") -> torch.Tensor:
 
 def params_from_jax(np_tree: Any, cfg: ModelConfig, device="cuda") -> Any:
     """The JAX parameter tree (leaves as numpy) -> the port's parameters,
-    checked against ``cfg``'s parameter count."""
+    checked against ``cfg``'s parameter count (the decoder-only tree's,
+    with its MoE leaves, or the encoder-decoder tree's)."""
     out = T.tree_map(lambda a: to_tensor(a, device), np_tree)
     n = sum(x.numel() for x in T.leaves(out))
-    if n != cfg.param_count():
+    want = encdec.param_count(cfg) if cfg.is_encdec else cfg.param_count()
+    if n != want:
         raise ValueError(f"tree holds {n} parameters, {cfg.name} has "
-                         f"{cfg.param_count()}")
+                         f"{want}")
     return out
 
 
@@ -67,10 +70,17 @@ def sync_state_from_jax(np_state: Any, device="cuda") -> SyncState:
         np_state, f)) for f in SyncState._fields))
 
 
-def cache_from_jax(np_cache: Any, device="cuda") -> dict:
+def cache_from_jax(np_cache: Any, device="cuda") -> Any:
     """A reference decode cache (``{"pos<i>": KVCache(k, v)}`` or
-    ``SSMCache(state, conv)`` per position, leaves as numpy with their
-    leading group axis) -> the port's."""
+    ``SSMCache(state, conv)`` per position, or an ``EncDecCache(self_kv,
+    cross_k, cross_v)``, leaves as numpy with their leading group axis) ->
+    the port's."""
+    if getattr(np_cache, "_fields", None) == encdec.EncDecCache._fields:
+        return encdec.EncDecCache(
+            self_kv=KVCache(*(to_tensor(a, device)
+                              for a in np_cache.self_kv)),
+            cross_k=to_tensor(np_cache.cross_k, device),
+            cross_v=to_tensor(np_cache.cross_v, device))
     kinds = {KVCache._fields: KVCache, SSMCache._fields: SSMCache}
     out = {}
     for key, c in np_cache.items():

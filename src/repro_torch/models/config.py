@@ -6,8 +6,7 @@ multiple of the pattern period; the decoder stack is executed as a
 loop over ``n_layers // period`` *groups*, each group applying the
 pattern positions in order with its own parameters (stacked on a leading
 group axis, as in the reference, so parameter trees convert leaf for leaf).
-The port runs the dense family with ``attention_impl="xla"`` (the plain
-attention); the other families are ROADMAP Queue 1 item 13.
+The port runs every family but the vision one (ROADMAP Queue 1 item 9b).
 
 The pattern mechanism expresses every assigned architecture:
 

@@ -1,6 +1,7 @@
-"""Dense decoder layers as plain functions over nested dicts of tensors.
+"""Decoder layers as plain functions over nested dicts of tensors.
 
-Counterpart of the dense subset of ``repro/models/layers.py``: activations
+Counterpart of ``repro/models/layers.py`` less M-RoPE and ``sdpa_chunked``
+(ROADMAP.md Queue 1 item 9b): activations
 are ``(B, S, D)``, attention ``(B, S, H, Dh)``; parameters are created in
 ``cfg.param_dtype`` and compute runs in ``cfg.compute_dtype`` with f32
 softmax and normalization.  The projections, the MLP and the unembed stay
@@ -8,7 +9,8 @@ softmax and normalization.  The projections, the MLP and the unembed stay
 attention is the plain ``sdpa_reference`` under ``attention_impl="xla"``
 (the reference's default) and the CUDA flash kernel under ``"pallas"``;
 decode attends over a :class:`KVCache` with ``sdpa_reference``, as the
-reference does.
+reference does.  Cross-attention (``kv_override``, the encoder-decoder's)
+attends over given K/V with no mask.
 """
 from __future__ import annotations
 
@@ -159,9 +161,11 @@ def _sdpa(cfg: ModelConfig, q, k, v, bias, *, causal: bool,
 def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
                     x: torch.Tensor, positions: torch.Tensor, *,
                     causal: bool = True, cache: Optional[KVCache] = None,
-                    cache_pos: Union[int, torch.Tensor, None] = None
+                    cache_pos: Union[int, torch.Tensor, None] = None,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention, full-sequence or one decode token.
+    """Self- or cross-attention, full-sequence or one decode token.
 
     Modes:
       - train/prefill: ``cache is None``; returns ``(out, None)``.
@@ -171,12 +175,25 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
         (``spec.window == C``), else ``min(cache_pos, C - 1)``.  Each row
         then attends over its own valid slots.  The cache is updated **in
         place** (the reference returns a new one); returns ``(out, cache)``.
+      - cross-attention: ``kv_override`` gives precomputed ``(k, v)``
+        ``(B, Sk, K, Dh)``; the queries attend over all of them, with no
+        mask; returns ``(out, None)``.
     """
     B, S, D = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     cdt = cfg.dtype("compute")
     x = x.to(cdt)
     q = (x @ params["wq"].to(cdt)).reshape(B, S, H, Dh)
+
+    if kv_override is not None:
+        k, v = kv_override
+        q = position_embed(cfg, q, positions)
+        k_pos = torch.arange(k.shape[1], dtype=positions.dtype,
+                             device=x.device)[None].expand(B, k.shape[1])
+        bias = attn_bias(positions, k_pos, None, causal=False, window=None)
+        out = _sdpa(cfg, q, k, v, bias, causal=False, window=None)
+        return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), None
+
     k = (x @ params["wk"].to(cdt)).reshape(B, S, K, Dh)
     v = (x @ params["wv"].to(cdt)).reshape(B, S, K, Dh)
     q = position_embed(cfg, q, positions)

@@ -1,10 +1,10 @@
-"""Uniform model-function dispatch (the decoder-only module only)."""
+"""Uniform model-function dispatch over the two model modules."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclass(frozen=True)
@@ -12,9 +12,9 @@ class ModelFns:
     init_params: Callable
     loss_fn: Callable
     forward: Callable
-    prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    prefill: Optional[Callable] = None
 
 
 def get_model_fns(module: str) -> ModelFns:
@@ -25,6 +25,10 @@ def get_model_fns(module: str) -> ModelFns:
                         prefill=transformer.prefill,
                         decode_step=transformer.decode_step,
                         init_cache=transformer.init_cache)
-    raise NotImplementedError(
-        f"model module {module!r} is not ported yet: see ROADMAP.md "
-        f"Queue 1 item 13")
+    if module == "encdec":
+        return ModelFns(init_params=encdec.init_params,
+                        loss_fn=encdec.loss_fn,
+                        forward=encdec.forward,
+                        decode_step=encdec.decode_step,
+                        init_cache=encdec.init_cache)
+    raise KeyError(module)

@@ -166,7 +166,9 @@ def ssm_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     ``use_kernel`` sends the SSD through ``ops.ssd_scan`` (the CUDA kernel
     for a CUDA tensor, ``ref.ssd`` on the CPU) instead of ``ssd_chunked``.
     With one B/C group (mamba2), B and C reach the SSD as a stride-0 view
-    over heads, not as the reference's repeated copy."""
+    over heads, not as the reference's repeated copy; with G groups
+    (jamba's 8) they are expanded to heads by a copy, as in the
+    reference (``2 * B * S * H * N`` values)."""
     c = cfg.ssm
     B_, S, D = x.shape
     d_in, H, P, N, G = cfg.d_inner, cfg.ssm_heads, c.head_dim, \

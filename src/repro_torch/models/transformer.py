@@ -1,16 +1,21 @@
-"""Decoder-only stack of attention and SSM positions, a loop over layer
-groups.
+"""Decoder-only stack of attention, SSM and MoE positions, a loop over
+layer groups.
 
-Counterpart of the dense and SSM paths of ``repro/models/transformer.py``:
-the same parameter tree (repeated-block leaves stacked over ``cfg.n_groups``
-on a leading axis), the same forward and next-token loss, and the same
-decode path: ``init_cache`` (per pattern position, a
+Counterpart of ``repro/models/transformer.py``: the same parameter tree
+(repeated-block leaves stacked over ``cfg.n_groups`` on a leading axis), the
+same forward (with the MoE auxiliaries summed over positions and groups) and
+next-token loss (plus ``moe_loss``), and the same decode path:
+``init_cache`` (per pattern position, a
 :class:`~repro_torch.models.layers.KVCache` or an
-:class:`~repro_torch.models.ssm.SSMCache`, stacked over groups), ``prefill``
-and ``decode_step``.  Windowed and soft-capped attention positions run as in
-the reference; SSM positions (the mamba2 family) run
-:func:`~repro_torch.models.ssm.ssm_apply`.  MoE, hybrid, audio and vision
-models are ROADMAP Queue 1 item 13 and raise ``NotImplementedError``.
+:class:`~repro_torch.models.ssm.SSMCache`, stacked over groups; a hybrid
+pattern mixes both), ``prefill`` and ``decode_step``.  Windowed and
+soft-capped attention positions run as in the reference; SSM positions (the
+mamba2 family, jamba's Mamba layers) run
+:func:`~repro_torch.models.ssm.ssm_apply`; MoE positions (qwen3-moe,
+kimi-k2, jamba) run :func:`~repro_torch.models.moe.moe_apply`.  Vision
+placeholders (qwen2-vl) are ROADMAP Queue 1 item 9b, and the
+encoder-decoder family lives in ``encdec.py``; both raise
+``NotImplementedError`` here.
 
 One difference in dispatch, not in function: the reference's ``prefill``
 runs its SSM positions through ``ssd_chunked``; the port's ``prefill`` runs
@@ -28,6 +33,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as SS
 from repro_torch.models.config import ATTN, LayerSpec, ModelConfig
 
@@ -35,13 +41,14 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "ssm") or cfg.has_moe \
-            or (cfg.has_ssm and cfg.has_attention) \
-            or cfg.vision_patches or cfg.is_encdec:
+    if cfg.vision_patches:
         raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; "
-            f"the port runs the dense and SSM families (see ROADMAP.md "
-            f"Queue 1 item 13 for MoE, hybrid and encoder-decoder models)")
+            f"{cfg.name}: vision placeholders and M-RoPE are not ported "
+            f"yet (see ROADMAP.md Queue 1 item 9b)")
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder model runs through "
+            f"repro_torch.models.encdec, not the decoder-only stack")
 
 
 def _init_position(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
@@ -54,20 +61,40 @@ def _init_position(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["ssm"] = SS.ssm_init(gen, cfg, device)
     if spec.mlp:
         p["ln2"] = L.rmsnorm_init(cfg.d_model, pdt, device)
-        p["mlp"] = L.mlp_init(gen, cfg, device)
+        if spec.moe:
+            p["moe"] = M.moe_init(gen, cfg, device)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg, device)
     return p
+
+
+def stack_groups(n: int, make_group) -> Params:
+    """``n`` groups from ``make_group()``, stacked on a leading axis.  Each
+    stacked leaf is allocated once and filled group by group, so the peak
+    is the stack plus one group; a single group is stacked as a view."""
+    blocks = None
+    for g in range(n):
+        group = make_group()
+        if n == 1:
+            return T.tree_map(lambda x: x[None], group)
+        if blocks is None:
+            blocks = T.tree_map(lambda x: x.new_empty((n, *x.shape)), group)
+        T.tree_map(lambda dst, src: dst[g].copy_(src), blocks, group)
+        del group
+    return blocks
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device="cuda") -> Params:
     """Random parameters from ``gen`` (not the reference's numbers: torch's
     generator cannot reproduce JAX's; ``repro_torch.convert`` carries the
-    reference's parameters over when the two must agree)."""
+    reference's parameters over when the two must agree).  The blocks are
+    built by :func:`stack_groups`: their peak is one stacked copy plus one
+    group."""
     check_supported(cfg)
-    groups = [{f"pos{i}": _init_position(gen, cfg, spec, device)
-               for i, spec in enumerate(cfg.pattern)}
-              for _ in range(cfg.n_groups)]
-    blocks = T.tree_map(lambda *xs: torch.stack(xs), groups[0], *groups[1:])
+    blocks = stack_groups(cfg.n_groups, lambda: {
+        f"pos{i}": _init_position(gen, cfg, spec, device)
+        for i, spec in enumerate(cfg.pattern)})
     return {
         "embed": L.embed_init(gen, cfg, device),
         "blocks": blocks,
@@ -76,13 +103,34 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _zero_aux(device) -> dict:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": zero, "z_loss": zero, "router_entropy": zero}
+
+
+def _ffn(p: Params, cfg: ModelConfig, spec: LayerSpec, h: torch.Tensor,
+         moe_per_row: bool = False) -> Tuple[torch.Tensor, dict]:
+    """The position's optional FFN (dense MLP or MoE), pre-norm residual;
+    returns (h, aux), aux zeros where no MoE ran."""
+    aux = _zero_aux(h.device)
+    if spec.mlp:
+        hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
+        if spec.moe:
+            out, aux = M.moe_apply(p["moe"], cfg, hn, per_row=moe_per_row)
+        else:
+            out = L.mlp_apply(p["mlp"], hn)
+        h = h + out
+    return h, aux
+
+
 def _apply_position(p: Params, cfg: ModelConfig, spec: LayerSpec,
                     h: torch.Tensor, positions: torch.Tensor,
                     cache=None, cache_pos=None,
-                    use_ssm_kernel: bool = False) -> torch.Tensor:
-    """One pattern position: (attention | SSM) + optional MLP, pre-norm
-    residual (a decode step when ``cache`` is given; it is updated in
-    place).  SSM positions ignore positions."""
+                    use_ssm_kernel: bool = False,
+                    moe_per_row: bool = False) -> Tuple[torch.Tensor, dict]:
+    """One pattern position: (attention | SSM) + optional (MLP | MoE),
+    pre-norm residual (a decode step when ``cache`` is given; it is updated
+    in place).  SSM positions ignore positions.  Returns (h, aux)."""
     hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
     if spec.kind == ATTN:
         out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions,
@@ -93,11 +141,11 @@ def _apply_position(p: Params, cfg: ModelConfig, spec: LayerSpec,
         if cache is not None:
             cache.state.copy_(new.state)
             cache.conv.copy_(new.conv)
-    h = h + out
-    if spec.mlp:
-        hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-        h = h + L.mlp_apply(p["mlp"], hn)
-    return h
+    return _ffn(p, cfg, spec, h + out, moe_per_row)
+
+
+def _add_aux(total: Optional[dict], aux: dict) -> dict:
+    return aux if total is None else {k: total[k] + aux[k] for k in total}
 
 
 def _arange_positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -120,15 +168,21 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             "attention_impl 'pallas' builds its masks from positions "
             "0..S-1 and takes no explicit positions")
     h = L.embed_apply(params["embed"], cfg, tokens)
+    per_group = []
     for g in range(cfg.n_groups):
+        group_aux = None
         for i, spec in enumerate(cfg.pattern):
             gp = _select_group(params["blocks"][f"pos{i}"], g)
-            h = _apply_position(gp, cfg, spec, h, positions,
-                                use_ssm_kernel=use_ssm_kernel)
+            h, aux = _apply_position(gp, cfg, spec, h, positions,
+                                     use_ssm_kernel=use_ssm_kernel)
+            group_aux = _add_aux(group_aux, aux)
+        per_group.append(group_aux)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = L.unembed_apply(params["embed"], cfg, h)
-    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return logits, {"lb_loss": zero, "z_loss": zero, "router_entropy": zero}
+    # the reference sums each group's positions in order, then the groups
+    aux = {k: torch.sum(torch.stack([a[k] for a in per_group]), dim=0)
+           for k in per_group[0]}
+    return logits, aux
 
 
 def _select_group(tree: Any, g: int) -> Any:
@@ -152,12 +206,14 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
             use_ssm_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
-    """Next-token LM loss. batch: {tokens, labels[, mask, positions]}."""
+    """Next-token LM loss plus the MoE auxiliaries. batch: {tokens,
+    labels[, mask, positions]}."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           positions=batch.get("positions"),
                           use_ssm_kernel=use_ssm_kernel)
     ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
-    return ce, {"loss": ce, "ce": ce, **aux}
+    total = ce + M.moe_loss(aux, cfg) if cfg.has_moe else ce
+    return total, {"loss": total, "ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -188,12 +244,16 @@ def _group_cache(cache: Params, g: int) -> Params:
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Params, cache_pos: Union[int, torch.Tensor]
-                ) -> Tuple[torch.Tensor, Params]:
+                cache: Params, cache_pos: Union[int, torch.Tensor], *,
+                moe_per_row: bool = False) -> Tuple[torch.Tensor, Params]:
     """One-token decode: ``token`` ``(B, 1)``, ``cache_pos`` a scalar or a
     ``(B,)`` tensor of tokens already cached per row (the reference's
-    per-slot ``vmap`` written out as a batch dimension).  Returns (logits
-    ``(B, 1, V)`` f32, cache); the cache is updated in place."""
+    per-slot ``vmap`` written out as a batch dimension).  ``moe_per_row``
+    routes each row's token through the MoE positions alone, with the
+    capacity of one token, as the reference's per-slot ``vmap`` does;
+    without it the B tokens are routed together, as in the reference's
+    batched ``decode_step``.  Returns (logits ``(B, 1, V)`` f32, cache);
+    the cache is updated in place."""
     check_supported(cfg)
     B = token.shape[0]
     pos = torch.as_tensor(cache_pos, device=token.device).to(torch.int32)
@@ -203,8 +263,9 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
         caches = _group_cache(cache, g)
         for i, spec in enumerate(cfg.pattern):
             gp = _select_group(params["blocks"][f"pos{i}"], g)
-            h = _apply_position(gp, cfg, spec, h, positions,
-                                cache=caches[f"pos{i}"], cache_pos=pos)
+            h, _ = _apply_position(gp, cfg, spec, h, positions,
+                                   cache=caches[f"pos{i}"], cache_pos=pos,
+                                   moe_per_row=moe_per_row)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return L.unembed_apply(params["embed"], cfg, h), cache
 
@@ -231,8 +292,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             p = _select_group(params["blocks"][f"pos{i}"], g)
             c = caches[f"pos{i}"]
             if spec.kind != ATTN:
-                h = _apply_position(p, cfg, spec, h, positions, cache=c,
-                                    use_ssm_kernel=True)
+                h, _ = _apply_position(p, cfg, spec, h, positions, cache=c,
+                                       use_ssm_kernel=True)
                 continue
             hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
             out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions)
@@ -247,9 +308,6 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 shift = Sq % C
                 c.k.copy_(torch.roll(k[:, -C:], shift, dims=1))
                 c.v.copy_(torch.roll(v[:, -C:], shift, dims=1))
-            h = h + out
-            if spec.mlp:
-                hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-                h = h + L.mlp_apply(p["mlp"], hn)
+            h, _ = _ffn(p, cfg, spec, h + out)
     h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return L.unembed_apply(params["embed"], cfg, h)[:, 0], cache

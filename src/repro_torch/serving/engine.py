@@ -14,9 +14,11 @@ Counterpart of ``repro/serving/engine.py``, three layers, bottom to top:
   with the ``(n_slots,)`` position vector advances every slot at its own
   position (the reference ``vmap``s a single-sequence step over slots;
   here the batch dimension is written out; SSM positions need no
-  position).  Each row reads only its own cache row and position, so a
-  slot's tokens are bit-identical whether or not another slot was inserted
-  or evicted mid-flight.
+  position; an MoE position routes each slot's token alone, with the
+  capacity of one token, as the reference's per-slot ``vmap`` does).  Each
+  row reads only its own cache row and position, so a slot's tokens are
+  bit-identical whether or not another slot was inserted or evicted
+  mid-flight.
 - :class:`ContinuousScheduler` / :class:`BatchScheduler`: request-level
   scheduling, host-side logic copied from the reference: at most one
   prefill-insert between decode steps, or run-to-completion groups.
@@ -54,14 +56,17 @@ class GenerationResult:
 
 
 class ServingEngine:
-    """Prefill + decode of one batch of equal-length prompts."""
+    """Prefill + decode of one batch of equal-length prompts.
+
+    An encoder-decoder model (``arch.module == "encdec"``) takes the
+    reference's ``audio_emb`` extra: as in the reference, it goes into
+    ``encdec.init_cache`` as the encoder output (whose cross K/V each
+    decoder block projects once), and the prompt is fed token by token
+    through ``decode_step`` (teacher forcing); the model has no one-shot
+    prefill."""
 
     def __init__(self, arch: Arch, params: Tree, *, cache_len: int = 1024,
                  use_smoke: bool = False):
-        if arch.module == "encdec":
-            raise NotImplementedError(
-                "encoder-decoder serving is not ported yet: see ROADMAP.md "
-                "Queue 1 item 13")
         self.arch = arch
         self.cfg = arch.smoke if use_smoke else arch.config
         self.fns = get_model_fns(arch.module)
@@ -70,22 +75,36 @@ class ServingEngine:
         self.device = _device_of(params)
 
     @torch.no_grad()
-    def prefill(self, tokens) -> Tuple[torch.Tensor, Tree]:
+    def prefill(self, tokens, **extras) -> Tuple[torch.Tensor, Tree]:
         """tokens: (B, S) prompt. Returns (last-token logits, cache)."""
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
                                  device=self.device)
+        if self.arch.module == "encdec":
+            from repro_torch.models import encdec
+
+            enc = torch.as_tensor(extras["audio_emb"], device=self.device
+                                  ).to(self.cfg.dtype("compute"))
+            cache = encdec.init_cache(self.cfg, tokens.shape[0],
+                                      self.cache_len, enc=enc,
+                                      params=self.params)
+            logits = None
+            for i in range(tokens.shape[1]):   # teacher-forced prompt feed
+                logits, cache = self.fns.decode_step(
+                    self.params, self.cfg, tokens[:, i:i + 1], cache, i)
+            return logits[:, 0], cache
         return self.fns.prefill(self.params, self.cfg, tokens,
                                 self.cache_len)
 
     @torch.no_grad()
     def generate(self, prompt, n_new: int, *, temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None, **extras
                  ) -> GenerationResult:
         """Greedy (``temperature <= 0``) or sampled generation; sampling
         draws from ``generator`` (a ``torch.Generator`` on the engine's
-        device; the reference takes a JAX key)."""
+        device; the reference takes a JAX key).  ``extras`` go to
+        :meth:`prefill` (``audio_emb`` for an encoder-decoder model)."""
         B, S = np.shape(prompt)
-        logits, cache = self.prefill(prompt)
+        logits, cache = self.prefill(prompt, **extras)
         pos = S
         out = []
         tok = self._sample(logits, temperature, generator)
@@ -168,6 +187,10 @@ class ContinuousEngine:
                  use_smoke: bool = False, eos_id: Optional[int] = None,
                  cfg=None, module: Optional[str] = None):
         module = module if module is not None else arch.module
+        if get_model_fns(module).prefill is None:
+            raise ValueError(
+                f"module {module!r} has no one-shot prefill; the slot "
+                f"pool needs prefill -> insert (serve it with ServingEngine)")
         self.arch = arch
         self.module = module
         self.cfg = cfg if cfg is not None else (
@@ -260,7 +283,7 @@ class ContinuousEngine:
         t0 = time.perf_counter()
         logits, self._pool = self.fns.decode_step(
             self.params, self.cfg, self._to_device(self._tok), self._pool,
-            self._to_device(self._pos))
+            self._to_device(self._pos), moe_per_row=True)
         nxt = torch.argmax(logits[:, 0, : self.cfg.vocab_size], dim=-1)
         nxt = nxt.to(torch.int32).cpu().numpy()
         self.step_seconds.append(time.perf_counter() - t0)

@@ -93,6 +93,22 @@ def test_flash_noncausal_matches_plain(cuda, dtype):
     _flash_case(cuda, 2, 77, 2, 2, 32, dtype, causal=False)
 
 
+# the MoE, hybrid and encoder-decoder families' prefill shapes: GQA groups
+# of 8 (qwen3-moe 32/4; kimi-k2 and jamba 64/8, head_dim 128), whisper's
+# non-causal encoder over 1500 frames (6 heads of 64) and its decoder's
+# cross-attention over them
+@pytest.mark.parametrize("S,H,K", [(2048, 32, 4), (2048, 64, 8),
+                                   (1024, 64, 8)])
+def test_flash_gqa8_prefill_shapes(cuda, S, H, K):
+    _flash_case(cuda, 1, S, H, K, 128, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq", [(1, 1500), (4, 1500), (4, 32)])
+def test_flash_whisper_noncausal(cuda, B, Sq, dtype):
+    _flash_case(cuda, B, Sq, 6, 6, 64, dtype, causal=False, Sk=1500)
+
+
 # the tensor-core (bf16) kernel: every head dim, one tile and less, Sq != Sk
 # both ways, MQA, non-causal, and windows that start inside a k-tile
 @pytest.mark.parametrize("Dh", [32, 64, 128, 256])
@@ -208,6 +224,30 @@ def test_ssd_at_the_serving_prefill_shape(cuda):
     # x and a f32, B and C bf16 as one group's stride-0 view over heads
     _ssd_case(cuda, 1, 2048, 64, 64, 128, 256, bc_dtype=torch.bfloat16,
               expand=True)
+
+
+@pytest.mark.parametrize("S", [2048, 1024])
+def test_ssd_at_jamba_shape_with_eight_bc_groups(cuda, S):
+    # jamba's Mamba layers: 256 heads of P 64, N 128, chunk 256, 8 B/C
+    # groups expanded to heads (32 heads a group) by a copy, as ssm_apply
+    # passes them; x and a f32, B and C bf16
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    H, P, N, G = 256, 64, 128, 8
+    x = torch.randn(1, S, H, P, generator=gen, device=cuda)
+    a = -torch.randn(1, S, H, generator=gen, device=cuda).abs() * 0.1
+    Bg, Cg = (torch.randn(1, S, G, N, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    Bm = Bg.repeat_interleave(H // G, dim=2)
+    Cm = Cg.repeat_interleave(H // G, dim=2)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, f = ops.ssd_scan(x, a, Bm, Cm, chunk=256)
+    y_ref, f_ref = ref.ssd(x, a, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    scale = float(y_ref.abs().max())
+    torch.testing.assert_close(y / scale, y_ref / scale, atol=SSD_Y_TOL,
+                               rtol=0)
+    torch.testing.assert_close(f, f_ref, atol=SSD_STATE_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])

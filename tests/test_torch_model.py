@@ -146,11 +146,28 @@ def test_layers_match():
     set(JARCH_IDS) - set(TARCH_IDS)))
 def test_unported_families_raise(name):
     # the reference builds it; the port names the ROADMAP item instead
+    # (qwen2-vl-2b: M-RoPE and the vision placeholders, item 9b)
     assert jget_arch(name).name == name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
         tget_arch(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttransformer.check_supported(TCFG.replace(arch_type="moe"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
+        ttransformer.check_supported(TCFG.replace(vision_patches=8))
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                                  "jamba-1.5-large-398b", "whisper-tiny"])
+def test_moe_hybrid_and_encdec_families_resolve(name):
+    j, t = jget_arch(name), tget_arch(name)
+    assert name in TARCH_IDS and t.name == j.name == name
+    assert t.module == j.module
+    assert t.config.param_count() == j.config.param_count()
+    assert t.smoke.param_count() == j.smoke.param_count()
+    assert t.config.arch_type == j.config.arch_type
+    if t.module == "transformer":
+        ttransformer.check_supported(t.config)
+    else:
+        with pytest.raises(NotImplementedError, match="encdec"):
+            ttransformer.check_supported(t.config)
 
 
 def test_arch_registry_matches_the_reference():

@@ -3,9 +3,12 @@
 
 Builds ``--arch`` at its published size (random weights from a seed, bf16):
 granite-8b (the default: 36 layers, ``attention_impl="pallas"``, so every
-prefill layer runs the flash kernel) or mamba2-1.3b (48 SSM layers, every
+prefill layer runs the flash kernel), mamba2-1.3b (48 SSM layers, every
 prefill layer runs the SSD kernel; ``--prompt-len`` must then be at most
-256 or a multiple of it).  One 4-slot ``ContinuousEngine`` is profiled,
+256 or a multiple of it), qwen3-moe-30b-a3b (48 MoE layers, flash in
+every prefill layer) or jamba-1.5-large-398b at one period with d_ff cut
+to 8192 (7 SSD and 1 flash launch a prefill; prompts as mamba2's).  One
+4-slot ``ContinuousEngine`` is profiled,
 with ``torch.profiler`` over CPU and CUDA activity:
 
 - one insert (the solo prefill of a ``--prompt-len`` prompt plus the cache
@@ -37,13 +40,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import granite_8b, mamba2_1_3b
+from repro_torch.configs import (granite_8b, jamba_1_5_large_398b,
+                                 mamba2_1_3b, qwen3_moe_30b_a3b)
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ContinuousEngine
 
 
 CONFIGS = {"granite-8b": granite_8b.CONFIG.replace(attention_impl="pallas"),
-           "mamba2-1.3b": mamba2_1_3b.CONFIG}
+           "mamba2-1.3b": mamba2_1_3b.CONFIG,
+           "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG.replace(
+               attention_impl="pallas"),
+           "jamba-1.5-large-398b": jamba_1_5_large_398b.CONFIG.replace(
+               n_layers=8, d_ff=8192, attention_impl="pallas")}
 # the port's own kernels, by the names of their CUDA functions: one call of
 # ops.ssd_scan is three launches, and their sum is the SSD's share
 PORT_KERNELS = {"flash_attention": ("flash_mma_kernel", "flash_f32_kernel"),
