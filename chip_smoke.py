@@ -50,6 +50,24 @@ Phases (any failure raises and the script exits non-zero):
    the 2 -> 1 -> 2 reconfig must happen.  Prints the decision stream, the
    applied reconfigs, launches by tier, round times by knobs (first round
    at new knobs apart), the reconfig barriers' times and peak memory.
+3e. The transport seam at full width: phase 3's model and batch under
+   ``--bucket-policy layer-class`` (embed, norm and dense buckets), 4 steps
+   through ``Trainer.fit`` three times: over the inline ring, a
+   ``SimTransport`` (fluctuation 0.25, seed 0, a measured probe) and a
+   ``MeshTransport`` (one card: unsharded, a roll between device waits).
+   Every sim and mesh round ships the inline ring's bytes, every round is
+   held as 3d's are, the three runs end in the same params, EF residual
+   and tier and pass through the same per-round norms (bit for bit, or at
+   ``TRANSPORT_ATOL`` / ``TRANSPORT_RTOL`` if two inline runs differ,
+   which the phase then prints), with equal launch counts; the mesh run
+   writes one record per bucket per round and one probe observation per
+   round.  Then the launcher in measured mode (3d's argv with
+   ``--transport sim:...`` and no ``--events``, 20 steps): it retunes after
+   the 250 Mbps collapse from billed transfers alone, and a fresh
+   ``SimTransport`` replays its records float for float.  Then the mesh
+   run with an emulated 10 Gbps hop (every record at least its hop time)
+   and ``MeshTransport.measure_overlap`` at ``N_MAIN`` values per pod in 8
+   chunks (both schedules decode to equal bytes).
 4. Entry point: ``repro_torch.launch.train.main`` on the tiny preset.
 2c. SSD scan: hold the kernel to its plain version (``ref.ssd``) within
    the reference's tolerance (``y / max|y|`` within 1e-5, the final state
@@ -227,6 +245,17 @@ CONTROL_TRACE = "2000@0,1900@1,250@3,2000@20"
 CONTROL_EVENTS = ("straggler:pod0x2.0@14,bandwidth:1800@19,"
                   "cloud_left:pod1@24,cloud_joined:pod1@28")
 CONTROL_EF_GUARD = 0.98
+# phase 3e, the transport seam: the sim transport's knobs (the launcher's
+# defaults but for the seed), the measured-mode launcher run's length, the
+# emulated WAN hop and the overlap measurement's chunks.  If two inline
+# runs of the training step differ, the three runs are held at
+# tests/test_torch_trainer.py's tolerances instead of bit for bit
+TRANSPORT_STEPS = 4
+TRANSPORT_SIM = "sim:fluct=0.25,latency=0.05,seed=0"
+TRANSPORT_LAUNCH_STEPS = 20
+HOP_MBPS = 10_000.0
+OVERLAP_CHUNKS = 8
+TRANSPORT_ATOL, TRANSPORT_RTOL = 1e-3, 1e-3
 # phase 5c: gemma3-12b's prefill, 2048 prompt tokens and 8 new ones
 GEMMA_NEW_TOKENS = 8
 GEMMA_CHECKED_LAYERS = (0, 5)       # a windowed layer and a global one
@@ -746,6 +775,334 @@ def phase_control_loop(torch, device: str = "cuda", cfg=None,
           f"{[[a, b, round(t, 4)] for a, b, t in summary['reconfigs_at']]}"
           f"; launches by tier {per_tier}; peak memory {peak_gb:.2f} GB")
     return {k: launches[k] for k in ("wan_encode", "wan_decode")}
+
+
+def same_as_ring(torch, check_round, shipped_checked: list):
+    """A ``round_hook`` that holds each bucket's shipped chunks bit-equal to
+    the inline ring's ship of the same payloads, then runs
+    ``check_round`` (3d's checks) on the round."""
+    from repro_torch.core import sync as S
+
+    def hook(state, payloads, shipped, sync):
+        for name, chunks in payloads.chunks.items():
+            ring = S._INLINE_RING.ship_bucket(name, chunks, sync.peer_shift)
+            require(len(ring) == len(shipped[name])
+                    and all(same(a, b) for a, b in zip(ring, shipped[name])),
+                    f"round {len(shipped_checked)} {name}: shipped == the "
+                    f"inline ring's bytes")
+        shipped_checked.append(sorted(payloads.chunks))
+        check_round(state, payloads, shipped, sync)
+
+    return hook
+
+
+def transport_run(torch, cfg, sync, batches, transport, device: str,
+                  steps: int) -> dict:
+    """Train ``steps`` steps through ``Trainer.fit`` over ``transport``
+    (``None``: the inline ring), every round held as 3d's are and, over a
+    transport, to the inline ring's bytes.  Returns the final state's
+    params, EF residual and tier, the per-round norms, the launches and the
+    trainer's times."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    check_round, _, checked, mark = bucketed_round_check(torch)
+    norms, shipped_checked = [], []
+
+    def hook(state, payloads, shipped, sync):
+        norms.append((state.sync_state.msg_norm.clone(),
+                      state.sync_state.resid_norm.clone()))
+        check_round(state, payloads, shipped, sync)
+
+    trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                      lambda g: transformer.init_params(g, cfg, device),
+                      TrainerConfig(n_pods=PODS, optimizer="sgd", lr=0.02,
+                                    sync=sync),
+                      device=device,
+                      round_hook=(hook if transport is None else
+                                  same_as_ring(torch, hook, shipped_checked)),
+                      transport=transport)
+    state = trainer.init_state(SEED)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    mark.update(ops.LAUNCHES)
+    state, hist = trainer.fit(state, batches, steps)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("wan_encode", "wan_decode")}
+    require(all(math.isfinite(v) for row in hist["loss_per_pod"]
+                for v in row), "finite losses")
+    require(len(checked) == steps // sync.interval,
+            f"{len(checked)} codec rounds checked")
+    require(transport is None or len(shipped_checked) == len(checked),
+            "every round's shipped bytes checked")
+    out = {"params": state.params, "ef": state.sync_state.ef_residual,
+           "tier": state.sync_state.tier, "norms": norms,
+           "launches": launches, "sync_s": list(trainer.sync_seconds),
+           "step_s": list(trainer.step_seconds),
+           "buckets": shipped_checked[0] if shipped_checked else None}
+    del state, trainer
+    return out
+
+
+def stream_diff(torch, a: dict, b: dict, exact: bool) -> list:
+    """What differs between two runs' final params, EF residual, tier and
+    per-round norms: bit for bit, or at ``TRANSPORT_ATOL`` /
+    ``TRANSPORT_RTOL``."""
+    from repro_torch import tree as T
+
+    def close(x, y):
+        if exact:
+            return x.dtype == y.dtype and torch.equal(x, y)
+        return torch.allclose(x.float(), y.float(), atol=TRANSPORT_ATOL,
+                              rtol=TRANSPORT_RTOL)
+
+    bad = []
+    for i, (x, y) in enumerate(zip(T.leaves(a["params"]),
+                                   T.leaves(b["params"]))):
+        if not close(x, y):
+            bad.append(f"param leaf {i}")
+    if not close(a["ef"], b["ef"]):
+        bad.append("ef_residual")
+    if not torch.equal(a["tier"], b["tier"]):
+        bad.append("tier")
+    if len(a["norms"]) != len(b["norms"]):
+        bad.append("number of rounds")
+    for r, ((ma, ra), (mb, rb)) in enumerate(zip(a["norms"], b["norms"])):
+        if not (close(ma, mb) and close(ra, rb)):
+            bad.append(f"round {r} norms")
+    return bad
+
+
+def phase_transport(torch, device: str = "cuda", cfg=None, seq: int = 512,
+                    n_elems: int = N_MAIN) -> dict:
+    """Phase 3e: the transport seam (``SimTransport``, ``MeshTransport``,
+    the launcher's ``--transport``) at granite-8b width.  Returns the codec
+    launches of its runs."""
+    from repro_torch.configs import granite_8b
+    from repro_torch.core import sync as S
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
+                                            SimTransport)
+    from repro_torch.core.wan import WANConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=TOPK, quantize_int8=True,
+                        error_feedback=True, bucket_policy="layer-class")
+
+    def peak_gb() -> float:
+        return (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else float("nan"))
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
+                                  data_size=1.0) for i in range(PODS))
+    plan = build_training_plan(TrainingRequest(
+        model=cfg.name, clouds=clouds, sync=sync, n_iters=TRANSPORT_STEPS,
+        global_batch=8))
+    batches = train.make_batches(plan, cfg.vocab_size, seq, device)
+    trace = train.parse_wan_trace(CONTROL_TRACE, TRANSPORT_STEPS, 0.5)
+    total = {"wan_encode": 0, "wan_decode": 0}
+
+    def tally(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # 1. three-way parity: inline, sim, mesh
+    inline = transport_run(torch, cfg, sync, batches, None, device,
+                           TRANSPORT_STEPS)
+    tally(inline["launches"])
+    sim = SimTransport(trace, WANConfig(fluctuation=0.25, seed=0),
+                       probe=MeasuredWanProbe())
+    mesh = MeshTransport(probe=MeasuredWanProbe())
+    runs, diffs, loose = {}, {}, {}
+    for name, tr in (("sim", sim), ("mesh", mesh)):
+        run = transport_run(torch, cfg, sync, batches, tr, device,
+                            TRANSPORT_STEPS)
+        tally(run["launches"])
+        # compare now and keep only the verdicts: each run's final state
+        # is ~10 GB of the card's memory
+        diffs[name] = stream_diff(torch, inline, run, True)
+        loose[name] = stream_diff(torch, inline, run, False)
+        runs[name] = {k: run[k] for k in ("launches", "sync_s", "step_s",
+                                          "buckets")}
+        del run
+    buckets = runs["mesh"]["buckets"]
+    n_rounds = TRANSPORT_STEPS // sync.interval
+    require(buckets == ["dense", "embed", "norm"],
+            f"three non-empty buckets, got {buckets}")
+    exact = True
+    if any(diffs.values()):
+        # is the training step itself deterministic here?
+        again = transport_run(torch, cfg, sync, batches, None, device,
+                              TRANSPORT_STEPS)
+        tally(again["launches"])
+        twice = stream_diff(torch, inline, again, True)
+        require(bool(twice), f"inline runs agree bit for bit but the "
+                f"transports' differ: {diffs}")
+        print(f"[transport] two inline runs differ ({twice[:4]}...): the "
+              f"streams are held at atol {TRANSPORT_ATOL}, rtol "
+              f"{TRANSPORT_RTOL}")
+        del again
+        exact = False
+        diffs = loose
+    require(not any(diffs.values()), f"sim and mesh streams == inline: "
+            f"{diffs}")
+    for k, r in runs.items():
+        require(r["launches"] == inline["launches"],
+                f"{k} launches {r['launches']} == inline "
+                f"{inline['launches']}")
+    require(len(mesh.records) == len(buckets) * n_rounds
+            and all(r.seconds > 0 for r in mesh.records),
+            f"one positive record per bucket per round, got "
+            f"{[(r.bucket, r.seconds) for r in mesh.records]}")
+    require(mesh.probe.n_observations == n_rounds,
+            f"{mesh.probe.n_observations} mesh probe observations")
+    sharded = mesh.sharding(PODS, device) is not None
+    print(f"[transport] {cfg.name} x{cfg.n_layers} layers, {PODS} pods, "
+          f"batch 8, seq {seq}, buckets {buckets}: sim and mesh ship the "
+          f"inline ring's bytes every round; streams equal "
+          f"{'bit for bit' if exact else 'within tolerance'}; launches "
+          f"{inline['launches']} each; mesh "
+          f"{'sharded' if sharded else 'unsharded'} over "
+          f"{len(mesh.devices(device))} device(s); peak memory "
+          f"{peak_gb():.2f} GB")
+    for k, r in (("inline", inline), *runs.items()):
+        print(f"[transport] {k}: sync-round s "
+              f"{[round(t, 4) for t in r['sync_s']]}, step s "
+              f"{[round(t, 4) for t in r['step_s']]}")
+    print(f"[transport] mesh records (bucket, MB, s): "
+          f"{[(r.bucket, round(r.payload_mb, 4), r.seconds) for r in mesh.records]}"
+          f"; sim records (bucket, MB, s): "
+          f"{[(r.bucket, round(r.payload_mb, 4), r.seconds) for r in sim.records]}")
+    del inline, runs
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # 2. the launcher in measured mode: the controllers read only the
+    #    sim transport's billed transfers
+    check_round, per_tier, checked, mark = bucketed_round_check(torch)
+    made = []
+    parse = train.parse_transport
+
+    def keep(*args):
+        made.append(parse(*args))
+        return made[-1]
+
+    argv = ["--pods", str(PODS), "--steps", str(TRANSPORT_LAUNCH_STEPS),
+            "--batch", "8", "--seq", str(seq), "--interval", "2",
+            "--compress-topk", "0.05", "--int8", "--error-feedback",
+            "--bucket-policy", "layer-class", "--adaptive-sync",
+            "--wan-trace", CONTROL_TRACE, "--ef-guard",
+            str(CONTROL_EF_GUARD), "--transport", TRANSPORT_SIM,
+            "--log-every", "0", "--device", device]
+    ops.reset_launches()
+    mark.update(ops.LAUNCHES)
+    buf = io.StringIO()
+    train.parse_transport = keep
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary = train.main(argv, model_cfg=cfg, round_hook=check_round)
+    finally:
+        train.parse_transport = parse
+    tally(ops.LAUNCHES)
+    print("\n".join(line for line in buf.getvalue().splitlines()
+                    if line.startswith(("[transport]", "[autotune]"))))
+    tr = made[0]
+    rounds = summary["rounds"]
+    require(len(checked) == len(rounds) > 0,
+            f"{len(checked)} of {len(rounds)} codec rounds checked")
+    require(summary["transfers"] == len(tr.records) > 0,
+            f"transfers {summary['transfers']} == {len(tr.records)} records")
+    require(tr.probe.n_observations >= len(rounds),
+            f"{tr.probe.n_observations} probe observations for "
+            f"{len(rounds)} rounds")
+    require(summary["measured_bandwidth_mbps"] is not None,
+            "a measured bandwidth")
+    # the collapse is billed in the round of step 3 (index); the
+    # controller can act on it from the next step's update (step 5, 1-based)
+    after = [d for d in summary["decisions"] if d["step"] >= 5]
+    require(len(after) > 0, f"a retune after the collapse: "
+            f"{summary['decisions']}")
+    by_step: dict = {}
+    for r in tr.records:
+        by_step.setdefault(r.step, {})[r.bucket] = r.payload_mb
+    replay = SimTransport(tr.trace, tr.wan)
+    for step in range(TRANSPORT_LAUNCH_STEPS):
+        if step in by_step:
+            replay.on_sync(by_step[step], step=step)
+        replay.tick(0.5)
+    require([(r.bucket, r.payload_mb, r.seconds, r.step)
+              for r in replay.records]
+             == [(r.bucket, r.payload_mb, r.seconds, r.step)
+                 for r in tr.records],
+             "the billing replays float for float")
+    print(f"[transport] measured mode: {summary['retunes']} retunes, "
+          f"{len(rounds)} rounds, {summary['transfers']} transfers, "
+          f"{tr.probe.n_observations} probe observations, belief "
+          f"{summary['measured_bandwidth_mbps']} Mbps; billing replayed "
+          f"float for float")
+    for d in summary["decisions"]:
+        print(f"[transport] decision at step {d['step']}: {d['tiers']}, "
+              f"interval {d['interval']}: {d['summary']}")
+    achieved = {}
+    for r in tr.records:
+        achieved.setdefault(r.step, []).append(round(r.mbps, 3))
+    print(f"[transport] achieved Mbps by round (step: per bucket): "
+          f"{achieved}; rounds (step, knobs, s): "
+          f"{[[r[0], r[1], round(r[2], 4)] for r in rounds]}; launches by "
+          f"tier {per_tier}")
+    del made, tr
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # 3. the emulated hop
+    hop = MeshTransport(probe=MeasuredWanProbe(), emulate_mbps=HOP_MBPS)
+    run = transport_run(torch, cfg, sync, batches, hop, device,
+                        TRANSPORT_STEPS)
+    tally(run["launches"])
+    short = [(r.bucket, r.seconds, r.payload_mb * 8.0 / HOP_MBPS)
+             for r in hop.records
+             if r.seconds < r.payload_mb * 8.0 / HOP_MBPS]
+    require(len(hop.records) == len(buckets) * n_rounds and not short,
+            f"every hop record at least its hop time: {short}")
+    hop_mb = {}
+    for r in hop.records:
+        hop_mb[r.step] = hop_mb.get(r.step, 0.0) + r.payload_mb
+    print(f"[transport] emulated {HOP_MBPS:.0f} Mbps hop: records (bucket, "
+          f"MB, s, hop s) "
+          f"{[(r.bucket, round(r.payload_mb, 4), r.seconds, r.payload_mb * 8.0 / HOP_MBPS) for r in hop.records]}"
+          f"; MB a pod a round {hop_mb}; sync-round s "
+          f"{[round(t, 4) for t in run['sync_s']]}")
+    del run
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # 4. what overlap_chunks pipelining buys against the emulated hop
+    ocfg = S.SyncConfig("asgd_ga", 2, compress_topk=TOPK, quantize_int8=True,
+                        error_feedback=True, overlap_chunks=OVERLAP_CHUNKS)
+    ops.reset_launches()
+    rep = MeshTransport(emulate_mbps=HOP_MBPS).measure_overlap(
+        ocfg, n_pods=PODS, n_elems=n_elems, reps=3, device=device)
+    tally(ops.LAUNCHES)
+    require(rep["chunks"] == OVERLAP_CHUNKS and rep["overlap_speedup"] > 0,
+            f"overlap report {rep}")
+    print(f"[transport] overlap at {HOP_MBPS:.0f} Mbps, {PODS} x "
+          f"{n_elems:,} values: {json.dumps(rep)}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[transport] phase 3e: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}, peak memory {peak_gb():.2f} GB")
+    return total
 
 
 def phase_entry_point(torch) -> None:
@@ -2493,6 +2850,8 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside the repository)
 
+    t_run = time.perf_counter()
+
     device = phase_device(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_flash(torch))
@@ -2503,6 +2862,8 @@ def main() -> int:
     train_launches = phase_main_path(torch)
     torch.cuda.empty_cache()
     control_launches = phase_control_loop(torch)
+    torch.cuda.empty_cache()
+    transport_launches = phase_transport(torch)
     torch.cuda.empty_cache()
     topk_launches = phase_strategies(torch)
     phase_paper_models(torch)
@@ -2527,6 +2888,7 @@ def main() -> int:
     for name in ("wan_encode", "wan_decode"):
         kernels[name]["launches"] = (train_launches[name]
                                      + control_launches[name]
+                                     + transport_launches[name]
                                      + moe_train_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]
@@ -2536,6 +2898,7 @@ def main() -> int:
         mamba_launches["ssd_scan"]
         + sum(f["ssd_scan"] for f in family_launches))
     kernels["topk_compress"]["launches"] = topk_launches
+    print(f"[chip_smoke] whole run {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -24,8 +24,10 @@ CUDA kernel of ``kernels/csrc/topk_compress.cu`` on the card), roll,
 decompress.  The pod-count transforms (:func:`grow_pods`,
 :func:`shrink_pods`, :func:`resize_sync_state`) and the codec retune
 (:func:`retune_sync_state`) carry the state across reconfigurations.  The
-streaming re-encode (``reencode_unsent``, ``finish_codec_sync_split``) and
-the transports other than the inline ring are ROADMAP Queue 1 item 11.
+codec round ships through a transport (``repro_torch.core.transport``) with
+the reference's retry loop and checksums (:func:`ship_sync_payloads`).  The
+streaming re-encode (``reencode_unsent``, ``finish_codec_sync_split``) is
+ROADMAP Queue 1 item 11b.
 
 Memory: at full width the f32 buffers are the bulk of device memory, so a
 round works in place where the reference builds new arrays, and leaf by
@@ -42,6 +44,7 @@ from dataclasses import dataclass, replace as _dc_replace
 from math import gcd, prod
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
@@ -589,19 +592,96 @@ def _decode_bucket(cfg: SyncConfig, chunks: Sequence[ChunkPayload],
     return _decode_chunks(cfg, chunks, _chunk_widths(cfg, n_total), n_total)
 
 
+def _wire_bits(p: torch.Tensor) -> torch.Tensor:
+    """A wire part as the port moves it: u16 indices as their int16 bit
+    pattern (PyTorch's u16 support covers copies, not every op on every
+    device), which holds the same bytes."""
+    return p.view(torch.int16) if p.dtype == torch.uint16 else p
+
+
 def _roll_rows(p: torch.Tensor, shift: int) -> torch.Tensor:
-    """``torch.roll`` over the pod dimension; u16 indices roll as their
-    int16 bit pattern (PyTorch's u16 support covers copies, not every op on
-    every device), which moves the same bytes."""
-    if p.dtype == torch.uint16:
-        return torch.roll(p.view(torch.int16), shift, dims=0).view(
-            torch.uint16)
-    return torch.roll(p, shift, dims=0)
+    """``torch.roll`` over the pod dimension, of the part's bytes."""
+    return torch.roll(_wire_bits(p), shift, dims=0).view(p.dtype)
+
+
+class TransferFailed(RuntimeError):
+    """One bucket's ring transfer failed (timeout, drop, link fault) and may
+    be retried: :func:`ship_sync_payloads` re-ships the bucket up to the
+    transport's ``retry_policy.max_retries`` before declaring the peer
+    unreachable."""
+
+    def __init__(self, bucket: str, attempt: int, reason: str = "",
+                 pod: Optional[int] = None):
+        self.bucket, self.attempt = bucket, attempt
+        self.reason, self.pod = reason, pod
+        super().__init__(
+            f"transfer of bucket {bucket!r} failed on attempt {attempt}"
+            + (f": {reason}" if reason else ""))
+
+
+class CorruptPayloadError(TransferFailed):
+    """Shipped wire chunks failed checksum verification; retryable (a
+    re-send re-reads the sender's intact buffer)."""
+
+
+class PodUnreachableError(RuntimeError):
+    """Retries exhausted (or a pod crashed mid-round): the peer missed the
+    sync barrier.  The round either completes degraded over the surviving
+    membership mask (``finish_codec_sync(..., alive=...)``) or rolls back
+    to the last sync barrier; the launcher decides."""
+
+    def __init__(self, pod: Optional[int] = None,
+                 step: Optional[int] = None, bucket: str = ""):
+        self.pod, self.step, self.bucket = pod, step, bucket
+        where = f"pod {pod}" if pod is not None else "peer"
+        at = f" at step {step}" if step is not None else ""
+        via = f" (bucket {bucket!r})" if bucket else ""
+        super().__init__(f"{where} unreachable{at}{via}: retries exhausted")
+
+
+def _row_bytes(part: torch.Tensor, p: int) -> bytes:
+    """Row ``p`` of one wire part as the bytes it ships, copied to the
+    host."""
+    return np.ascontiguousarray(_wire_bits(part[p]).cpu().numpy()).tobytes()
+
+
+def chunk_checksum_rows(chunks: Sequence[ChunkPayload]) -> Tuple[int, ...]:
+    """Per-pod-row CRC32 over one bucket's wire chunks (q, idx, scales
+    bytes, chunk by chunk): the integrity word a host-seam ship verifies
+    after a transfer.  Reads the rows on the host."""
+    import zlib
+
+    n_pods = int(chunks[0].q.shape[0])
+    out = []
+    for p in range(n_pods):
+        crc = 0
+        for c in chunks:
+            for part in (c.q, c.idx, c.scales):
+                crc = zlib.crc32(_row_bytes(part, p), crc)
+        out.append(crc)
+    return tuple(out)
+
+
+def verify_shipment(name: str, sent_crc: Sequence[int],
+                    shipped: Sequence[ChunkPayload], shift: int) -> None:
+    """Check a shipped bucket against pre-ship checksums: under the ring
+    permute, shipped row ``p`` must be sender row ``(p - shift) % n`` bit
+    for bit.  Raises :class:`CorruptPayloadError` naming the first
+    mismatching receiver row."""
+    n = len(sent_crc)
+    got = chunk_checksum_rows(shipped)
+    for p in range(n):
+        if got[p] != sent_crc[(p - shift) % n]:
+            raise CorruptPayloadError(
+                name, 0, f"checksum mismatch on receiver row {p}", pod=p)
 
 
 class InlineRingShip:
     """The in-process transport: ring-permute each wire part over the pod
-    dimension with ``torch.roll(dim=0)``."""
+    dimension with ``torch.roll(dim=0)``.  The transports of
+    ``repro_torch.core.transport`` implement the same ``ship_bucket``
+    contract; this one is why ``transport=None`` ships what it always
+    shipped."""
 
     in_graph = True
 
@@ -656,17 +736,45 @@ def ship_sync_payloads(cfg: SyncConfig,
                        transport=None,
                        wire_mb: Optional[Mapping[str, float]] = None
                        ) -> Dict[str, Tuple[ChunkPayload, ...]]:
-    """Ship every bucket's wire chunks to the one-peer ring.  Only the
-    in-process ring (``transport=None``) is ported; billing, host-seam,
-    retrying and checksumming transports are ROADMAP Queue 1 item 11."""
-    if transport is not None:
-        raise NotImplementedError(
-            "transports other than the inline ring are not ported yet: see "
-            "ROADMAP.md Queue 1 item 11")
+    """Ship every bucket's wire chunks to the transport's one-peer ring
+    send.  ``transport=None`` is the inline ring; a host-seam transport
+    (``in_graph=False``) executes and times each bucket's transfer here.
+
+    Fault tolerance rides the transport's optional attributes, as in the
+    reference: a ``retry_policy`` (:class:`repro_torch.core.wan.RetryPolicy`)
+    bounds how many :class:`TransferFailed` raises per bucket are retried
+    before :class:`PodUnreachableError`; ``verify_checksums`` (host-seam
+    only) checksums each bucket before the ship and verifies the shipped
+    rows, so a corrupted payload is re-shipped instead of decoded into the
+    parameters; ``note_retry(name, attempt, err)`` hears each retry.
+    Transports without these attributes get one attempt."""
+    ship = transport if transport is not None else _INLINE_RING
     wire_mb = wire_mb or {}
-    return {name: _INLINE_RING.ship_bucket(name, bchunks, cfg.peer_shift,
+    in_graph = getattr(ship, "in_graph", True)
+    verify = bool(getattr(ship, "verify_checksums", False)) and not in_graph
+    policy = getattr(ship, "retry_policy", None)
+    max_retries = int(policy.max_retries) if policy is not None else 0
+    note_retry = getattr(ship, "note_retry", None)
+    out: Dict[str, Tuple[ChunkPayload, ...]] = {}
+    for name, bchunks in chunks.items():
+        sent_crc = chunk_checksum_rows(bchunks) if verify else None
+        attempt = 0
+        while True:
+            try:
+                shipped = ship.ship_bucket(name, bchunks, cfg.peer_shift,
                                            wire_mb.get(name, 0.0))
-            for name, bchunks in chunks.items()}
+                if verify:
+                    verify_shipment(name, sent_crc, shipped, cfg.peer_shift)
+                break
+            except TransferFailed as err:
+                attempt += 1
+                if attempt > max_retries:
+                    raise PodUnreachableError(pod=err.pod,
+                                              bucket=name) from err
+                if note_retry is not None:
+                    note_retry(name, attempt, err)
+        out[name] = shipped
+    return out
 
 
 def finish_codec_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
@@ -802,8 +910,9 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
 
     ``params`` leaves have the leading pod dim and are updated in place.
     ``lr`` drives the receiver-side SGD update of ASGD-GA.  On the codec
-    path the round is the three stages of the reference; only the inline
-    ring ships (``transport=None``)."""
+    path the round is the three stages of the reference, shipped through
+    ``transport`` (``None``: the inline ring); the other strategies ship
+    over the ring in place and ignore it, as the reference's do."""
     n_pods = T.leaves(params)[0].shape[0]
     dev = T.leaves(params)[0].device
     zero = state._replace(

@@ -1,6 +1,29 @@
-"""WAN transport layer, the host-only part: :class:`TransferRecord` and
-:class:`MeasuredWanProbe`, copied from ``repro/core/transport.py`` (its
-lines 56-139).
+"""Pluggable WAN transport layer: one seam from the billed simulator to a
+host-timed ship on the card.
+
+Counterpart of ``repro/core/transport.py`` without its streaming half.
+The sync layer (``repro_torch.core.sync``) produces wire payloads
+(per-bucket :class:`~repro_torch.core.sync.ChunkPayload` triples) and
+consumes them back; who moves the bytes to the ring peer, and how long
+that took, is this module's job.  Three implementations of one protocol:
+
+- the **inline ring** (``transport=None`` /
+  :class:`~repro_torch.core.sync.InlineRingShip`): ``torch.roll`` over the
+  pod dimension, no timing.
+- :class:`SimTransport`: ships over the same inline ring (so its rounds
+  are the inline rounds, bit for bit) and *bills* every sync round against
+  a :class:`~repro_torch.core.wan.BandwidthTrace` and
+  :class:`~repro_torch.core.wan.WANConfig` with the simulator's own
+  ``transfer_time`` law (lognormal fluctuation, latency, seeded numpy
+  generator): host arithmetic, float for float the reference's.
+- :class:`MeshTransport`: a host-timed ship.  Each bucket's transfer runs
+  on its own, between device waits, and its wall-clock goes into a
+  :class:`TransferRecord`.  It is single-process, as the reference's is:
+  with at least ``n_pods`` devices each pod row lives on its own device and
+  the ship copies row ``p`` to device ``(p + shift) % n``; with fewer it is
+  a roll on the payload's own device.  ``emulate_mbps`` adds a WAN-scale
+  hop.  :meth:`MeshTransport.measure_overlap` measures what
+  ``SyncConfig.overlap_chunks`` pipelining buys.
 
 The measured-feedback data path::
 
@@ -9,18 +32,31 @@ The measured-feedback data path::
         -> WanProbeEstimator (EMA + fluctuation + cliff-snap)
         -> Adaptive/BucketedSyncController(probe_est=...)
 
-The transports themselves (``WanTransport``, ``SimTransport``,
-``MeshTransport`` and the streaming round) are ROADMAP.md Queue 1 item 11;
-until then the port's sync rounds ship over the inline ring
-(``repro_torch.core.sync.InlineRingShip``) and a probe is fed by hand or
-from a recorded stream.
+The streaming round (``begin_stream_round`` and the ``stream_*`` methods,
+``_StreamRound``) is ROADMAP.md Queue 1 item 11c: the base class declines
+a streaming round and the other stream methods raise.
+
+Layering: ``sync`` does not import this module (transports are duck-typed
+at the seam); this module sits above ``sync``, ``wan`` and ``autotune`` and
+below ``training`` and ``launch``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch.core.autotune import WanProbe, WanProbeEstimator
+from repro_torch.core.sync import (_INLINE_RING, ChunkPayload, SyncConfig,
+                                   _chunk_widths, _decode_bucket,
+                                   _encode_bucket, _wire_bits)
+from repro_torch.core.wan import BandwidthTrace, WANConfig, transfer_time
 
 _EPS = 1e-9
 
@@ -29,9 +65,8 @@ _EPS = 1e-9
 class TransferRecord:
     """One bucket's shipped transfer: wire bytes and how long they took.
 
-    ``seconds`` is measured wall-clock for the reference's
-    ``MeshTransport`` and the simulator-billed time for its
-    ``SimTransport`` — downstream consumers
+    ``seconds`` is measured wall-clock for :class:`MeshTransport` and the
+    simulator-billed time for :class:`SimTransport`; downstream consumers
     (the probe, telemetry, benchmarks) cannot tell the difference, which
     is the point of the seam."""
 
@@ -107,3 +142,411 @@ class MeasuredWanProbe:
     @property
     def probe(self) -> WanProbe:
         return self.estimator.probe
+
+
+_STREAMING = ("streaming rounds are not ported yet: see ROADMAP.md Queue 1 "
+              "item 11c")
+
+
+class WanTransport:
+    """The transport protocol ``sync.ship_sync_payloads`` emits payloads to.
+
+    ``in_graph=True`` transports ship inside the round with the inline
+    ring's ops; ``in_graph=False`` ones execute and time each bucket's
+    transfer at the host seam (and only they verify checksums).
+    ``on_sync`` is the round barrier: called on the host once per sync
+    round with the per-bucket wire MB, it bills (sim) or flushes (mesh) the
+    round's transfers into ``records`` and the probe, returning the
+    round's transfer seconds."""
+
+    in_graph: bool = True
+    probe: Optional[MeasuredWanProbe] = None
+    #: transports that implement the chunk-granular streaming round set
+    #: this True (ROADMAP.md Queue 1 item 11c); none does yet
+    supports_streaming: bool = False
+
+    def __init__(self):
+        self.records: List[TransferRecord] = []
+        # per-round streaming summaries; empty until streaming is ported,
+        # kept on the base so consumers can read it unconditionally
+        self.stream_rounds: List[Dict] = []
+        self._stream = None
+
+    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
+                    shift: int, payload_mb: float = 0.0
+                    ) -> Tuple[ChunkPayload, ...]:
+        raise NotImplementedError
+
+    def on_sync(self, wire_mb: Mapping[str, float],
+                step: Optional[int] = None) -> float:
+        return 0.0
+
+    def begin_stream_round(self, wire_mb: Mapping[str, float],
+                           step: Optional[int] = None) -> bool:
+        """Decline a streaming round: the caller ships the classic way
+        (``ship_bucket`` and ``on_sync``)."""
+        del wire_mb, step
+        return False
+
+    def stream_chunk(self, name: str, chunk_mb: float) -> float:
+        raise NotImplementedError(_STREAMING)
+
+    def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
+                          chunk_mb: float) -> Tuple[ChunkPayload, float]:
+        raise NotImplementedError(_STREAMING)
+
+    def retune_stream(self, tail_mb: float) -> None:
+        raise NotImplementedError(_STREAMING)
+
+    def end_stream_round(self) -> float:
+        raise NotImplementedError(_STREAMING)
+
+
+class SimTransport(WanTransport):
+    """The WAN simulator behind the transport seam.
+
+    Shipping is the inline ring's (results are bit-exact); *billing*
+    replays the simulator's transfer law: at each sync round the trace's
+    bandwidth at the transport's clock prices the round's total wire bytes
+    through ``wan.transfer_time`` (latency + lognormal fluctuation, seeded
+    numpy generator, so a run's decision stream replays).  The caller owns
+    the clock: ``tick(dt)`` advances it by emulated compute time,
+    ``on_sync`` bills at the current clock."""
+
+    in_graph = True
+
+    def __init__(self, trace: BandwidthTrace,
+                 wan: Optional[WANConfig] = None,
+                 probe: Optional[MeasuredWanProbe] = None):
+        super().__init__()
+        self.trace = trace
+        self.wan = wan if wan is not None else WANConfig()
+        self.probe = probe
+        self.clock_s = 0.0
+        self._rng = np.random.default_rng(self.wan.seed)
+
+    def tick(self, dt_s: float) -> None:
+        """Advance the sim clock by ``dt_s`` emulated seconds."""
+        self.clock_s += dt_s
+
+    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
+                    shift: int, payload_mb: float = 0.0
+                    ) -> Tuple[ChunkPayload, ...]:
+        # delegating to the inline ring is the bit-exactness guarantee;
+        # billing lives in on_sync, where sizes are host values
+        return _INLINE_RING.ship_bucket(name, chunks, shift, payload_mb)
+
+    def on_sync(self, wire_mb: Mapping[str, float],
+                step: Optional[int] = None) -> float:
+        """Bill one sync round: one ``transfer_time`` draw on the round's
+        total payload (the simulator's law), split across buckets
+        proportionally for the per-bucket records."""
+        bw = self.trace.at(self.clock_s)
+        total = sum(wire_mb.values())
+        if total <= 0.0:
+            return 0.0
+        t = transfer_time(total, bw, self.wan, self._rng)
+        for name, mb in wire_mb.items():
+            self.records.append(TransferRecord(
+                bucket=name, payload_mb=mb, seconds=t * mb / total,
+                step=step))
+        if self.probe is not None:
+            self.probe.observe_transfer(total, t)
+        return t
+
+
+def _move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` copied to ``device`` without a host wait, dtype kept."""
+    return _wire_bits(t).to(device, non_blocking=True).view(t.dtype)
+
+
+def _ring_send(items: Sequence, devs: Sequence[torch.device], shift: int,
+               send) -> List:
+    """One ring step over devices: ``items[p]`` lives on ``devs[p]``, and
+    entry ``(p + shift) % n`` of the result is ``send(items[p], devs[(p +
+    shift) % n])``."""
+    n = len(devs)
+    out = [None] * n
+    for p, item in enumerate(items):
+        q = (p + shift) % n
+        out[q] = send(item, devs[q])
+    return out
+
+
+def _move_chunks(chunks: Sequence[ChunkPayload], device: torch.device
+                 ) -> Tuple[ChunkPayload, ...]:
+    return tuple(ChunkPayload(*(_move(p, device) for p in c))
+                 for c in chunks)
+
+
+def _wait(devices: Sequence[torch.device]) -> None:
+    """Wait for the queued work of every CUDA device in ``devices``."""
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for the launches in the block (a kernel
+    launches on the current device's stream of its tensor)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _record(devices: Sequence[torch.device]) -> List:
+    """An event recorded on the current stream of each CUDA device in
+    ``devices``: what a hop thread waits on instead of the whole device."""
+    out = []
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            out.append(ev)
+    return out
+
+
+class MeshTransport(WanTransport):
+    """A host-timed ship of each bucket, in one process.
+
+    With at least ``n_pods`` devices (``devices``, or every device of the
+    payload's type: each card, or the one CPU), row ``p`` of every wire
+    part is placed on device ``p`` before the timer starts; the timed part
+    copies it to device ``(p + shift) % n`` and waits for every device
+    involved; the rows are stacked back onto the payload's device after
+    the timer stops.  With fewer devices ``sharding`` is ``None`` and the
+    ship is a roll on the payload's own device (the reference's rule; same
+    bytes, no cross-device traffic to time).  On the card the timer is
+    bracketed by device waits, so a record times the copy, not its launch.
+    Each transfer's wall-clock goes into a :class:`TransferRecord`: the
+    measured feedback the adaptive controllers read through
+    :class:`MeasuredWanProbe`.
+
+    ``in_graph=False``: the trainer ships bucket by bucket at the host
+    seam, which is where the timing boundary lives."""
+
+    in_graph = False
+
+    def __init__(self, probe: Optional[MeasuredWanProbe] = None,
+                 devices: Optional[Sequence] = None,
+                 emulate_mbps: Optional[float] = None):
+        super().__init__()
+        self.probe = probe
+        self._devices = (None if devices is None
+                         else [torch.device(d) for d in devices])
+        # devices of one host have no WAN between them: transfers complete
+        # at fabric speed.  ``emulate_mbps`` adds a real wall-clock hop
+        # (sleep of payload_mb*8/mbps) after each shipped bucket, so the
+        # measured times, and everything downstream, are WAN-scale;
+        # ``None`` reports the raw fabric
+        self.emulate_mbps = emulate_mbps
+        self._round: List[TransferRecord] = []
+
+    # ------------------------------------------------------------ placement
+    def devices(self, device_type: str = "cuda") -> List[torch.device]:
+        """The devices pod rows may be placed on: those given, else every
+        device of ``device_type`` (each card, or the one CPU)."""
+        if self._devices is not None:
+            return list(self._devices)
+        if device_type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [torch.device(device_type)]
+
+    def sharding(self, n_pods: int, device_type: str = "cuda"
+                 ) -> Optional[List[torch.device]]:
+        """One device per pod row when there are enough devices, else
+        ``None`` (the ship is then a local roll: same numerics, no
+        cross-device traffic to time)."""
+        devs = self.devices(device_type)
+        return devs[:n_pods] if len(devs) >= n_pods else None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether two pods' rows would sit on two cards."""
+        return self.sharding(2) is not None
+
+    # -------------------------------------------------------------- shipping
+    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
+                    shift: int, payload_mb: float = 0.0
+                    ) -> Tuple[ChunkPayload, ...]:
+        home = chunks[0].q.device
+        n = int(chunks[0].q.shape[0])
+        devs = self.sharding(n, home.type)
+        fence = devs if devs is not None else [home]
+        if devs is not None:
+            # per chunk, per part: row p on device p
+            placed = [[[_move(part[p:p + 1], devs[p]) for p in range(n)]
+                       for part in c] for c in chunks]
+        _wait(fence)                    # placement is not transfer time
+        t0 = time.perf_counter()
+        if devs is None:
+            out = _INLINE_RING.ship_bucket(name, chunks, shift)
+        else:
+            sent = [[_ring_send(rows, devs, shift, _move) for rows in c]
+                    for c in placed]
+        _wait(fence)
+        if self.emulate_mbps:
+            time.sleep(payload_mb * 8.0 / self.emulate_mbps)
+        rec = TransferRecord(bucket=name, payload_mb=payload_mb,
+                             seconds=time.perf_counter() - t0)
+        self.records.append(rec)
+        self._round.append(rec)
+        if devs is not None:
+            out = tuple(ChunkPayload(*(
+                torch.cat([_wire_bits(r).to(home) for r in rows]).view(
+                    part.dtype) for rows, part in zip(parts, c)))
+                for parts, c in zip(sent, chunks))
+        return out
+
+    def on_sync(self, wire_mb: Mapping[str, float],
+                step: Optional[int] = None) -> float:
+        """Round barrier: flush this round's measured transfers into the
+        probe (one aggregate observation: total wire MB over total
+        measured seconds)."""
+        del wire_mb
+        if not self._round:
+            return 0.0
+        mb = sum(r.payload_mb for r in self._round)
+        secs = sum(r.seconds for r in self._round)
+        for r in self._round:
+            r.step = step
+        self._round = []
+        if self.probe is not None and mb > 0.0:
+            self.probe.observe_transfer(mb, secs)
+        return secs
+
+    # ------------------------------------------------- overlap measurement
+    def measure_overlap(self, cfg: SyncConfig, n_pods: int, n_elems: int,
+                        *, seed: int = 0, reps: int = 3,
+                        device="cuda") -> Dict:
+        """Measure what ``overlap_chunks`` pipelining buys: the realized
+        version of the WAN simulator's ``1/overlap_chunks`` blocking model.
+
+        Two schedules over the same chunk boundaries and codec knobs, each
+        timed end to end on the host clock (best of ``reps`` after a
+        warm-up run):
+
+        - **serialized**: encode chunk i, ship it (the roll or the
+          cross-device copy, then the emulated WAN hop when
+          ``emulate_mbps`` is set) to completion, then encode chunk i+1.
+        - **pipelined**: the ship of chunk i is data-independent of the
+          encode of chunk i+1, so chunk i's hop runs on a worker thread
+          while chunk i+1 encodes; only the last chunk's hop stays
+          unhidden.
+
+        Decodes run after all transfers in both schedules, and both
+        schedules must decode to the same tensor (``RuntimeError`` if they
+        do not).  With ``emulate_mbps=None`` the hop is the raw device
+        fabric, and the speedup degenerates to ~1."""
+        if not cfg.uses_codec:
+            raise ValueError("measure_overlap times the codec path: cfg "
+                             "must have the fused codec enabled "
+                             "(asgd_ga + compress_topk + quantize_int8)")
+        home = torch.device(device)
+        rng = np.random.default_rng(seed)
+        flat = torch.from_numpy(rng.normal(size=(n_pods, n_elems))
+                                .astype(np.float32)).to(home)
+        devs = self.sharding(n_pods, home.type)
+        # the pods' rows in groups, each on one device: all of them on
+        # ``home``, or one row on each device of the sharding
+        groups = ([(home, flat)] if devs is None else
+                  [(d, flat[p:p + 1].to(d)) for p, d in enumerate(devs)])
+        gdev = [d for d, _ in groups]
+        shift = cfg.peer_shift
+        widths = _chunk_widths(cfg, n_elems)
+        chunk_mb = [cfg.payload_mb(4 * m / 1e6) for m in widths]
+        one = dataclasses.replace(cfg, overlap_chunks=1)
+        offs = [sum(widths[:i]) for i in range(len(widths))]
+        # the chunk segments are sliced outside the timed region
+        segs = [[rows[:, off:off + m] for _, rows in groups]
+                for m, off in zip(widths, offs)]
+
+        def ship(chs):
+            """The encoded chunk of every group, shipped one ring step."""
+            if devs is None:
+                return [_INLINE_RING.ship_bucket("", chs[0], shift)]
+            return _ring_send(chs, devs, shift, _move_chunks)
+
+        # CONCURRENCY CONTRACT: every encode, roll and decode is launched
+        # from THIS thread.  The worker only waits for its chunk's ship
+        # (an event recorded just after it, not the whole device, which
+        # would also wait for the next chunk's encode) and pays the
+        # emulated hop; that wait and hop is what overlaps the next encode
+        def run(pipelined: bool, pool: ThreadPoolExecutor
+                ) -> Tuple[float, torch.Tensor, List[float]]:
+            shipped: List = [None] * len(widths)
+            hop_s: List[float] = [0.0] * len(widths)
+            prev = None
+            _wait(gdev)
+            t0 = time.perf_counter()
+            for i, m in enumerate(widths):
+                chs = []
+                for d, seg in zip(gdev, segs[i]):
+                    with _on(d):
+                        chs.append(_encode_bucket(one, seg,
+                                                  want_local=False)[0])
+                shipped[i] = ship(chs)
+                events = _record(gdev)
+
+                def hop(events=events, mb=chunk_mb[i], i=i):
+                    h0 = time.perf_counter()
+                    for ev in events:
+                        ev.synchronize()
+                    if self.emulate_mbps:
+                        time.sleep(mb * 8.0 / self.emulate_mbps)
+                    hop_s[i] = time.perf_counter() - h0
+
+                if pipelined:
+                    if prev is not None:
+                        prev.result()  # ONE link: transfers serialize
+                        #   among themselves; only encode overlaps them
+                    prev = pool.submit(hop)
+                else:
+                    hop()
+            if prev is not None:
+                prev.result()
+            rows = []
+            for g, d in enumerate(gdev):
+                with _on(d):
+                    rows.append(torch.cat(
+                        [_decode_bucket(one, shipped[i][g], m)
+                         for i, m in enumerate(widths)], dim=1).to(home))
+            out = rows[0] if len(rows) == 1 else torch.cat(rows, dim=0)
+            _wait(gdev + [home])
+            return time.perf_counter() - t0, out, hop_s
+
+        def timeit(pipelined: bool, pool: ThreadPoolExecutor
+                   ) -> Tuple[float, torch.Tensor, List[float]]:
+            _, out, _ = run(pipelined, pool)   # warm-up
+            best = float("inf")
+            best_hops: List[float] = []
+            for _ in range(reps):
+                dt, out, hops = run(pipelined, pool)
+                if dt < best:
+                    best, best_hops = dt, hops
+            return best, out, best_hops
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            t_serial, out_serial, hops_serial = timeit(False, pool)
+            t_pipe, out_pipe, hops_pipe = timeit(True, pool)
+        if not torch.equal(out_serial, out_pipe):
+            raise RuntimeError("measure_overlap: the serialized and "
+                               "pipelined schedules decoded to different "
+                               "tensors")
+        return {
+            "n_devices": len(self.devices(home.type)),
+            "sharded": devs is not None,
+            "n_pods": n_pods,
+            "n_elems": n_elems,
+            "chunks": len(widths),
+            "emulate_mbps": self.emulate_mbps,
+            "wire_mb": round(sum(chunk_mb), 4),
+            "chunk_mb": [round(mb, 6) for mb in chunk_mb],
+            "chunk_transfer_s": {
+                "serialized": [round(h, 6) for h in hops_serial],
+                "pipelined": [round(h, 6) for h in hops_pipe],
+            },
+            "t_pipelined_s": round(t_pipe, 6),
+            "t_serialized_s": round(t_serial, 6),
+            "overlap_speedup": round(t_serial / max(t_pipe, _EPS), 3),
+        }

@@ -19,14 +19,19 @@ Counterpart of ``repro/launch/train.py``:
    ``AdaptiveSyncController`` (one bucket) or ``BucketedSyncController``
    (``--bucket-policy layer-class``) retunes the codec's tier, top-k and
    interval at the top of each step.
+5. **The transport** (``--transport``): who ships the codec payloads.
+   ``sim`` bills each round against ``--wan-trace``, ``mesh`` times each
+   bucket's ship on the host; both feed a measured probe, and under
+   ``--adaptive-sync`` the controllers then read only that probe
+   (measured mode: no trace wired to them).
 
 The flags keep the reference's meanings, defaults and messages;
-``--device`` picks the card (default) or the CPU.  The reference's
-transport, fault, topology, streaming, checkpoint and serving flags
-(``--transport``, ``--faults``, ``--no-tolerance``, ``--topology``,
-``--stream-*``, ``--ckpt-*``, ``--async-checkpoint``, ``--snapshot-every``,
-``--keep-snapshots``, ``--serve``) are not ported yet (ROADMAP.md Queue 1
-items 11, 12 and 15a), and argparse refuses them.
+``--device`` picks the card (default) or the CPU.  The reference's fault,
+topology, streaming, checkpoint and serving flags (``--faults``,
+``--no-tolerance``, ``--topology``, ``--stream-*``, ``--ckpt-*``,
+``--async-checkpoint``, ``--snapshot-every``, ``--keep-snapshots``,
+``--serve``) are not ported yet (ROADMAP.md Queue 1 items 11b, 11c, 12
+and 15a), and argparse refuses them.
 
 Examples::
 
@@ -39,6 +44,11 @@ Examples::
       --compress-topk 0.05 --int8 --error-feedback --adaptive-sync \\
       --wan-trace 100@0,5@6,150@16 --ef-guard 0.98 \\
       --events cloud_left:pod1@9,cloud_joined:pod1@13 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+      --pods 2 --steps 20 --batch 4 --seq 16 --interval 2 \\
+      --compress-topk 0.05 --int8 --error-feedback --adaptive-sync \\
+      --wan-trace 100@0,0.5@3,100@10 --transport sim:fluct=0.25 \\
+      --device cpu
 """
 from __future__ import annotations
 
@@ -65,7 +75,9 @@ from repro_torch.core.sync import (BUCKET_CLASSES, BUCKET_POLICIES,
                                    VALUE_DTYPES, BucketOverride, BucketSpec,
                                    SyncConfig, bucket_weights_of,
                                    is_sync_step)
-from repro_torch.core.wan import BandwidthTrace
+from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
+                                        SimTransport)
+from repro_torch.core.wan import BandwidthTrace, WANConfig
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.models.registry import get_model_fns
 from repro_torch.training.trainer import (Trainer, TrainerConfig, _wait,
@@ -167,6 +179,55 @@ def parse_bucket_overrides(spec: str) -> tuple:
                     f"{entry!r} (keys: topk, dtype, block)")
         out.append(BucketOverride(name=name, **kw))
     return tuple(out)
+
+
+def parse_transport(spec: str, trace: Optional[BandwidthTrace],
+                    sync_cfg: SyncConfig):
+    """Parse ``--transport`` into a WAN transport (or ``None`` = inline).
+
+    Forms: ``inline`` (the in-process ring, no timing), ``sim`` /
+    ``sim:fluct=0.2,latency=0.05,seed=3`` (trace-driven billing; needs
+    ``--wan-trace``), ``mesh`` / ``mesh:mbps=5`` (a host-timed ship of
+    each bucket; ``mbps`` adds an emulated WAN hop so measured times are
+    WAN-scale).  Sim and mesh both feed a
+    :class:`~repro_torch.core.transport.MeasuredWanProbe`: under
+    ``--adaptive-sync`` the controller then runs from measured transfer
+    times only, with no trace wired to it."""
+    kind, _, rest = spec.partition(":")
+    known = {"sim": ("fluct", "latency", "seed"), "mesh": ("mbps",),
+             "inline": (), "": ()}
+    if kind not in known:
+        raise ValueError(f"unknown --transport {spec!r} (inline, sim, mesh)")
+    kw = {}
+    for part in rest.split(","):
+        if part:
+            k, _, v = part.partition("=")
+            k = k.strip()
+            if k not in known.get(kind, ()):
+                raise ValueError(
+                    f"--transport {kind}: unknown option {k!r} in {spec!r} "
+                    f"(options: {known.get(kind, ())}) — a dropped knob "
+                    f"would run with its default silently")
+            kw[k] = float(v)
+    if kind in ("", "inline"):
+        return None
+    if kind == "sim":
+        if trace is None:
+            raise ValueError("--transport sim needs --wan-trace: the sim "
+                             "transport bills transfers against a "
+                             "bandwidth trace")
+        wan = WANConfig(bandwidth_mbps=trace.mbps[0],
+                        fluctuation=kw.get("fluct", 0.25),
+                        latency_s=kw.get("latency", 0.05),
+                        seed=int(kw.get("seed", 0)))
+        return SimTransport(trace, wan, probe=MeasuredWanProbe())
+    # kind == "mesh" (kind membership was validated above)
+    if not sync_cfg.uses_codec:
+        raise ValueError(
+            "--transport mesh requires the fused codec (the host-seam "
+            "ship times codec payloads): add --compress-topk F --int8")
+    return MeshTransport(probe=MeasuredWanProbe(),
+                         emulate_mbps=kw.get("mbps"))
 
 
 def preset_100m():
@@ -315,6 +376,15 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     ap.add_argument("--ef-guard", type=float, default=0.9,
                     help="adaptive sync: EF-residual ratio bound the "
                          "controller must never trade away")
+    ap.add_argument("--transport", default="inline",
+                    help="who ships sync payloads: 'inline' (the in-process "
+                         "ring), 'sim[:fluct=F,latency=L,seed=S]' (billed "
+                         "against --wan-trace; feeds the measured probe), "
+                         "'mesh[:mbps=B]' (a host-timed ship of each "
+                         "bucket, optional emulated WAN hop).  With "
+                         "--adaptive-sync + sim/mesh the controller runs "
+                         "from measured transfer times only — no trace is "
+                         "wired to it")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and the codec run")
     args = ap.parse_args(argv)
@@ -369,12 +439,22 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
 
     # ---------------------------------------------------------- trainer
     trace = parse_wan_trace(args.wan_trace, args.steps, args.step_time)
+    transport = parse_transport(args.transport, trace, sync_cfg)
+    if transport is not None:
+        mesh = ""
+        if isinstance(transport, MeshTransport):
+            sharded = transport.sharding(args.pods, device.type) is not None
+            mesh = (f", {len(transport.devices(device.type))} devices, "
+                    f"{'sharded' if sharded else 'unsharded'}")
+        print(f"[transport] {args.transport}: "
+              f"{type(transport).__name__}{mesh}")
     tcfg = TrainerConfig(n_pods=args.pods, optimizer=args.optimizer,
                          lr=args.lr, sync=sync_cfg)
     trainer = Trainer(lambda p, b: fns.loss_fn(p, cfg, b),
                       (lambda g: fns.init_params(g, cfg, device))
                       if init_params is None else (lambda g: init_params),
-                      tcfg, device=device, round_hook=round_hook)
+                      tcfg, device=device, round_hook=round_hook,
+                      transport=transport)
     state = trainer.init_state(0)
     leaves = T.leaves(state.params)
     n_params = sum(x.numel() for x in leaves) // args.pods
@@ -407,18 +487,28 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     # adaptive sync controller (retune the codec)
     bus = EventBus()
     events = parse_events(args.events)
-    controller = (ElasticityController(plan, bus=bus) if events else None)
+    # measured mode: the transport's probe owns the bandwidth belief —
+    # the controllers read it and nothing else (no trace, no bus events)
+    measured = transport is not None and transport.probe is not None
+    controller = (ElasticityController(
+        plan, bus=bus,
+        # the elasticity replan reads the same measured belief the sync
+        # controllers act on
+        probe_est=transport.probe.estimator if measured else None)
+        if events else None)
     tuner = None
     if args.adaptive_sync:
         if not (sync_cfg.uses_codec and sync_cfg.error_feedback):
             raise SystemExit(
                 "--adaptive-sync requires the fused codec with error "
                 "feedback: add --compress-topk F --int8 --error-feedback")
+        probe_kw = (dict(probe_est=transport.probe.estimator, bus=None)
+                    if measured else dict(bus=bus))
         if sync_cfg.bucket_policy == "layer-class":
             bucket_mb = {n: w * model_mb for n, w in bweights.items()}
             tuner = BucketedSyncController(
                 sync_cfg, bucket_mb, args.step_time, ef_guard=args.ef_guard,
-                bus=bus)
+                **probe_kw)
             print("[autotune] per-bucket rungs: "
                   + ", ".join(f"{n} ({b.model_mb:.1f} MB, "
                               f"{len(b.ladder)} rungs)"
@@ -428,11 +518,14 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
         else:
             tuner = AdaptiveSyncController(
                 sync_cfg, model_mb, args.step_time, ef_guard=args.ef_guard,
-                bus=bus)
+                **probe_kw)
             print(f"[autotune] ladder: "
                   f"{[f'{c.value_dtype}@{c.compress_topk}' for c in tuner.ladder]}"
                   f", ef_guard {args.ef_guard}, budget {tuner.interval_budget}")
-        if trace is not None:
+        if measured:
+            print("[autotune] probe: measured transfer times from the "
+                  "transport (no trace wired to the controller)")
+        elif trace is not None:
             tuner.observe_wan(trace.at(0.0))
     read_stats = stats_reader(isinstance(tuner, BucketedSyncController))
     last_bw = trace.at(0.0) if trace is not None else None
@@ -503,6 +596,10 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
             rounds.append([step + 1, tier_label(trainer.cfg.sync),
                            trainer.sync_seconds[-1]])
         losses.append(float(metrics["loss"]))
+        if transport is not None and hasattr(transport, "tick"):
+            # the sim transport's clock advances by emulated compute time;
+            # its sync-round billing (and the measured probe) read it
+            transport.tick(args.step_time)
 
         # control-plane events fire now; the reconfiguration they produce is
         # applied at the next sync barrier by re-stacking the pod dimension
@@ -578,6 +675,15 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
             {n: round(r, 4)
              for n, r in tuner.max_ef_ratio_by_bucket.items()}
             if isinstance(tuner, BucketedSyncController) else None),
+        "transport": args.transport,
+        "wan_transfers_per_round": getattr(
+            transport, "wan_transfers_per_round", None),
+        "transfers": len(transport.records) if transport else None,
+        "measured_bandwidth_mbps": (
+            round(transport.probe.estimator.bandwidth_mbps, 3)
+            if transport is not None and transport.probe is not None
+            and transport.probe.estimator.bandwidth_mbps is not None
+            else None),
         "bucket_patterns": args.bucket_patterns,
         "decisions": decisions,
         "rounds": rounds,

@@ -7,19 +7,23 @@ loop over that dimension: each pod's loss and gradients come from autograd
 on its slice of the parameters, which is what the reference's ``jax.vmap``
 of ``value_and_grad`` computes.  Every ``interval`` steps the sync round
 runs: on the codec path the three stages of ``repro_torch.core.sync``
-(prepare -> inline ring ship -> finish), through the CUDA codec kernels on
-the card; the other strategies through ``apply_sync`` (sparse shipping
-through the CUDA top-k kernel).  ``reconfigure`` / ``resize_train_state``
-/ ``apply_reconfig`` re-stack the pod dimension at a barrier, and
-``retune`` swaps the sync config of the same strategy.
+(prepare -> ship -> finish), through the CUDA codec kernels on the card,
+shipped over the inline ring or a transport
+(``repro_torch.core.transport``: the billed ``SimTransport``, the
+host-timed ``MeshTransport``); the other strategies through
+``apply_sync`` (sparse shipping through the CUDA top-k kernel).  The
+reference splits its jitted step from the host seam; the port runs no
+jit, so one round function serves both, and whether the ship is timed is
+up to the transport's ``ship_bucket``.  ``reconfigure`` /
+``resize_train_state`` / ``apply_reconfig`` re-stack the pod dimension at
+a barrier, and ``retune`` swaps the sync config of the same strategy.
 
 The step updates the stacked parameters and optimizer state in place
 (slice by slice) instead of building new stacked tensors: at full width the
 parameters are gigabytes, and nothing reads a train state after the step
 that replaced it.
 
-Host-seam, streaming, masked rounds and live migration are ROADMAP Queue 1
-items 11 and 12.
+Streaming rounds and live migration are ROADMAP Queue 1 items 11c and 12.
 """
 from __future__ import annotations
 
@@ -87,22 +91,25 @@ def _wait(device: torch.device) -> None:
 class Trainer:
     def __init__(self, loss_fn: Callable, init_fn: Callable,
                  cfg: TrainerConfig, device="cuda",
-                 round_hook: Optional[Callable] = None):
+                 round_hook: Optional[Callable] = None, transport=None):
         """loss_fn(params, batch) -> (loss, metrics dict);
         init_fn(generator) -> params (single pod, on ``device``).
 
-        Payloads ship over the inline ring (``torch.roll`` over the pod
-        dimension).  ``round_hook``, if given, is called after each codec
-        round as ``round_hook(state, payloads, shipped, sync)`` (``sync``:
-        the round's config, whose tiers a retune changes), outside the
-        round's timing: a check uses it to hold the round against its
-        plain version.  Other strategies' rounds have no hook of their own;
+        Codec payloads ship through ``transport`` (``None``: the inline
+        ring, ``torch.roll`` over the pod dimension); after every sync
+        round, of any strategy, the transport's ``on_sync`` bills or
+        flushes the round.  ``round_hook``, if given, is called after each
+        codec round as ``round_hook(state, payloads, shipped, sync)``
+        (``sync``: the round's config, whose tiers a retune changes),
+        outside the round's timing: a check uses it to hold the round
+        against its plain version.  Other strategies' rounds have no hook of their own;
         ``kernels.ops.TOPK_CHECK_HOOK`` sees each sparse ship."""
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.cfg = cfg
         self.device = torch.device(device)
         self.round_hook = round_hook
+        self.transport = transport
         self.optimizer = cfg.make_optimizer()
         self.schedule = cfg.make_schedule()
         self._bucket_weights: Optional[Dict[str, float]] = None
@@ -204,27 +211,49 @@ class Trainer:
             return state._replace(params=params,
                                   sync_state=sync_state), None
         payloads = prepare_codec_sync(cfg, state.sync_state)
-        shipped = ship_sync_payloads(cfg, payloads.chunks,
-                                     wire_mb=self.wire_mb(state))
+        shipped = ship_sync_payloads(cfg, payloads.chunks, self.transport,
+                                     self.wire_mb(state))
+        # a fault-aware transport reports the pods that missed the round:
+        # finish degraded over the survivors
+        failed = tuple(getattr(self.transport, "round_failed_pods", ())
+                       or ())
+        alive = None
+        if failed:
+            alive = torch.ones(self.cfg.n_pods, dtype=torch.float32)
+            for p in failed:
+                if 0 <= p < self.cfg.n_pods:
+                    alive[p] = 0.0
         params, sync_state = finish_codec_sync(cfg, state.params,
                                                state.sync_state, payloads,
-                                               shipped, lr)
+                                               shipped, lr, alive=alive)
         return (state._replace(params=params, sync_state=sync_state),
                 (payloads, shipped))
 
     def maybe_sync(self, state: TrainState, host_step: int,
                    model_mb: float = 0.0) -> TrainState:
         if self.cfg.n_pods > 1:
+            # WAN transfers per sync round: one per pod on the flat ring; a
+            # transport may expose its own schedule's count
+            legs = getattr(self.transport, "wan_transfers_per_round", None)
             self.traffic_mb += traffic_per_step_mb(
                 self.cfg.sync, model_mb,
-                bucket_weights=self.bucket_weights(state)) * self.cfg.n_pods
+                bucket_weights=self.bucket_weights(state)) * (
+                    legs if legs is not None else self.cfg.n_pods)
         if is_sync_step(self.cfg.sync, host_step) and self.cfg.n_pods > 1:
+            # a fault-aware transport arms its plan for the round
+            begin = getattr(self.transport, "begin_round", None)
+            if begin is not None:
+                begin(host_step)
             # the step's queued device work is not the round's
             _wait(self.device)
             t0 = time.perf_counter()
             state, rnd = self._sync_round(state)
             _wait(self.device)
             self.sync_seconds.append(time.perf_counter() - t0)
+            if self.transport is not None:
+                # round barrier: bill (sim) or flush (mesh) this round's
+                # transfers into the records and the measured probe
+                self.transport.on_sync(self.wire_mb(state), step=host_step)
             if self.round_hook is not None and rnd is not None:
                 self.round_hook(state, *rnd, self.cfg.sync)
         return state
@@ -232,7 +261,7 @@ class Trainer:
     # ------------------------------------------------------ elasticity
     def _successor(self, cfg: TrainerConfig) -> "Trainer":
         nxt = Trainer(self.loss_fn, self.init_fn, cfg, device=self.device,
-                      round_hook=self.round_hook)
+                      round_hook=self.round_hook, transport=self.transport)
         nxt.traffic_mb = self.traffic_mb
         nxt.step_seconds = self.step_seconds
         nxt.sync_seconds = self.sync_seconds

@@ -244,12 +244,30 @@ def test_config_validation_matches(kw):
 
 
 def test_unported_strategies_raise():
-    """Every strategy runs now; what is still unported on the sync path
-    (the transports other than the inline ring) raises and names its
-    ROADMAP item."""
+    """Every strategy runs, and the codec round ships through a transport
+    as well as over the inline ring: a ``SimTransport`` ships the ring's
+    bytes and bills the round."""
+    from repro_torch.core.transport import MeasuredWanProbe, SimTransport
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
     for strategy in tsync.STRATEGIES:
         cfg = tsync.SyncConfig(strategy, 2, compress_topk=0.5)
         p = {"w": torch.ones(2, 3)}
         tsync.apply_sync(cfg, p, tsync.init_sync_state(cfg, p))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsync.ship_sync_payloads(cfg, {}, transport=object())
+    tcfg = _port_cfg(_codec_cfg("int8", 2, "layer-class"))
+    _, tstate = _to_port(*_jax_state(_codec_cfg("int8", 2, "layer-class")))
+    tpay = tsync.prepare_codec_sync(tcfg, tstate)
+    wire = tsync.bucket_wire_mb(tcfg, tsync.bucket_layout(tcfg,
+                                                         tstate.ga_buffer))
+    sim = SimTransport(BandwidthTrace((0.0,), (100.0,)), WANConfig(seed=1),
+                       probe=MeasuredWanProbe())
+    shipped = tsync.ship_sync_payloads(tcfg, tpay.chunks, sim, wire)
+    inline = tsync.ship_sync_payloads(tcfg, tpay.chunks, None, wire)
+    assert list(shipped) == list(inline) == list(wire)
+    for name in inline:
+        for a, b in zip(shipped[name], inline[name]):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    assert sim.on_sync(wire, step=1) > 0.0
+    assert [r.bucket for r in sim.records] == list(wire)
+    assert sim.probe.n_observations == 1
