@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
    cases: ragged n, ties, all-zero blocks, column slices (one not 16-byte
    aligned), blocks 128 to 65536, every key in one high-byte bin, ties at
    the threshold over many threads, ``k_block`` 1, 300 and ``k_block ==
-   block``; then time both at the main path's size (the whole granite-8b
+   block``, and NaN and inf inputs (a row of NaN beside a finite one,
+   scattered NaN and inf, NaN in a ragged last block); then time both at the main path's size (the whole granite-8b
    2-layer gradient, 838,881,280 values per pod x 2 pods) beside their
    bound, their plain version and the one PyTorch call that computes the
    same function, where there is one.
@@ -68,6 +69,26 @@ Phases (any failure raises and the script exits non-zero):
    run with an emulated 10 Gbps hop (every record at least its hop time)
    and ``MeshTransport.measure_overlap`` at ``N_MAIN`` values per pod in 8
    chunks (both schedules decode to equal bytes).
+3f. Faults and crash recovery at full width: phase 3e's setup (its
+   ``SimTransport`` knobs, the CUDA codec kernels under phase 1's
+   deterministic settings), ``FAULT_STEPS`` steps a case through a
+   ``ChaosTransport``: (a) an empty plan, bit-equal to the bare sim run in
+   params, EF residual, norms, tier, billed seconds and probe belief; (b)
+   ``fail:x2@1,timeout:x6@3``, 3 retries, bit-equal to the bare run, every
+   outcome's retry bill equal to ``resolve_round``'s; (c) ``corrupt@3``
+   caught by the checksums and re-shipped (bit-equal, the first bucket's
+   wire MB retried), then unverified (``tolerate=False``): the receiving
+   pod's params go non-finite, its corrupted payload decoded by the kernel
+   equal to the plain decode, NaN in place; (d) ``crash:pod1@3``: two
+   degraded rounds, each held to the degraded rule (no pod receives, EF ==
+   the whole message, norms 0, params untouched), and no EF-guard trip.
+   Every round is held as 3e's are.  (e) The whole granite ``TrainState``
+   saved by ``checkpoint.save`` and restored onto the card bit-equal, then
+   the launcher with 3e's argv plus ``--faults`` ``FAULT_LAUNCH`` and
+   ``--ckpt-dir``: one retry, one rollback to the barrier checkpoint, pod 1
+   removed.  Prints each save's and restore's GB and seconds, the free disk
+   (the phase fails below twice the state and the params) and the round
+   times; the checkpoints live in a temporary directory it removes.
 4. Entry point: ``repro_torch.launch.train.main`` on the tiny preset.
 2c. SSD scan: hold the kernel to its plain version (``ref.ssd``) within
    the reference's tolerance (``y / max|y|`` within 1e-5, the final state
@@ -256,6 +277,11 @@ TRANSPORT_LAUNCH_STEPS = 20
 HOP_MBPS = 10_000.0
 OVERLAP_CHUNKS = 8
 TRANSPORT_ATOL, TRANSPORT_RTOL = 1e-3, 1e-3
+# phase 3f, faults: steps a case (3 rounds at interval 2) and the
+# launcher's plan: one failed attempt at step 1, then a rollback-mode crash
+# of pod 1 at step 3 (restored from the barrier checkpoint of step 2)
+FAULT_STEPS = 6
+FAULT_LAUNCH = "fail:x1@1,crash:pod1@3:rollback"
 # phase 5c: gemma3-12b's prefill, 2048 prompt tokens and 8 new ones
 GEMMA_NEW_TOKENS = 8
 GEMMA_CHECKED_LAYERS = (0, 5)       # a windowed layer and a global one
@@ -354,7 +380,8 @@ def phase_kernels(torch) -> dict:
         dp = ops.wan_decode(*plain, n, block=block, value_dtype=tier,
                             use_kernel=False)
         torch.cuda.synchronize()
-        require(torch.equal(dk, dp), f"decode {tier} {tuple(x.shape)} "
+        # a NaN equal to a NaN in place: q = 0 times an inf scale
+        require(nan_equal(torch, dk, dp), f"decode {tier} {tuple(x.shape)} "
                 f"bit-equal to plain")
 
     big = torch.randn(PODS, 64 << 20, generator=gen, device="cuda")
@@ -382,6 +409,24 @@ def phase_kernels(torch) -> dict:
         print(f"[kernels] {tier}: encode and decode bit-equal to plain on "
               f"{PODS} x {64 << 20} values and the edge cases")
     del big, edge, one_bin, halves
+
+    nf = torch.randn(PODS, 777_777, generator=gen, device="cuda")
+    all_nan = nf.clone()
+    all_nan[1] = float("nan")
+    some = nf.clone()
+    some[1, ::7] = float("nan")
+    some[0, ::13] = float("inf")
+    tail = nf.clone()
+    tail[1, -100:] = float("nan")          # the ragged last block
+    for tier in ("int8", "fp8", "int4"):
+        for x in (all_nan, some, tail):
+            check(x, k, BLOCK, tier)
+            check(x, 300, BLOCK, tier)     # the general path
+            check(x, 655, 65536, tier)     # keys in shared memory
+    print("[kernels] NaN and inf inputs (a NaN row beside a finite one, "
+          "scattered NaN and inf, NaN in a ragged last block): encode and "
+          "decode bit-equal to plain")
+    del nf, all_nan, some, tail
 
     # time both at the main path's size (int8, the main path's tier)
     x = torch.randn(PODS, N_MAIN, generator=gen, device="cuda")
@@ -1102,6 +1147,478 @@ def phase_transport(torch, device: str = "cuda", cfg=None, seq: int = 512,
         torch.cuda.empty_cache()
     print(f"[transport] phase 3e: {time.perf_counter() - t_phase:.1f} s, "
           f"launches {total}, peak memory {peak_gb():.2f} GB")
+    return total
+
+
+def nan_equal(torch, a, b) -> bool:
+    """Equal dtypes, shapes and values, NaN equal to NaN in place (a
+    corrupted scale decodes q = 0 to NaN on both sides)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, torch.zeros_like(a), a),
+        torch.where(nb, torch.zeros_like(b), b)))
+
+
+def fault_round_check(torch, transport):
+    """A ``round_hook`` for rounds over a chaos-wrapped transport: each
+    bucket's kernel decode of the shipped chunks (a corrupted one
+    included) == its plain decode, NaN equal in place; the round's
+    launches are one encode and two decodes per chunk; a sender whose
+    message was delivered keeps ``flat - local`` as its EF residual, one
+    whose message was not keeps the whole ``flat`` and its norms read 0
+    (the reference's degraded-round rule, ``repro/core/sync.py:969-980``).
+    The compare launches leave the counts as they were."""
+    from repro_torch.core import sync as S
+    from repro_torch.kernels import ops
+
+    checked, mark = [], {}
+
+    def hook(state, payloads, shipped, sync):
+        counts = dict(ops.LAUNCHES)
+        enc = counts["wan_encode"] - mark["wan_encode"]
+        dec = counts["wan_decode"] - mark["wan_decode"]
+        ss = state.sync_state
+        n = ss.ef_residual.shape[0]
+        failed = tuple(getattr(transport, "round_failed_pods", ()) or ())
+        alive = [0 if p in failed else 1 for p in range(n)]
+        delivered = [alive[p] * alive[(p + sync.peer_shift) % n]
+                     for p in range(n)]
+        for p in range(n):
+            want = (payloads.flat[p] - payloads.local[p] if delivered[p]
+                    else payloads.flat[p])
+            require(nan_equal(torch, ss.ef_residual[p], want),
+                    f"round {len(checked)} pod {p}: EF residual == "
+                    f"{'flat - local' if delivered[p] else 'flat'}")
+            if not delivered[p]:
+                require(float(ss.msg_norm[p].abs().sum()) == 0.0
+                        and float(ss.resid_norm[p].abs().sum()) == 0.0,
+                        f"round {len(checked)} pod {p}: undelivered norms "
+                        f"read 0")
+        layout = S.bucket_layout(sync, ss.ga_buffer)
+        n_chunks = 0
+        for g, name in enumerate(layout.names):
+            size = layout.sizes[g]
+            if not size:
+                continue
+            bcfg = sync.for_bucket(name)
+            block = min(bcfg.codec_block, max(1, size))
+            widths = S._chunk_widths(bcfg, size)
+            kern = S._decode_bucket(bcfg, shipped[name], size)
+            plain = S._cat([ops.wan_decode(
+                c.q, c.idx.to(torch.int32), c.scales, m, block=block,
+                value_dtype=bcfg.value_dtype, use_kernel=False)
+                for c, m in zip(shipped[name], widths)])
+            require(nan_equal(torch, kern, plain),
+                    f"round {len(checked)} {name}: peer decode kernel == "
+                    f"plain")
+            n_chunks += len(widths)
+        require(enc == n_chunks and dec == 2 * n_chunks,
+                f"round {len(checked)}: {enc} encodes, {dec} decodes for "
+                f"{n_chunks} chunks")
+        checked.append({"failed": failed, "delivered": delivered})
+        ops.LAUNCHES.update(counts)
+        mark.update(counts)
+
+    return hook, checked, mark
+
+
+def fault_run(torch, cfg, sync, batches, transport, device: str,
+              steps: int = FAULT_STEPS, keep_state: bool = False) -> dict:
+    """Train ``steps`` steps over ``transport`` as the launcher's loop does
+    (the sim clock ticks 0.5 s a step), every round held by
+    ``fault_round_check``.  A round that completes without some pods
+    (``round_failed_pods``) is held to its definition on the parameters
+    too: a pod whose ring sender is dead keeps its pre-round parameters
+    bit for bit.  Returns the final params, EF residual, tier, per-round
+    norms, the launches, the times and the losses (the whole state too
+    with ``keep_state``)."""
+    from repro_torch import tree as T
+    from repro_torch.core.sync import is_sync_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    hook, checked, mark = fault_round_check(torch, transport)
+    norms = []
+
+    def round_hook(state, payloads, shipped, sync):
+        norms.append((state.sync_state.msg_norm.clone(),
+                      state.sync_state.resid_norm.clone()))
+        hook(state, payloads, shipped, sync)
+
+    trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                      lambda g: transformer.init_params(g, cfg, device),
+                      TrainerConfig(n_pods=PODS, optimizer="sgd", lr=0.02,
+                                    sync=sync),
+                      device=device, round_hook=round_hook,
+                      transport=transport)
+    state = trainer.init_state(SEED)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    mark.update(ops.LAUNCHES)
+    losses, held = [], 0
+    for step in range(steps):
+        state, metrics = trainer.train_step(state, batches(step))
+        losses.append(metrics["loss_per_pod"].float().cpu().tolist())
+        pre = None
+        plan = getattr(transport, "plan", None)
+        if (is_sync_step(sync, step) and plan is not None
+                and any(ev.kind == "crash" for ev in plan.at(step))):
+            pre = T.tree_map(lambda x: x.clone(), state.params)
+        state = trainer.maybe_sync(state, step)
+        transport.tick(0.5)
+        if pre is not None:
+            failed = tuple(transport.round_failed_pods)
+            for p in range(PODS):
+                if (p + PODS - sync.peer_shift) % PODS in failed \
+                        or p in failed:
+                    require(all(torch.equal(a[p], b[p]) for a, b in zip(
+                        T.leaves(state.params), T.leaves(pre))),
+                        f"step {step} pod {p}: no update applied from a "
+                        f"dead sender")
+                    held += 1
+            del pre
+    if device == "cuda":
+        torch.cuda.synchronize()
+    require(len(checked) == steps // sync.interval,
+            f"{len(checked)} codec rounds checked")
+    out = {"params": state.params, "ef": state.sync_state.ef_residual,
+           "tier": state.sync_state.tier, "norms": norms,
+           "launches": {k: ops.LAUNCHES[k]
+                        for k in ("wan_encode", "wan_decode")},
+           "sync_s": list(trainer.sync_seconds),
+           "step_s": list(trainer.step_seconds), "losses": losses,
+           "checked": checked, "held_pods": held,
+           "wire_mb": trainer.wire_mb(state)}
+    if keep_state:
+        out["state"] = state
+    del state, trainer
+    return out
+
+
+def state_gb(torch, state) -> float:
+    """GB the checkpoint file holds for ``state``: every tensor leaf as
+    stored (bf16 upcast to f32)."""
+    from repro_torch import tree as T
+
+    return sum(x.numel() * (4 if x.dtype == torch.bfloat16
+                            else x.element_size())
+               for x in T.leaves(state) if isinstance(x, torch.Tensor)) / 1e9
+
+
+@contextlib.contextmanager
+def timed_checkpoints(torch, log: list):
+    """Time every ``checkpoint.save`` and ``restore`` call in the block
+    (the launcher's included): ``(kind, directory name, GB of arrays.npz,
+    s)``, the device synchronized before the clock stops."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    save, restore = ckpt.save, ckpt.restore
+
+    def size_gb(directory):
+        return os.path.getsize(os.path.join(directory, "arrays.npz")) / 1e9
+
+    def timed_save(directory, *args, **kw):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(directory, *args, **kw)
+        log.append(("save", os.path.basename(directory), size_gb(directory),
+                    time.perf_counter() - t0))
+
+    def timed_restore(directory, *args, **kw):
+        t0 = time.perf_counter()
+        out = restore(directory, *args, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        log.append(("restore", os.path.basename(directory),
+                    size_gb(directory), time.perf_counter() - t0))
+        return out
+
+    ckpt.save, ckpt.restore = timed_save, timed_restore
+    try:
+        yield
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+
+
+def phase_faults(torch, device: str = "cuda", cfg=None,
+                 seq: int = 512) -> dict:
+    """Phase 3f: faults and crash recovery (``ChaosTransport``, the barrier
+    checkpoint, the launcher's ``--faults`` / ``--ckpt-dir``) at granite-8b
+    width, on phase 3e's setup.  Returns the codec launches of its runs."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import granite_8b
+    from repro_torch.core import sync as S
+    from repro_torch.core.autotune import AdaptiveSyncController, BucketStats
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.faults import ChaosTransport, FaultPlan, \
+        resolve_round
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.core.transport import MeasuredWanProbe, SimTransport
+    from repro_torch.core.wan import WANConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=TOPK, quantize_int8=True,
+                        error_feedback=True, bucket_policy="layer-class")
+
+    def peak_gb() -> float:
+        return (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else float("nan"))
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
+                                  data_size=1.0) for i in range(PODS))
+    plan = build_training_plan(TrainingRequest(
+        model=cfg.name, clouds=clouds, sync=sync, n_iters=FAULT_STEPS,
+        global_batch=8))
+    batches = train.make_batches(plan, cfg.vocab_size, seq, device)
+    trace = train.parse_wan_trace(CONTROL_TRACE, FAULT_STEPS, 0.5)
+    total = {"wan_encode": 0, "wan_decode": 0}
+
+    def tally(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def sim():
+        return SimTransport(trace, WANConfig(fluctuation=0.25, seed=0),
+                            probe=MeasuredWanProbe())
+
+    def chaos(spec, tolerate=True):
+        return ChaosTransport(sim(), train.parse_faults(spec) or FaultPlan(),
+                              tolerate=tolerate)
+
+    times, peaks = {}, {}
+
+    def keep_times(case, run):
+        times[case] = [round(t, 4) for t in run["sync_s"]]
+
+    def keep_peak(case):
+        """The device's peak since the last case, then a fresh count."""
+        peaks[case] = round(peak_gb(), 2)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    ckpt_log, tmp = [], tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # the bare sim run every tolerant run must end equal to; its state
+        # is (e)'s direct checkpoint
+        bare_t = sim()
+        bare = fault_run(torch, cfg, sync, batches, bare_t, device,
+                         keep_state=True)
+        tally(bare["launches"])
+        keep_peak("bare sim")
+        keep_times("bare sim", bare)
+        state = bare.pop("state")
+        gb = state_gb(torch, state)
+        free = shutil.disk_usage(tmp).free / 1e9
+        params_gb = state_gb(torch, state.params)
+        # the launcher's barrier is rewritten beside its last copy, and a
+        # pre-reconfig save of the params may stand beside both
+        need = 2 * gb + params_gb
+        print(f"[faults] checkpoint directory {tmp}: {free:.1f} GB free, "
+              f"state {gb:.2f} GB (params {params_gb:.2f} GB as f32)")
+        require(free >= need,
+                f"the disk holds {free:.1f} GB; the barrier checkpoints need "
+                f"{need:.1f} GB (twice the {gb:.2f} GB state and the "
+                f"pre-reconfig params)")
+
+        # (e) direct save and restore of the whole TrainState
+        with timed_checkpoints(torch, ckpt_log):
+            ckpt.save(os.path.join(tmp, "direct"), state, step=state.step,
+                      metadata={"model": cfg.name, "pods": PODS})
+            back, step = ckpt.restore(os.path.join(tmp, "direct"), state,
+                                      device=device)
+        require(step == state.step == back.step == FAULT_STEPS,
+                f"restored step {step}")
+        for a, b in zip(T.leaves(state), T.leaves(back), strict=True):
+            require(type(a) is type(b) and (
+                a == b if isinstance(a, int) else
+                (a.dtype == b.dtype and a.device == b.device
+                 and torch.equal(a, b))),
+                "restored state == saved, bit for bit")
+        del back, state
+        keep_peak("(e) save and restore")
+        shutil.rmtree(os.path.join(tmp, "direct"))
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        def same(run):
+            bad = stream_diff(torch, bare, run, True)
+            require(not bad, f"stream == the bare sim run's: {bad}")
+
+        # (a) empty plan: the bare transport, bit for bit
+        t_a = chaos("")
+        run_a = fault_run(torch, cfg, sync, batches, t_a, device)
+        tally(run_a["launches"])
+        keep_peak("(a)")
+        keep_times("(a)", run_a)
+        same(run_a)
+        require([r.seconds for r in t_a.records]
+                == [r.seconds for r in bare_t.records]
+                and t_a.probe.estimator.bandwidth_mbps
+                == bare_t.probe.estimator.bandwidth_mbps
+                and t_a.retries == 0 and t_a.outcomes == [] and t_a.in_graph,
+                "empty plan: the same records, belief, no retries or outcomes")
+        del run_a
+
+        # (b) retries: two failed attempts at step 1, a hard timeout at 3
+        t_b = chaos("fail:x2@1,timeout:x6@3")
+        run_b = fault_run(torch, cfg, sync, batches, t_b, device)
+        tally(run_b["launches"])
+        keep_peak("(b)")
+        keep_times("(b)", run_b)
+        same(run_b)
+        require(t_b.retries == 3, f"(b) {t_b.retries} retries")
+        for o in t_b.outcomes:
+            out = resolve_round(t_b.plan, t_b.retry_policy, o["step"],
+                                o["expected_s"])
+            require(out.extra_s == o["extra_s"]
+                    and out.attempts == o["attempts"],
+                    f"(b) outcome {o} == resolve_round {out}")
+        wire = run_b["wire_mb"]
+        del run_b
+
+        # (c) corruption: caught and re-shipped, then decoded unverified
+        t_c = chaos("corrupt@3")
+        run_c = fault_run(torch, cfg, sync, batches, t_c, device)
+        tally(run_c["launches"])
+        keep_peak("(c)")
+        keep_times("(c)", run_c)
+        same(run_c)
+        first = sorted(wire)[0]     # the host seam ships in name order
+        require(t_c.retries == 1 and t_c.retried_mb == wire[first],
+                f"(c) {t_c.retries} retries, {t_c.retried_mb} MB retried "
+                f"== {first}'s {wire[first]} MB")
+        del run_c
+        t_n = chaos("corrupt@3", tolerate=False)
+        run_n = fault_run(torch, cfg, sync, batches, t_n, device)
+        tally(run_n["launches"])
+        keep_peak("(c) no tolerance")
+        keep_times("(c) no tolerance", run_n)
+        lost = [i for i, r in enumerate(run_n["losses"])
+                if not all(math.isfinite(v) for v in r)]
+        receiver = (0 + sync.peer_shift) % PODS
+        require(t_n.retries == 0 and lost and lost[0] == 4,
+                f"(c) no tolerance: losses non-finite from step 4, got "
+                f"{lost}")
+        require(not all(bool(torch.isfinite(x[receiver]).all())
+                        for x in T.leaves(run_n["params"])),
+                f"(c) no tolerance: pod {receiver}'s params non-finite")
+        del run_n
+
+        # (d) a degraded crash: pod 1 dead from step 3, never removed
+        t_d = chaos("crash:pod1@3")
+        run_d = fault_run(torch, cfg, sync, batches, t_d, device)
+        tally(run_d["launches"])
+        keep_peak("(d)")
+        keep_times("(d)", run_d)
+        degraded = [c for c in run_d["checked"] if c["failed"]]
+        require(t_d.degraded_rounds == 2 == len(degraded)
+                and all(c["delivered"] == [0] * PODS for c in degraded)
+                and run_d["held_pods"] == 2 * PODS,
+                f"(d) {t_d.degraded_rounds} degraded rounds {degraded}, "
+                f"{run_d['held_pods']} pod rounds held")
+        msg, res = run_d["norms"][-1]
+        stats = BucketStats.from_norms(msg.double().cpu().numpy(),
+                                       res.double().cpu().numpy())
+        # tests/test_faults.py's controller: it may refit the interval, but
+        # the EF guard must not trip on a round that delivered nothing
+        tuner = AdaptiveSyncController(sync, 44.6, 0.3, ef_guard=0.9)
+        tuner.observe_wan(100.0)
+        rung = tuner.rung
+        upd = tuner.update(FAULT_STEPS, stats)
+        require(stats.msg_norm == 0.0 and stats.resid_norm == 0.0
+                and tuner.rung == rung
+                and (upd is None or "ef-guard" not in upd.summary()),
+                f"(d) the degraded round reads as no reading, no EF trip: "
+                f"{stats}, {upd and upd.summary()}")
+        del run_d
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (e) the launcher: a retry, then a rollback-mode crash restored
+        #     from the barrier checkpoint, then pod 1 removed
+        del bare
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        check_round, per_tier, checked, mark = bucketed_round_check(torch)
+        argv = ["--pods", str(PODS), "--steps", str(FAULT_STEPS),
+                "--batch", "8", "--seq", str(seq), "--interval", "2",
+                "--compress-topk", str(TOPK), "--int8", "--error-feedback",
+                "--bucket-policy", "layer-class", "--adaptive-sync",
+                "--wan-trace", CONTROL_TRACE, "--ef-guard",
+                str(CONTROL_EF_GUARD), "--transport", TRANSPORT_SIM,
+                "--faults", FAULT_LAUNCH, "--ckpt-dir",
+                os.path.join(tmp, "run"), "--log-every", "0", "--device",
+                device]
+        ops.reset_launches()
+        mark.update(ops.LAUNCHES)
+        buf = io.StringIO()
+        with timed_checkpoints(torch, ckpt_log), \
+                contextlib.redirect_stdout(buf):
+            summary = train.main(argv, model_cfg=cfg, round_hook=check_round)
+        tally(ops.LAUNCHES)
+        keep_peak("(e) launcher")
+        print("\n".join(line for line in buf.getvalue().splitlines()
+                        if line.startswith(("[faults]", "[elasticity]",
+                                            "[autotune] step"))))
+        fields = {k: summary[k] for k in (
+            "retries", "retried_mb", "degraded_rounds", "crash_recoveries",
+            "rollbacks", "final_pods", "reconfigs")}
+        require(fields["rollbacks"] == 1 and fields["crash_recoveries"] == 1
+                and fields["retries"] == 1 and fields["final_pods"] == 1,
+                f"(e) launcher {fields}")
+        require(len(checked) == len(summary["rounds"]) - 1,
+                f"{len(checked)} completed rounds checked of "
+                f"{len(summary['rounds'])} (one rolled back)")
+        # the crash plan makes the elasticity controller live, so the
+        # trace's bandwidth events may re-plan too: one pre-reconfig save
+        # per applied reconfig, the last one removing pod 1
+        dirs = sorted(os.listdir(os.path.join(tmp, "run")))
+        require(dirs == sorted(["fault_barrier"] + [
+            f"pre_reconfig_{s}" for s, _, _ in summary["reconfigs_at"]])
+                and summary["reconfigs_at"][-1][1] == 1,
+                f"checkpoint directories {dirs}, reconfigs "
+                f"{summary['reconfigs_at']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    print(f"[faults] {cfg.name} x{cfg.n_layers} layers, {PODS} pods, batch "
+          f"8, seq {seq}, {FAULT_STEPS} steps a case: (a) empty plan, (b) "
+          f"{t_b.retries} retries, (c) 1 re-ship of {first} "
+          f"({t_c.retried_mb} MB) and the unverified decode, (d) "
+          f"{t_d.degraded_rounds} degraded rounds, all held; streams of "
+          f"(a)-(c) == the bare sim run's bit for bit")
+    print(f"[faults] sync-round s by case (steps 1, 3, 5): {times}")
+    print(f"[faults] peak memory GB by case: {peaks}")
+    outcomes = [(o["step"], o["expected_s"], o["attempts"], o["extra_s"],
+                 o["t_s"]) for o in t_b.outcomes]
+    print(f"[faults] (b) outcomes (step, expected s, attempts, extra s, "
+          f"billed s): {outcomes}")
+    print(f"[faults] (e) launcher: {fields}; rounds (step, knobs, s) "
+          f"{[[r[0], r[1], round(r[2], 4)] for r in summary['rounds']]}; "
+          f"launches by tier {per_tier}")
+    for kind, name, size, secs in ckpt_log:
+        print(f"[faults] {kind} {name}: {size:.3f} GB in {secs:.2f} s "
+              f"({size / secs:.2f} GB/s)")
+    print(f"[faults] phase 3f: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}, peak memory {max(peaks.values()):.2f} GB")
     return total
 
 
@@ -2865,6 +3382,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     transport_launches = phase_transport(torch)
     torch.cuda.empty_cache()
+    fault_launches = phase_faults(torch)
+    torch.cuda.empty_cache()
     topk_launches = phase_strategies(torch)
     phase_paper_models(torch)
     phase_entry_point(torch)
@@ -2889,6 +3408,7 @@ def main() -> int:
         kernels[name]["launches"] = (train_launches[name]
                                      + control_launches[name]
                                      + transport_launches[name]
+                                     + fault_launches[name]
                                      + moe_train_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]

@@ -27,7 +27,7 @@ decompress.  The pod-count transforms (:func:`grow_pods`,
 codec round ships through a transport (``repro_torch.core.transport``) with
 the reference's retry loop and checksums (:func:`ship_sync_payloads`).  The
 streaming re-encode (``reencode_unsent``, ``finish_codec_sync_split``) is
-ROADMAP Queue 1 item 11b.
+ROADMAP Queue 1 item 11c.
 
 Memory: at full width the f32 buffers are the bulk of device memory, so a
 round works in place where the reference builds new arrays, and leaf by
@@ -823,16 +823,15 @@ def _finish_from_peer(cfg: SyncConfig, params: Pytree, state: SyncState,
                                 device=flat.device)
         applied = alive * torch.roll(alive, cfg.peer_shift)
         delivered = alive * torch.roll(alive, -cfg.peer_shift)
-        peer_flat = peer_flat * applied[:, None]
+        peer_flat.mul_(applied[:, None])      # the round's own decode
     peer = _unpack_stacked(peer_flat, state.ga_buffer, layout)
     msg_norm = _bucket_norms(flat, layout)
     new_resid, resid_norm = state.ef_residual, state.resid_norm
     if cfg.error_feedback:
-        if delivered is None:
-            new_resid = torch.sub(flat, local, out=state.ef_residual)
-        else:
-            new_resid = torch.where(delivered[:, None] > 0, flat - local,
-                                    flat)
+        new_resid = torch.sub(flat, local, out=state.ef_residual)
+        if delivered is not None:
+            torch.where(delivered[:, None] > 0, new_resid, flat,
+                        out=new_resid)
         resid_norm = _bucket_norms(new_resid, layout)
     if delivered is not None:
         msg_norm = msg_norm * delivered[:, None]

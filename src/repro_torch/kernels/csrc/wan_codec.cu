@@ -22,12 +22,14 @@
 //     of 4 values and position order is (warp, group, lane, value);
 //     larger blocks (up to 65536) keep the 16-bit keys in shared memory (2
 //     bytes a value, 128 KB at 65536), a contiguous strip per thread;
-//   - the key is bits(|x|) >> 15.  A floor under the k_block-th largest
-//     key t: each warp's c-th largest lane maximum, c = ceil(k_block / 8)
-//     (by peeling the warp maximum off c times), since the c largest lane
-//     maxima of all 8 warps are >= k_block distinct values; the floor is
-//     the least of the 8.  A block whose floor equals its largest key (all
-//     zero, all equal) has t at once;
+//   - the key is bits(|x|) >> 15, a NaN's that of the canonical NaN (all
+//     NaNs tie above +inf; the block maximum propagates NaN, so its scale
+//     is then 1, as in the plain version).  A floor under the k_block-th
+//     largest key t: each warp's c-th largest lane maximum, c =
+//     ceil(k_block / 8) (by peeling the warp maximum off c times), since
+//     the c largest lane maxima of all 8 warps are >= k_block distinct
+//     values; the floor is the least of the 8.  A block whose floor equals
+//     its largest key (all zero, all equal) has t at once;
 //   - fast path (registers, <= 256 keys at or above the floor: ~2% of a
 //     Gaussian block): one compare a value marks the candidates, one block
 //     scan of their counts puts them, in index order, into a list in
@@ -67,6 +69,20 @@ constexpr int kKeyShift = 15;        // key = bits(|x|) >> 15: bits 30..15
 constexpr int kRegValues = 16;       // values per thread held in registers
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kThreads == 256, "one histogram bin per thread");
+
+// max(a, b) with NaN propagated (PTX max.NaN; fmaxf drops a NaN): a NaN
+// anywhere in a block makes its maximum the canonical NaN 0x7fffffff
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// the key of a = |x|: bits 30..15, every NaN as the canonical NaN, so that
+// a NaN ranks above +inf and all NaNs tie, as in the plain version
+__device__ __forceinline__ unsigned key_of(float a) {
+  return (a != a ? 0x7fffffffu : __float_as_uint(a)) >> kKeyShift;
+}
 
 // the c-th largest (1 <= c <= 32) of the warp's keys, equal keys counted
 // apart: peel the largest key off at most c times
@@ -310,12 +326,12 @@ encode_kernel(const float* __restrict__ x, long long row_stride, long long n,
         v[G * c + i] = p + i < valid ? xb[p + i] : 0.0f;
     }
 #pragma unroll
-    for (int i = 0; i < S; ++i) mx = fmaxf(mx, fabsf(v[i]));
+    for (int i = 0; i < S; ++i) mx = fmax_nan(mx, fabsf(v[i]));
   } else {
     for (int j = tid; j < block; j += kThreads) {  // coalesced
       const float a = j < valid ? fabsf(xb[j]) : 0.0f;
-      mx = fmaxf(mx, a);
-      block_keys[j] = (uint16_t)(__float_as_uint(a) >> kKeyShift);
+      mx = fmax_nan(mx, a);
+      block_keys[j] = (uint16_t)key_of(a);
     }
   }
   if (KERNEL_SPLIT == 1) {
@@ -339,7 +355,7 @@ encode_kernel(const float* __restrict__ x, long long row_stride, long long n,
   };
   auto key = [&](int r, int p) -> unsigned {
     if constexpr (S > 0)
-      return __float_as_uint(fabsf(v[r])) >> kKeyShift;
+      return key_of(fabsf(v[r]));
     else
       return block_keys[p];
   };
@@ -375,12 +391,13 @@ encode_kernel(const float* __restrict__ x, long long row_stride, long long n,
 
   if constexpr (S > 0) {
     if (floor_key < top) {
-      // the candidates (key >= floor), in index order, into the list
+      // the candidates (key >= floor), in index order, into the list; a
+      // floor below top is a number or +inf, which a NaN's key is above
       const float floor_val = __uint_as_float(floor_key << kKeyShift);
       unsigned mask = 0, cnt = 0;
 #pragma unroll
       for (int r = 0; r < S; ++r)
-        mask |= (unsigned)(fabsf(v[r]) >= floor_val) << r;
+        mask |= (unsigned)!(fabsf(v[r]) < floor_val) << r;
       if (floor_key == 0) {            // a pad past the block is no value
 #pragma unroll
         for (int r = 0; r < S; ++r)
@@ -404,8 +421,7 @@ encode_kernel(const float* __restrict__ x, long long row_stride, long long n,
             m &= m - 1;
             const int p = wbase + 32 * G * c + i;
             const float xv = p < valid ? xb[p] : 0.0f;   // cached: just read
-            list_word[off] = __float_as_uint(fabsf(xv)) >> kKeyShift << 16
-                             | p;
+            list_word[off] = key_of(fabsf(xv)) << 16 | p;
             list_val[off] = xv;
             ++off;
           }

@@ -17,7 +17,11 @@ The codec functions are the bit-level spec of the fused WAN codec. The CPU
 path runs them, and on the card they are what the CUDA kernels are held
 against, bit for bit. Selection is a *stable* descending sort on the
 truncated key, so ties go to the lowest index on every device
-(``torch.topk`` has no tie order on CUDA and is not used). Both functions
+(``torch.topk`` has no tie order on CUDA and is not used). A NaN is keyed
+as the canonical NaN, so all NaNs tie above +inf, a block holding one has
+scale 1 (its maximum is NaN), and a NaN winner clips to ``-qmax``; the
+reference leaves that code to the float-to-int conversion, which has no
+defined value, so the port defines it as its kernel computes it. Both functions
 take one flat vector ``(n,)`` or a batch of them ``(rows, n)`` (the pod
 dimension), and work through the blocks in slices of ``_SLICE_BLOCKS`` so
 that the sort's scratch stays bounded at any size.
@@ -48,6 +52,7 @@ from repro_torch.models.layers import attn_bias, sdpa_reference
 from repro_torch.models.ssm import ssd_chunked
 
 _SLICE_BLOCKS = 1 << 14        # 64M fp32 values per slice at block 4096
+_NAN_BITS = 0x7FFFFFFF         # the canonical NaN: every NaN's key
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -196,7 +201,8 @@ def wan_encode(x: torch.Tensor, k_block: int, block: int = 4096,
     for lo in range(0, rows * nb, _SLICE_BLOCKS):
         xc = xb[lo:lo + _SLICE_BLOCKS]
         mag = xc.abs()
-        keys = mag.view(torch.int32) & KEY_MASK
+        keys = torch.where(torch.isnan(mag), _NAN_BITS,
+                           mag.view(torch.int32)) & KEY_MASK
         order = torch.sort(keys, dim=1, descending=True,
                            stable=True).indices[:, :k_block]
         loc = torch.sort(order, dim=1).values
@@ -205,11 +211,15 @@ def wan_encode(x: torch.Tensor, k_block: int, block: int = 4096,
         scales = torch.where(maxabs > 0, maxabs * inv,
                              torch.ones_like(maxabs))
         v = vals / scales[:, None]
+        # fmax / fmin drop a NaN, as the kernel's fmaxf / fminf do
+        lo_q, hi_q = (torch.tensor(b, dtype=torch.float32, device=x.device)
+                      for b in (-qmax, qmax))
         if value_dtype == "fp8":
-            q = torch.clamp(v, -qmax, qmax).to(torch.float8_e4m3fn
-                                               ).view(torch.int8)
+            q = torch.fmin(torch.fmax(v, lo_q), hi_q).to(
+                torch.float8_e4m3fn).view(torch.int8)
         else:
-            q = torch.clamp(torch.round(v), -qmax, qmax).to(torch.int8)
+            q = torch.fmin(torch.fmax(torch.round(v), lo_q), hi_q).to(
+                torch.int8)
         q_parts.append(q)
         idx_parts.append(loc.to(torch.int32))
         s_parts.append(scales)

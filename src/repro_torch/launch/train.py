@@ -24,14 +24,21 @@ Counterpart of ``repro/launch/train.py``:
    bucket's ship on the host; both feed a measured probe, and under
    ``--adaptive-sync`` the controllers then read only that probe
    (measured mode: no trace wired to them).
+6. **Faults** (``--faults``, ``--no-tolerance``): a seeded chaos plan wraps
+   the transport in a ``ChaosTransport``: failed and timed-out transfers
+   retry, corrupted ones fail their checksums and re-ship, a crashed pod
+   degrades rounds until the ``ElasticityController`` removes it, and a
+   rollback-mode crash restores the full train state saved at the last
+   sync barrier (``fault_barrier/`` under ``--ckpt-dir``).  ``--ckpt-dir``
+   also keeps the parameters before each applied reconfig and, with
+   ``--ckpt-every``, every N steps.
 
 The flags keep the reference's meanings, defaults and messages;
-``--device`` picks the card (default) or the CPU.  The reference's fault,
-topology, streaming, checkpoint and serving flags (``--faults``,
-``--no-tolerance``, ``--topology``, ``--stream-*``, ``--ckpt-*``,
-``--async-checkpoint``, ``--snapshot-every``, ``--keep-snapshots``,
-``--serve``) are not ported yet (ROADMAP.md Queue 1 items 11b, 11c, 12
-and 15a), and argparse refuses them.
+``--device`` picks the card (default) or the CPU.  The reference's
+topology and streaming flags (``--topology``, ``--stream-*``: ROADMAP.md
+Queue 1 item 11c), its snapshot engine's (``--async-checkpoint``,
+``--snapshot-every``, ``--keep-snapshots``: item 12) and ``--serve``
+(item 15a) are not ported yet, and argparse refuses them.
 
 Examples::
 
@@ -49,11 +56,17 @@ Examples::
       --compress-topk 0.05 --int8 --error-feedback --adaptive-sync \\
       --wan-trace 100@0,0.5@3,100@10 --transport sim:fluct=0.25 \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+      --pods 2 --steps 8 --batch 4 --seq 16 --interval 2 \\
+      --compress-topk 0.05 --int8 --error-feedback --wan-trace 100@0 \\
+      --transport sim --faults fail:x1@1,crash:pod1@3:rollback \\
+      --ckpt-dir /tmp/run --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 import time
 from typing import Callable, Dict, Optional
 
@@ -61,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import dense
 from repro_torch.core.autotune import (AdaptiveSyncController, BucketStats,
@@ -70,11 +84,13 @@ from repro_torch.core.control_plane import (CloudEvent, ElasticityController,
                                             EventBus, ReconfigPlan,
                                             TrainingRequest,
                                             build_training_plan)
+from repro_torch.core.faults import (FAULT_KINDS, ChaosTransport,
+                                     FaultEvent, FaultPlan)
 from repro_torch.core.scheduler import CloudResources, diff_plans
 from repro_torch.core.sync import (BUCKET_CLASSES, BUCKET_POLICIES,
                                    VALUE_DTYPES, BucketOverride, BucketSpec,
-                                   SyncConfig, bucket_weights_of,
-                                   is_sync_step)
+                                   PodUnreachableError, SyncConfig,
+                                   bucket_weights_of, is_sync_step)
 from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
                                         SimTransport)
 from repro_torch.core.wan import BandwidthTrace, WANConfig
@@ -230,6 +246,118 @@ def parse_transport(spec: str, trace: Optional[BandwidthTrace],
                          emulate_mbps=kw.get("mbps"))
 
 
+def parse_faults(spec: str) -> Optional[FaultPlan]:
+    """Parse ``--faults`` into a :class:`FaultPlan` (``None`` when empty).
+
+    Comma-separated fault entries keyed to the sync step they first bite
+    at, plus an optional plan seed:
+      ``fail:x2@39``       — 2 failed attempts, then success (retried)
+      ``timeout:x6@67``    — transfer 6x slower than the bandwidth belief
+                             (>= the retry policy's timeout_factor means
+                             the attempt is declared failed and retried)
+      ``corrupt@95``       — wire bit-flip on the shipped payload (caught
+                             by the per-chunk checksums, then re-shipped)
+      ``flap:x8@119+6``    — link 8x slower for a 6-round window
+      ``crash:pod1@183``   — pod 1 dies; rounds degrade over the
+                             surviving membership until it is removed
+      ``crash:pod1@183:rollback`` — mid-round crash: the run first rolls
+                             back to the last sync-barrier snapshot
+      ``seed=3``           — seed of the plan's deterministic stream
+    """
+    if not spec:
+        return None
+    events, seed = [], 0
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if entry.startswith("seed="):
+            val = entry.partition("=")[2]
+            try:
+                seed = int(val)
+            except ValueError:
+                raise ValueError(
+                    f"--faults: seed must be an integer, got {val!r}"
+                ) from None
+            continue
+        body, at_sep, tail = entry.partition("@")
+        if not at_sep:
+            raise ValueError(
+                f"--faults entry {entry!r}: missing '@step' — every fault "
+                f"is keyed to the sync step it first bites at")
+        kind, _, arg = body.partition(":")
+        if kind not in FAULT_KINDS:
+            raise ValueError(
+                f"--faults entry {entry!r}: unknown kind {kind!r} "
+                f"(kinds: {', '.join(FAULT_KINDS)})")
+        step_part, _, mode = tail.partition(":")
+        step_s, plus, dur_s = step_part.partition("+")
+        try:
+            step = int(step_s)
+        except ValueError:
+            raise ValueError(
+                f"--faults entry {entry!r}: step must be an integer, "
+                f"got {step_s!r}") from None
+        kw = {}
+        if plus:
+            if kind != "flap":
+                raise ValueError(
+                    f"--faults entry {entry!r}: '+duration' only applies "
+                    f"to flap (a window of slowed rounds)")
+            try:
+                kw["duration"] = int(dur_s)
+            except ValueError:
+                raise ValueError(
+                    f"--faults entry {entry!r}: duration must be an "
+                    f"integer number of rounds, got {dur_s!r}") from None
+        if mode:
+            if kind != "crash":
+                raise ValueError(
+                    f"--faults entry {entry!r}: trailing {':' + mode!r} — "
+                    f"a recovery mode only applies to crash")
+            kw["mode"] = mode       # FaultEvent validates the mode name
+        if kind in ("timeout", "flap"):
+            if not arg.startswith("x"):
+                raise ValueError(
+                    f"--faults entry {entry!r}: {kind} needs a slowdown "
+                    f"factor 'xF' (e.g. {kind}:x6@{step}), got {arg!r}")
+            try:
+                kw["factor"] = float(arg[1:])
+            except ValueError:
+                raise ValueError(
+                    f"--faults entry {entry!r}: factor must be a number, "
+                    f"got {arg[1:]!r}") from None
+        elif kind == "fail":
+            if arg:
+                if not arg.startswith("x"):
+                    raise ValueError(
+                        f"--faults entry {entry!r}: fail takes an attempt "
+                        f"count 'xN' (e.g. fail:x2@{step}), got {arg!r}")
+                try:
+                    kw["attempts"] = int(arg[1:])
+                except ValueError:
+                    raise ValueError(
+                        f"--faults entry {entry!r}: attempts must be an "
+                        f"integer, got {arg[1:]!r}") from None
+        elif kind == "crash":
+            if not arg.startswith("pod"):
+                raise ValueError(
+                    f"--faults entry {entry!r}: crash needs the dying pod "
+                    f"'podP' (e.g. crash:pod1@{step}), got {arg!r}")
+            try:
+                kw["pod"] = int(arg[3:])
+            except ValueError:
+                raise ValueError(
+                    f"--faults entry {entry!r}: pod must be an integer "
+                    f"index, got {arg[3:]!r}") from None
+        elif arg:                   # corrupt takes no argument
+            raise ValueError(
+                f"--faults entry {entry!r}: corrupt takes no argument "
+                f"(the bit-flip lands on the shipped payload itself)")
+        events.append(FaultEvent(kind=kind, step=step, **kw))
+    return FaultPlan(events=tuple(events), seed=seed)
+
+
 def preset_100m():
     """~100M-parameter dense decoder for the end-to-end driver."""
     return dense("dense-100m", n_layers=8, d_model=768, n_heads=12,
@@ -355,6 +483,8 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     ap.add_argument("--lr", type=float, default=0.02)
     ap.add_argument("--data-ratio", default="1:1",
                     help="per-pod data distribution, e.g. 2:1")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--events", default="",
                     help="mid-run cloud events, e.g. "
@@ -385,6 +515,20 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                          "--adaptive-sync + sim/mesh the controller runs "
                          "from measured transfer times only — no trace is "
                          "wired to it")
+    ap.add_argument("--faults", default="",
+                    help="seeded chaos schedule keyed to sync steps, e.g. "
+                         "'fail:x2@39,timeout:x6@67,corrupt@95,"
+                         "flap:x8@119+6,crash:pod1@183,seed=0' "
+                         "(see parse_faults); wraps the transport in a "
+                         "ChaosTransport with bounded retry/backoff, "
+                         "per-chunk checksum verification and degraded "
+                         "rounds over the surviving membership")
+    ap.add_argument("--no-tolerance", action="store_true",
+                    help="with --faults: disable checksums, retries and "
+                         "degraded rounds — the baseline the fault-"
+                         "tolerant path is measured against (corruption "
+                         "decodes into the parameters; a crashed peer "
+                         "hangs every round)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and the codec run")
     args = ap.parse_args(argv)
@@ -448,6 +592,33 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                     f"{'sharded' if sharded else 'unsharded'}")
         print(f"[transport] {args.transport}: "
               f"{type(transport).__name__}{mesh}")
+    fault_plan = parse_faults(args.faults)
+    if args.no_tolerance and fault_plan is None:
+        raise SystemExit(
+            "--no-tolerance is a --faults baseline switch: it picks how "
+            "injected faults are (not) handled, so it needs --faults")
+    if fault_plan is not None:
+        if transport is None:
+            raise SystemExit(
+                "--faults needs a billing transport to inject into: add "
+                "--transport sim (with --wan-trace) or --transport mesh")
+        if fault_plan.needs_host_seam and not sync_cfg.uses_codec:
+            raise SystemExit(
+                "--faults with fail/timeout/corrupt/crash events injects "
+                "at the host-seam codec ship: add --compress-topk F --int8")
+        bad = next((ev for ev in fault_plan.events
+                    if ev.kind == "crash" and ev.pod >= args.pods), None)
+        if bad is not None:
+            raise SystemExit(
+                f"--faults: crash pod {bad.pod} is out of range for "
+                f"--pods {args.pods} (pods are 0..{args.pods - 1})")
+        transport = ChaosTransport(transport, fault_plan,
+                                   tolerate=not args.no_tolerance)
+        print(f"[faults] {len(fault_plan.events)} scheduled events, seed "
+              f"{fault_plan.seed}, "
+              f"{'tolerant' if transport.tolerate else 'NO-TOLERANCE'}: "
+              f"retry budget {transport.retry_policy.max_retries}, "
+              f"timeout {transport.retry_policy.timeout_factor}x belief")
     tcfg = TrainerConfig(n_pods=args.pods, optimizer=args.optimizer,
                          lr=args.lr, sync=sync_cfg)
     trainer = Trainer(lambda p, b: fns.loss_fn(p, cfg, b),
@@ -487,6 +658,11 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     # adaptive sync controller (retune the codec)
     bus = EventBus()
     events = parse_events(args.events)
+    # crashes are involuntary cloud_left events: the elasticity controller
+    # must be live to re-match the surviving pods when one dies
+    chaos = transport if isinstance(transport, ChaosTransport) else None
+    need_elastic = bool(events) or (chaos is not None and chaos.tolerate
+                                    and chaos.plan.has_crashes)
     # measured mode: the transport's probe owns the bandwidth belief —
     # the controllers read it and nothing else (no trace, no bus events)
     measured = transport is not None and transport.probe is not None
@@ -495,7 +671,7 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
         # the elasticity replan reads the same measured belief the sync
         # controllers act on
         probe_est=transport.probe.estimator if measured else None)
-        if events else None)
+        if need_elastic else None)
     tuner = None
     if args.adaptive_sync:
         if not (sync_cfg.uses_codec and sync_cfg.error_feedback):
@@ -534,9 +710,25 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     # trainer (pending_base), not against the latest event's predecessor
     pending_base = None     # live plan when the first un-applied event fired
     pending_event = None
+    pending_crashes = []    # crashed pods awaiting removal at a barrier
     n_reconfigs = 0
     n_retunes = 0
+    n_rollbacks = 0
     decisions, rounds, reconfigs_at = [], [], []
+
+    # mid-round crash recovery: keep a checkpoint of the full train state
+    # at the last completed sync barrier; a rollback-mode crash unwinds to
+    # it.  Without --ckpt-dir it lives in a temporary directory, removed
+    # when the run ends (or, if it raises, when the object is collected)
+    barrier_dir = barrier_tmp = None
+    if chaos is not None and chaos.tolerate and chaos.plan.has_crashes:
+        if args.ckpt_dir:
+            barrier_dir = f"{args.ckpt_dir}/fault_barrier"
+        else:
+            barrier_tmp = tempfile.TemporaryDirectory(prefix="fault_barrier_")
+            barrier_dir = barrier_tmp.name
+        ckpt.save(barrier_dir, state, step=0,
+                  metadata={"model": name, "pods": trainer.cfg.n_pods})
 
     # ------------------------------------------------------------- loop
     t0 = time.time()
@@ -591,7 +783,27 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
 
         state, metrics = trainer.train_step(state, batches(step))
         n_before = len(trainer.sync_seconds)
-        state = trainer.maybe_sync(state, step, model_mb)
+        crashed = None
+        try:
+            state = trainer.maybe_sync(state, step, model_mb)
+        except PodUnreachableError as crash:
+            crashed = crash.pod
+        if crashed is not None:
+            # mid-round crash: progress since the barrier includes the dead
+            # pod's replica and cannot be re-stacked; restore the barrier
+            # (the crash then degrades rounds until the pod is removed).
+            # Out of the handler, whose traceback holds the round's buffers
+            state, _ = ckpt.restore(barrier_dir, like=state)
+            n_rollbacks += 1
+            print(f"[faults] pod {crashed} unreachable mid-round at "
+                  f"step {step + 1}: rolled back to the last sync barrier")
+        else:
+            at_sync = trainer.cfg.n_pods > 1 and \
+                is_sync_step(trainer.cfg.sync, step)
+            if barrier_dir is not None and at_sync:
+                ckpt.save(barrier_dir, state, step=step + 1,
+                          metadata={"model": name,
+                                    "pods": trainer.cfg.n_pods})
         if len(trainer.sync_seconds) > n_before:
             rounds.append([step + 1, tier_label(trainer.cfg.sync),
                            trainer.sync_seconds[-1]])
@@ -604,6 +816,14 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
         # control-plane events fire now; the reconfiguration they produce is
         # applied at the next sync barrier by re-stacking the pod dimension
         if controller is not None:
+            if chaos is not None:
+                # each crash surfaces on the shared bus exactly once; the
+                # resulting reconfig removes the pod at the next barrier,
+                # after which the transport stops degrading rounds for it
+                for p in chaos.take_new_crashes():
+                    pending_crashes.append(p)
+                    fire_event(CloudEvent("pod_crashed", region=f"pod{p}",
+                                          time_s=step * args.step_time))
             for ev in events.pop(step, ()):
                 fire_event(ev)
             at_barrier = (trainer.cfg.sync.strategy == "asgd"
@@ -614,6 +834,11 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                     new=controller.plan,
                     diff=diff_plans(pending_base.resource_plans,
                                     controller.plan.resource_plans))
+                if args.ckpt_dir:
+                    ckpt.save(f"{args.ckpt_dir}/pre_reconfig_{step + 1}",
+                              state.params, step=step + 1,
+                              metadata={"model": name,
+                                        "pods": trainer.cfg.n_pods})
                 _wait(device)
                 tb = time.perf_counter()
                 trainer, state, applied = apply_reconfig(trainer, state,
@@ -626,6 +851,10 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                     plan = pending.new
                     batches = make_batches(plan, cfg.vocab_size, args.seq,
                                            device)
+                    if chaos is not None and pending_crashes:
+                        for p in pending_crashes:
+                            chaos.clear_crash(p)
+                        pending_crashes.clear()
                     if tuner is not None:
                         # the reconfig rewrote the live sync settings:
                         # re-anchor the autotuner's belief so its next
@@ -645,6 +874,12 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
             print(f"step {step + 1:5d}  loss {losses[-1]:.4f}  "
                   f"({dt / (step + 1):.2f} s/step)  "
                   f"wan-traffic {trainer.traffic_mb:.1f} MB")
+        if args.ckpt_dir and args.ckpt_every and \
+                (step + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, state.params, step=step + 1,
+                      metadata={"model": name, "sync": args.sync})
+    if barrier_tmp is not None:
+        barrier_tmp.cleanup()
 
     final = trainer.cfg.sync
     summary = {
@@ -685,6 +920,16 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
             and transport.probe.estimator.bandwidth_mbps is not None
             else None),
         "bucket_patterns": args.bucket_patterns,
+        "faults": args.faults or None,
+        "fault_tolerant": (chaos.tolerate if chaos is not None else None),
+        "retries": chaos.retries if chaos is not None else None,
+        "retried_mb": (round(chaos.retried_mb, 3)
+                       if chaos is not None else None),
+        "degraded_rounds": (chaos.degraded_rounds
+                            if chaos is not None else None),
+        "crash_recoveries": (chaos.crash_recoveries
+                             if chaos is not None else None),
+        "rollbacks": n_rollbacks if chaos is not None else None,
         "decisions": decisions,
         "rounds": rounds,
         "reconfigs_at": reconfigs_at,

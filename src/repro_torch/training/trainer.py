@@ -211,7 +211,14 @@ class Trainer:
             return state._replace(params=params,
                                   sync_state=sync_state), None
         payloads = prepare_codec_sync(cfg, state.sync_state)
-        shipped = ship_sync_payloads(cfg, payloads.chunks, self.transport,
+        chunks = payloads.chunks
+        if not getattr(self.transport, "in_graph", True):
+            # the reference's host seam gets its chunks from a jitted
+            # prepare, which returns them key-sorted: it ships the buckets
+            # in name order, so a fault keyed to ship calls (the first
+            # failed attempt of a round) bites the same bucket here
+            chunks = dict(sorted(chunks.items()))
+        shipped = ship_sync_payloads(cfg, chunks, self.transport,
                                      self.wire_mb(state))
         # a fault-aware transport reports the pods that missed the round:
         # finish degraded over the survivors

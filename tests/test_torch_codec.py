@@ -104,6 +104,31 @@ def test_all_zero_input_scales_to_one(value_dtype):
     assert torch.equal(d, torch.zeros(512))
 
 
+@pytest.mark.parametrize("value_dtype", TIERS)
+def test_nan_and_inf_inputs_follow_the_ports_rule(value_dtype):
+    """The port's codec defines NaN (the reference leaves a NaN winner's
+    code to an undefined float-to-int conversion): every NaN is keyed as
+    the canonical NaN, so NaNs tie above +inf and win first, lowest index
+    first; a block holding one has scale 1; a NaN winner clips to -qmax.
+    The CUDA kernel follows the same rule (``tests/test_torch_kernels_cuda
+    .py``); a finite row beside a NaN row is untouched."""
+    x = torch.randn(2, 512, generator=torch.Generator().manual_seed(0))
+    x[0, 300] = float("inf")
+    x[1, 40:] = float("nan")
+    x[1, 10] = -float("inf")
+    q, i, s = tops.wan_encode(x, 7, block=256, value_dtype=value_dtype)
+    fin = tops.wan_encode(x[0, :256], 7, block=256, value_dtype=value_dtype)
+    assert torch.equal(q[0, :q.shape[1] // 2], fin[0])
+    assert torch.equal(i[0, :7], fin[1]) and s[0, 0] == fin[2][0]
+    assert s[0, 1] == float("inf") and 300 - 256 in i[0, 7:].tolist()
+    assert s[1].tolist() == [1.0, 1.0]
+    assert i[1, :7].tolist() == list(range(40, 47))
+    assert i[1, 7:].tolist() == list(range(7))
+    codes = (tcodec.unpack_nibbles(q[1].reshape(2, -1), 7).reshape(-1)
+             if value_dtype == "int4" else q[1])
+    if value_dtype != "fp8":
+        assert codes.tolist() == [-tcodec.TIER_QMAX[value_dtype]] * 14
+
 def test_batched_rows_equal_row_by_row():
     """A (pods, n) call is one encode per row (the sync layer's shape)."""
     x = torch.from_numpy(np.stack([_input(3000, 1), _input(3000, 2)]))

@@ -88,8 +88,8 @@ def test_control_loop_decisions_equal_the_reference_launcher():
     assert any("int4" in knobs for _, knobs, _ in ts["rounds"])
 
 
-@pytest.mark.parametrize("flag", ["--faults", "--topology",
-                                  "--ckpt-dir", "--async-checkpoint",
+@pytest.mark.parametrize("flag", ["--snapshot-every", "--topology",
+                                  "--keep-snapshots", "--async-checkpoint",
                                   "--stream-retune", "--serve"])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as err:

@@ -48,6 +48,41 @@ def test_kernels_bit_equal_to_plain(cuda, n, k_block, block, value_dtype):
     assert ops.LAUNCHES["wan_decode"] == before["wan_decode"] + 1
 
 
+
+@pytest.mark.parametrize("value_dtype", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("k_block,block", [(41, 4096), (300, 4096),
+                                           (655, 65536)])
+@pytest.mark.parametrize("case", ["nan_row", "scattered", "ragged_tail"])
+def test_codec_on_nan_and_inf_bit_equal_to_plain(cuda, case, k_block, block,
+                                                 value_dtype):
+    """NaN and inf inputs (a corrupted payload decoded into the parameters,
+    then their gradients): a NaN keyed as the canonical NaN, above +inf,
+    a NaN block's scale 1, a NaN winner clipped to -qmax, in the kernel as
+    in the plain version; nothing written outside a block."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = 777_777
+    x = torch.randn(2, n, generator=gen, device=cuda)
+    if case == "nan_row":
+        x[1] = float("nan")
+    elif case == "scattered":
+        x[1, ::7] = float("nan")
+        x[0, ::13] = float("inf")
+    else:
+        x[1, -100:] = float("nan")
+    kern = ops.wan_encode(x, k_block, block=block, value_dtype=value_dtype)
+    plain = ops.wan_encode(x, k_block, block=block, value_dtype=value_dtype,
+                           use_kernel=False)
+    for a, b in zip(kern, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    dk = ops.wan_decode(*kern, n, block=block, value_dtype=value_dtype)
+    dp = ops.wan_decode(*plain, n, block=block, value_dtype=value_dtype,
+                        use_kernel=False)
+    torch.cuda.synchronize()
+    nk, np_ = torch.isnan(dk), torch.isnan(dp)
+    assert torch.equal(nk, np_)
+    assert torch.equal(torch.where(nk, 0, dk), torch.where(np_, 0, dp))
+
+
 # the reference's flash tolerance (tests/test_kernels.py): online softmax
 # against the full softmax, and one bf16 ulp of the output
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
