@@ -282,6 +282,28 @@ TRANSPORT_ATOL, TRANSPORT_RTOL = 1e-3, 1e-3
 # of pod 1 at step 3 (restored from the barrier checkpoint of step 2)
 FAULT_STEPS = 6
 FAULT_LAUNCH = "fail:x1@1,crash:pod1@3:rollback"
+# phase 3g, streaming rounds and the hierarchical transport: steps a case
+# (3 rounds at interval 2), the codec's top-k (3e's launcher's) and chunks
+# a bucket (so a retune cuts a bucket mid-way and its tail is a strided
+# view), (b)'s trace: 2000 Mbps, then 250 from the second round's clock on
+# (steps tick 0.5 s; round 2 bills at 1.5 s), an 8x collapse past the
+# streaming cliff of 4x; (c)'s four regions at one layer (a relay route
+# needs a root that keeps the collapsed link's end: four regions, since
+# with three the tree re-roots instead; four pods of two layers do not
+# fit one card): the root's links fast, the others slow, eu<->us
+# collapsing before round 2, billed without latency or fluctuation (each
+# link's belief is its traced bandwidth); the launcher runs' steps
+STREAM_STEPS = 6
+STREAM_TOPK = 0.05
+STREAM_CHUNKS = 4
+STREAM_TRACE = ((0.0, 1.5), (2000.0, 250.0))
+STREAM_CLIFF = 4.0
+STREAM_EF_GUARD = 0.999
+STREAM_TOPO_REGIONS = ("us", "eu", "ap", "sa")
+STREAM_TOPO_LINK = ("eu", "us")
+STREAM_TOPO_FAST, STREAM_TOPO_SLOW = 2000.0, 500.0
+STREAM_TOPO_COLLAPSE = ((0.0, 1.0), (2000.0, 20.0))
+STREAM_LAUNCH_STEPS = 8
 # phase 5c: gemma3-12b's prefill, 2048 prompt tokens and 8 new ones
 GEMMA_NEW_TOKENS = 8
 GEMMA_CHECKED_LAYERS = (0, 5)       # a windowed layer and a global one
@@ -680,9 +702,10 @@ def phase_main_path(torch) -> dict:
 
 def bucketed_round_check(torch):
     """A ``round_hook`` for the launcher's codec rounds under any bucket
-    policy, and what it fills: launches by tier, each round's worst-pod EF
-    ratios by bucket, and the launch counts at the last round.  Call
-    ``mark.update(ops.LAUNCHES)`` just after resetting the counts."""
+    policy, streamed or not, and what it fills: launches by tier, each
+    round's worst-pod EF ratios by bucket, and the launch counts at the
+    last round.  Call ``mark.update(ops.LAUNCHES)`` just after resetting
+    the counts."""
     from repro_torch.core import sync as S
     from repro_torch.kernels import ops
 
@@ -690,11 +713,30 @@ def bucketed_round_check(torch):
     checked = []
     mark = {}
 
-    def check_round(state, payloads, shipped, sync):
-        """EF residual == flat - local; each bucket's kernel decode of the
-        shipped payload == its plain decode, bit for bit, at the bucket's
-        tier; the round's launches are one encode and two decodes per
-        chunk.  The compare launches leave the counts as they were."""
+    def tally(tier, enc, dec):
+        t = per_tier.setdefault(tier, {"wan_encode": 0, "wan_decode": 0})
+        t["wan_encode"] += enc
+        t["wan_decode"] += dec
+
+    def decode_held(bcfg, chunks, widths, n_total, what):
+        block = min(bcfg.codec_block, max(1, n_total))
+        kern, plain = (S._cat([ops.wan_decode(
+            c.q, c.idx.to(torch.int32), c.scales, m, block=block,
+            value_dtype=bcfg.value_dtype, use_kernel=use)
+            for c, m in zip(chunks, widths)]) for use in (True, False))
+        require(torch.equal(kern, plain),
+                f"round {len(checked)} {what} ({bcfg.value_dtype}@"
+                f"{bcfg.compress_topk}): peer decode kernel == plain")
+
+    def check_round(state, payloads, shipped, sync, retune=None):
+        """EF residual == flat - local (after a streaming retune,
+        ``payloads.local`` holds the spliced reconstruction); each shipped
+        chunk's kernel decode == its plain decode, bit for bit: the prefix
+        at the bucket's tier, a re-encoded tail at the retune's tier and
+        the tail's width; the round's launches are one encode and one local
+        decode per chunk, one peer decode per shipped prefix chunk, and one
+        encode and two decodes per tail chunk.  The compare launches leave
+        the counts as they were."""
         counts = dict(ops.LAUNCHES)
         enc = counts["wan_encode"] - mark["wan_encode"]
         dec = counts["wan_decode"] - mark["wan_decode"]
@@ -702,30 +744,33 @@ def bucketed_round_check(torch):
                             payloads.flat - payloads.local),
                 f"round {len(checked)}: EF residual == flat - local")
         layout = S.bucket_layout(sync, state.sync_state.ga_buffer)
-        n_chunks = 0
+        want = [0, 0]
         for g, name in enumerate(layout.names):
             size = layout.sizes[g]
             if not size:
                 continue
             bcfg = sync.for_bucket(name)
-            block = min(bcfg.codec_block, max(1, size))
             widths = S._chunk_widths(bcfg, size)
-            kern = S._decode_bucket(bcfg, shipped[name], size)
-            plain = S._cat([ops.wan_decode(
-                c.q, c.idx.to(torch.int32), c.scales, m, block=block,
-                value_dtype=bcfg.value_dtype, use_kernel=False)
-                for c, m in zip(shipped[name], widths)])
-            require(torch.equal(kern, plain),
-                    f"round {len(checked)} {name} ({bcfg.value_dtype}@"
-                    f"{bcfg.compress_topk}): peer decode kernel == plain")
-            tier = per_tier.setdefault(bcfg.value_dtype,
-                                       {"wan_encode": 0, "wan_decode": 0})
-            tier["wan_encode"] += len(widths)
-            tier["wan_decode"] += 2 * len(widths)
-            n_chunks += len(widths)
-        require(enc == n_chunks and dec == 2 * n_chunks,
-                f"round {len(checked)}: {enc} encodes, {dec} decodes for "
-                f"{n_chunks} chunks")
+            n_sent = (len(widths) if retune is None
+                      else retune.sent.get(name, len(widths)))
+            if n_sent:
+                decode_held(bcfg, shipped[name][:n_sent], widths[:n_sent],
+                            size, name)
+            tally(bcfg.value_dtype, len(widths), len(widths) + n_sent)
+            want[0] += len(widths)
+            want[1] += len(widths) + n_sent
+            if n_sent < len(widths):
+                tcfg = retune.cfg_to.for_bucket(name)
+                tw = size - sum(widths[:n_sent])
+                twidths = S._chunk_widths(tcfg, tw)
+                decode_held(tcfg, retune.tail_shipped[name], twidths, tw,
+                            f"{name} tail")
+                tally(tcfg.value_dtype, len(twidths), 2 * len(twidths))
+                want[0] += len(twidths)
+                want[1] += 2 * len(twidths)
+        require([enc, dec] == want,
+                f"round {len(checked)}: {enc} encodes, {dec} decodes, want "
+                f"{want}")
         ratios = (state.sync_state.resid_norm
                   / state.sync_state.msg_norm.clamp_min(1e-30)).amax(0)
         checked.append([round(float(r), 4) for r in ratios.cpu()])
@@ -1618,6 +1663,486 @@ def phase_faults(torch, device: str = "cuda", cfg=None,
         print(f"[faults] {kind} {name}: {size:.3f} GB in {secs:.2f} s "
               f"({size / secs:.2f} GB/s)")
     print(f"[faults] phase 3f: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}, peak memory {max(peaks.values()):.2f} GB")
+    return total
+
+
+def stream_run(torch, cfg, sync, batches, transport, device: str,
+               steps: int, stream=None, n_pods: int = PODS, hook=None,
+               every_step=None) -> dict:
+    """Train ``steps`` steps over ``transport`` as the launcher's loop does
+    (the clock ticks 0.5 s a step), every round held by
+    ``bucketed_round_check`` (and ``hook``, called with the round's
+    arguments first).  ``every_step(step)`` runs before each step.  Returns the
+    final params, EF residual and tier, the per-round norms, the launches,
+    the checked rounds, the trainer's times and retunes."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    check, per_tier, checked, mark = bucketed_round_check(torch)
+    norms = []
+
+    def round_hook(state, payloads, shipped, sync_, retune=None):
+        norms.append((state.sync_state.msg_norm.clone(),
+                      state.sync_state.resid_norm.clone()))
+        if hook is not None:
+            hook(state, payloads, shipped, sync_, retune=retune)
+        check(state, payloads, shipped, sync_, retune=retune)
+
+    trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                      lambda g: transformer.init_params(g, cfg, device),
+                      TrainerConfig(n_pods=n_pods, optimizer="sgd", lr=0.02,
+                                    sync=sync),
+                      device=device, round_hook=round_hook,
+                      transport=transport, stream=stream)
+    state = trainer.init_state(SEED)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    mark.update(ops.LAUNCHES)
+    losses = []
+    for step in range(steps):
+        if every_step is not None:
+            every_step(step)
+        state, metrics = trainer.train_step(state, batches(step))
+        losses.append(metrics["loss_per_pod"].float().cpu().tolist())
+        state = trainer.maybe_sync(state, step)
+        if hasattr(transport, "tick"):
+            transport.tick(0.5)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    require(all(math.isfinite(v) for row in losses for v in row),
+            f"finite losses {losses}")
+    require(len(checked) == steps // sync.interval,
+            f"{len(checked)} codec rounds checked")
+    out = {"params": state.params, "ef": state.sync_state.ef_residual,
+           "tier": state.sync_state.tier, "norms": norms,
+           "launches": {k: ops.LAUNCHES[k]
+                        for k in ("wan_encode", "wan_decode")},
+           "checked": checked, "per_tier": per_tier,
+           "sync_s": list(trainer.sync_seconds),
+           "step_s": list(trainer.step_seconds),
+           "stream_retunes": trainer.stream_retunes}
+    del state, trainer
+    return out
+
+
+def phase_streaming(torch, device: str = "cuda", cfg=None,
+                    seq: int = 512) -> dict:
+    """Phase 3g: streaming rounds (``_StreamRound``, the transports' stream
+    protocol, ``Trainer._stream_sync``), the mid-round tail re-encode
+    (``reencode_unsent``, ``finish_codec_sync_split``), the
+    ``HierarchicalTransport`` and the launcher's ``--stream-retune`` and
+    ``--topology`` at granite-8b width, on phase 3e's setup.  Returns the
+    codec launches of its runs."""
+    from repro_torch import tree as T
+    from repro_torch.configs import granite_8b
+    from repro_torch.core import sync as S
+    from repro_torch.core.autotune import StreamingShipController
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.core.topology import (HierarchicalTransport,
+                                           TopologySpec, link_key)
+    from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
+                                            SimTransport)
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wan_codec import k_per_block
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=STREAM_TOPK,
+                        quantize_int8=True, error_feedback=True,
+                        overlap_chunks=STREAM_CHUNKS,
+                        bucket_policy="layer-class")
+    total = {"wan_encode": 0, "wan_decode": 0}
+    peaks: dict = {}
+    launches: dict = {}
+
+    def peak_gb() -> float:
+        return (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else float("nan"))
+
+    def keep(case, run_launches):
+        """The case's launches and the device's peak since the last case."""
+        launches[case] = {k: run_launches[k] for k in total}
+        for k in total:
+            total[k] += run_launches[k]
+        peaks[case] = round(peak_gb(), 2)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def plan_batches(n_pods, batch, steps):
+        clouds = tuple(CloudResources(region=f"pod{i}",
+                                      devices=(("v5e", 4),), data_size=1.0)
+                       for i in range(n_pods))
+        plan = build_training_plan(TrainingRequest(
+            model=cfg.name, clouds=clouds, sync=sync, n_iters=steps,
+            global_batch=batch))
+        return train.make_batches(plan, cfg.vocab_size, seq, device)
+
+    def records(t):
+        return [(r.bucket, r.payload_mb, r.seconds, r.step)
+                for r in t.records]
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    batches = plan_batches(PODS, 8, STREAM_STEPS)
+    trace = train.parse_wan_trace(CONTROL_TRACE, STREAM_STEPS, 0.5)
+    model_mb = cfg.param_count() * 2 / 1e6   # bf16 weights a pod
+    n_rounds = STREAM_STEPS // sync.interval
+    exact = True
+
+    # (a) zero retunes: every run of every transport, classic and
+    #     streaming, against the classic sim run (all ship the inline
+    #     ring's bytes)
+    def never():
+        return StreamingShipController(sync, model_mb)
+
+    made = {
+        "sim": lambda: SimTransport(trace, WANConfig(fluctuation=0.25,
+                                                     seed=0),
+                                    probe=MeasuredWanProbe()),
+        "mesh": lambda: MeshTransport(probe=MeasuredWanProbe()),
+        "hier": lambda: HierarchicalTransport(
+            TopologySpec.from_regions(["us", "eu"], kind="tree"), trace,
+            wan=WANConfig(fluctuation=0.25, seed=0),
+            probe=MeasuredWanProbe()),
+    }
+    base = None
+    round_s, ts = {}, {}
+    for kind in ("sim", "mesh", "hier"):
+        for mode in ("classic", "stream"):
+            tr = made[kind]()
+            ctl = never() if mode == "stream" else None
+            run = stream_run(torch, cfg, sync, batches, tr, device,
+                             STREAM_STEPS, stream=ctl)
+            keep(f"(a) {kind} {mode}", run["launches"])
+            round_s[f"{kind} {mode}"] = [round(t, 4) for t in run["sync_s"]]
+            if base is None:
+                base = run
+            else:
+                bad = stream_diff(torch, base, run, True)
+                if bad and exact:
+                    # is the training step itself deterministic here?
+                    again = stream_run(torch, cfg, sync, batches,
+                                       made["sim"](), device, STREAM_STEPS)
+                    twice = stream_diff(torch, base, again, True)
+                    del again
+                    require(bool(twice), f"(a) {kind} {mode} differs from "
+                            f"the classic sim run ({bad}) though two "
+                            f"classic runs agree")
+                    print(f"[stream] two classic runs differ ({twice[:4]}"
+                          f"...): (a) is held at atol {TRANSPORT_ATOL}, "
+                          f"rtol {TRANSPORT_RTOL}")
+                    exact = False
+                if not exact:
+                    bad = stream_diff(torch, base, run, False)
+                require(not bad, f"(a) {kind} {mode} == the classic sim "
+                        f"run: {bad}")
+                require(run["launches"] == base["launches"],
+                        f"(a) {kind} {mode} launches {run['launches']} == "
+                        f"{base['launches']}")
+            if mode == "stream":
+                require(len(tr.stream_rounds) == n_rounds
+                        and not any(r["retuned"] for r in tr.stream_rounds)
+                        and tr.probe.n_chunk_observations
+                        == len(ctl.decisions) > 0,
+                        f"(a) {kind}: {len(tr.stream_rounds)} streamed "
+                        f"rounds, {tr.probe.n_chunk_observations} chunk "
+                        f"observations")
+            ts[(kind, mode)] = tr
+            del run
+        c, st = ts[(kind, "classic")], ts[(kind, "stream")]
+        if kind == "mesh":
+            # a streamed bucket's MB is its chunks' sum: equal up to float
+            # association
+            rc, rs = ([(b, round(mb, 9), s) for b, mb, _, s in records(t)]
+                      for t in (c, st))
+            require(rc == rs and c.probe.n_observations
+                    == st.probe.n_observations == n_rounds,
+                    f"(a) mesh: records by bucket, MB and step {rc} == {rs}, "
+                    f"probe observations {c.probe.n_observations} == "
+                    f"{st.probe.n_observations} == {n_rounds}")
+        else:
+            require(records(c) == records(st)
+                    and c.probe.estimator.bandwidth_mbps
+                    == st.probe.estimator.bandwidth_mbps
+                    and c.on_sync({"all": 1.0}) == st.on_sync({"all": 1.0}),
+                    f"(a) {kind}: billed records, probe belief and the next "
+                    f"draw equal")
+        if kind == "hier":
+            require(c.beliefs.snapshot() == st.beliefs.snapshot()
+                    and c.schedule == st.schedule,
+                    "(a) hier: link beliefs and schedule equal")
+    ref_launches = dict(base["launches"])
+    del base, ts
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[stream] (a) {cfg.name} x{cfg.n_layers} layers, {PODS} pods, "
+          f"batch 8, seq {seq}, {sync.value_dtype} top-k {STREAM_TOPK}, "
+          f"{STREAM_CHUNKS} chunks a bucket: zero-retune streaming == "
+          f"classic on sim, mesh (one card) and hierarchical (2 regions), "
+          f"{'bit for bit' if exact else 'within tolerance'}; records, "
+          f"probe belief and rng stream equal; launches {ref_launches} a "
+          f"run")
+    print(f"[stream] (a) sync-round s (steps 1, 3, 5) classic vs "
+          f"streaming: {round_s}")
+
+    # (b) one retune: a clean sim link collapsing 8x at round 2
+    tb = SimTransport(BandwidthTrace(*STREAM_TRACE),
+                      WANConfig(latency_s=0.0, fluctuation=0.0),
+                      probe=MeasuredWanProbe())
+    ctl_b = StreamingShipController(sync, model_mb, cliff_ratio=STREAM_CLIFF,
+                                    ef_guard=STREAM_EF_GUARD,
+                                    probe_est=tb.probe.estimator)
+    held: dict = {}
+
+    def hold_retune(state, payloads, shipped, sync_, retune=None):
+        """The retuned round, held outside its timing: EF residual == flat
+        - spliced local, recomputed through reencode_unsent; the tails
+        recomputed == the shipped ones; each tail's encode and decode ==
+        the plain versions on the same strided views; a shrunk block at an
+        unaligned base likewise; the tail re-encode timed."""
+        if retune is None:
+            return
+        counts = dict(ops.LAUNCHES)
+        layout = S.bucket_layout(sync_, state.sync_state.ga_buffer)
+        flat, ef = payloads.flat, state.sync_state.ef_residual
+        tails, tail_local = S.reencode_unsent(sync_, retune.cfg_to, flat,
+                                              layout, retune.sent)
+        require(sorted(tails) == sorted(retune.tails),
+                f"(b) tails {sorted(tails)}")
+        cuts = {}
+        for g, name in enumerate(layout.names):
+            off, size = layout.offsets[g], layout.sizes[g]
+            if not size:
+                continue
+            widths = S._chunk_widths(sync_.for_bucket(name), size)
+            sw = int(sum(widths[:retune.sent.get(name, len(widths))]))
+            lo = off + sw
+            require(torch.equal(ef[:, off:lo],
+                                flat[:, off:lo] - payloads.local[:, off:lo]),
+                    f"(b) {name}: prefix EF == flat - local")
+            if name not in tails:
+                continue
+            cuts[name] = (lo, off + size)
+            require(torch.equal(ef[:, lo:off + size],
+                                flat[:, lo:off + size] - tail_local[name]),
+                    f"(b) {name}: tail EF == flat - the re-encoded tail's "
+                    f"local")
+            require(all(same(a, b) for a, b in
+                        zip(tails[name], retune.tails[name], strict=True)),
+                    f"(b) {name}: re-encoded tail == the shipped one")
+        del tail_local
+        tcfg = retune.cfg_to
+        views = [(name, flat[:, lo:hi]) for name, (lo, hi) in cuts.items()]
+        # a tail narrower than the codec block at an odd (unaligned) base
+        lo = cuts[max(cuts, key=lambda n: cuts[n][1] - cuts[n][0])][0] + 1
+        views.append(("shrunk, unaligned", flat[:, lo:lo + 3001]))
+        held["views"] = []
+        for what, view in views:
+            n = view.shape[1]
+            block = min(tcfg.codec_block, n)
+            kb = k_per_block(block, tcfg.compress_topk)
+            kern = ops.wan_encode(view, kb, block=block,
+                                  value_dtype=tcfg.value_dtype)
+            plain = ops.wan_encode(view, kb, block=block,
+                                   value_dtype=tcfg.value_dtype,
+                                   use_kernel=False)
+            require(same(kern, plain), f"(b) {what}: encode kernel == plain "
+                    f"on the view")
+            dk = ops.wan_decode(*kern, n, block=block,
+                                value_dtype=tcfg.value_dtype)
+            dp = ops.wan_decode(*plain, n, block=block,
+                                value_dtype=tcfg.value_dtype,
+                                use_kernel=False)
+            require(torch.equal(dk, dp), f"(b) {what}: decode kernel == "
+                    f"plain")
+            held["views"].append((what, n, block,
+                                  (view.data_ptr() % 16) == 0))
+            del kern, plain, dk, dp
+        if device == "cuda":
+            held["reencode_ms"] = time_ms(
+                torch, lambda: S.reencode_unsent(sync_, tcfg, flat, layout,
+                                                 retune.sent), reps=3, warm=1)
+        held["sent"] = dict(retune.sent)
+        held["tail_chunks"] = sum(len(c) for c in retune.tails.values())
+        held["cfg_to"] = (tcfg.compress_topk, tcfg.value_dtype)
+        ops.LAUNCHES.update(counts)
+
+    run_b = stream_run(torch, cfg, sync, batches, tb, device, STREAM_STEPS,
+                       stream=ctl_b, hook=hold_retune)
+    keep("(b) one retune", run_b["launches"])
+    retunes = [d for d in ctl_b.decisions if d["action"] == "retune"]
+    rd = [r for r in tb.stream_rounds if r["retuned"]]
+    cheap = ctl_b.ladder[retunes[0]["rung"]] if retunes else None
+    require(run_b["stream_retunes"] == 1 == ctl_b.n_retunes == len(rd)
+            and rd[0]["step"] == 3 and "views" in held,
+            f"(b) one retune, at round 2 (step 3): {run_b['stream_retunes']} "
+            f"retunes, rounds {[r['step'] for r in rd]}")
+    require(retunes[0]["rung"] > 0 and held["cfg_to"]
+            == (cheap.compress_topk, cheap.value_dtype)
+            and tb.probe.estimator.bandwidth_mbps == STREAM_TRACE[1][1],
+            f"(b) the tail at the cliff law's rung {retunes[0]['rung']} "
+            f"({held['cfg_to']}), belief snapped to "
+            f"{tb.probe.estimator.bandwidth_mbps}")
+    print(f"[stream] (b) clean sim link {STREAM_TRACE[1][0]:.0f} -> "
+          f"{STREAM_TRACE[1][1]:.0f} Mbps at round 2: one retune after "
+          f"chunk {retunes[0]['chunk']} ({retunes[0]['bucket']}, achieved "
+          f"{retunes[0]['achieved']:.1f} vs believed "
+          f"{retunes[0]['believed']:.1f} Mbps) to rung {retunes[0]['rung']}"
+          f" {held['cfg_to'][1]}@{held['cfg_to'][0]}; chunks sent before "
+          f"it {held['sent']}, {held['tail_chunks']} tail chunks "
+          f"re-encoded; EF == "
+          f"flat - spliced local bit for bit; tail views (what, width, "
+          f"block, 16-byte aligned) {held['views']} held to the plain "
+          f"encode and decode")
+    print(f"[stream] (b) sync-round s {[round(t, 4) for t in run_b['sync_s']]}"
+          f" (the retuning round: step 3); tail re-encode "
+          f"{held.get('reencode_ms', float('nan')):.3f} ms; round (tail MB, "
+          f"t_tail s, shipped MB, t s) "
+          f"{[(r['tail_mb'], r['t_tail'], r['shipped_mb'], r['t_s']) for r in rd]}"
+          f"; launches {run_b['launches']} (by tier {run_b['per_tier']})")
+    del run_b, tb, ctl_b
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) topology: four regions at one layer, the hierarchical run
+    #     against the inline ring; a collapse on eu<->us reroutes from the
+    #     next round; set_kind tree -> ring -> tree
+    cfg1 = cfg.replace(n_layers=1)
+    n4 = len(STREAM_TOPO_REGIONS)
+    batches4 = plan_batches(n4, 8, STREAM_STEPS)
+    root, bad_link = STREAM_TOPO_REGIONS[0], link_key(*STREAM_TOPO_LINK)
+    fast = {link_key(root, r): BandwidthTrace((0.0,), (STREAM_TOPO_FAST,))
+            for r in STREAM_TOPO_REGIONS[1:]}
+    fast[bad_link] = BandwidthTrace(*STREAM_TOPO_COLLAPSE)
+    hier = HierarchicalTransport(
+        TopologySpec.from_regions(list(STREAM_TOPO_REGIONS), kind="tree"),
+        BandwidthTrace((0.0,), (STREAM_TOPO_SLOW,)),
+        wan=WANConfig(latency_s=0.0, fluctuation=0.0), link_traces=fast,
+        probe=MeasuredWanProbe())
+    crossed = []
+
+    def switch(step):
+        if step == 4:
+            hier.set_kind("ring", step=step)
+        elif step == 5:
+            hier.set_kind("tree", step=step)
+        if step % sync.interval == sync.interval - 1:
+            crossed.append((step, bad_link in {
+                h for leg in hier.schedule.wan_legs for h in leg.hops}))
+
+    run_c = stream_run(torch, cfg1, sync, batches4, hier, device,
+                       STREAM_STEPS, n_pods=n4, every_step=switch)
+    keep("(c) hierarchical", run_c["launches"])
+    # four pods' state does not fit twice: the hierarchical run's final
+    # state waits on the host while the inline run trains
+    held_c = {"params": T.tree_map(lambda x: x.cpu(), run_c["params"]),
+              "ef": run_c["ef"].cpu(), "tier": run_c["tier"].cpu(),
+              "norms": [(m.cpu(), r.cpu()) for m, r in run_c["norms"]],
+              "launches": run_c["launches"], "sync_s": run_c["sync_s"]}
+    del run_c
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    inline = stream_run(torch, cfg1, sync, batches4, None, device,
+                        STREAM_STEPS, n_pods=n4)
+    keep("(c) inline", inline["launches"])
+    bad = stream_diff(torch, held_c, {
+        "params": T.tree_map(lambda x: x.cpu(), inline["params"]),
+        "ef": inline["ef"].cpu(), "tier": inline["tier"].cpu(),
+        "norms": [(m.cpu(), r.cpu()) for m, r in inline["norms"]]}, exact)
+    require(not bad and held_c["launches"] == inline["launches"],
+            f"(c) hierarchical == the inline ring: {bad}")
+    require([s for s, _ in hier.reroutes] == [3, 5]
+            and [c for _, c in crossed] == [True, True, False],
+            f"(c) the collapse billed at round 2 (step 3) reroutes round 3:"
+            f" reroutes {hier.reroutes}, {bad_link} crossed by the rounds "
+            f"at steps 1, 3, 5: {crossed}")
+    require(hier.switches == [(4, "tree", "ring"), (5, "ring", "tree")],
+            f"(c) switches {hier.switches}")
+    print(f"[stream] (c) {cfg1.name} x1 layer, {n4} pods in regions "
+          f"{list(STREAM_TOPO_REGIONS)} (tree rooted at {root}): the "
+          f"hierarchical run == the inline ring "
+          f"{'bit for bit' if exact else 'within tolerance'}; {bad_link} "
+          f"{STREAM_TOPO_COLLAPSE[1][0]:.0f} -> "
+          f"{STREAM_TOPO_COLLAPSE[1][1]:.0f} Mbps at "
+          f"{STREAM_TOPO_COLLAPSE[0][1]} s, crossed by the rounds at steps "
+          f"1, 3, 5: {[c for _, c in crossed]}; reroutes {hier.reroutes}; "
+          f"switches {hier.switches}; {hier.wan_transfers_per_round} WAN "
+          f"transfers a round")
+    print(f"[stream] (c) sync-round s hierarchical "
+          f"{[round(t, 4) for t in held_c['sync_s']]}, "
+          f"inline {[round(t, 4) for t in inline['sync_s']]}; billed "
+          f"(bucket, MB, s, step) "
+          f"{[(b, round(mb, 3), sec, st) for b, mb, sec, st in records(hier)]}")
+    del inline, held_c, hier
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the launcher: 3e's argv with --stream-retune, then with
+    #     --topology auto (the hierarchical transport) in place of sim
+    argv = ["--pods", str(PODS), "--steps", str(STREAM_LAUNCH_STEPS),
+            "--batch", "8", "--seq", str(seq), "--interval", "2",
+            "--compress-topk", str(STREAM_TOPK), "--int8",
+            "--error-feedback", "--overlap-chunks", str(STREAM_CHUNKS),
+            "--bucket-policy", "layer-class", "--adaptive-sync",
+            "--wan-trace", CONTROL_TRACE, "--ef-guard",
+            str(CONTROL_EF_GUARD), "--stream-retune", "--log-every", "0",
+            "--device", device]
+    launcher = {}
+    for case, extra in (("sim", ["--transport", TRANSPORT_SIM]),
+                        ("topology", ["--topology", "auto"])):
+        check, per_tier, checked, mark = bucketed_round_check(torch)
+        ops.reset_launches()
+        mark.update(ops.LAUNCHES)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = train.main(argv + extra, model_cfg=cfg,
+                                 round_hook=check)
+        keep(f"(d) {case}", ops.LAUNCHES)
+        total_tier = {k: sum(t[k] for t in per_tier.values())
+                      for k in ("wan_encode", "wan_decode")}
+        require(launches[f"(d) {case}"] == total_tier,
+                f"(d) {case}: launches {launches[f'(d) {case}']} == "
+                f"per-tier sums {total_tier}")
+        lines = [line for line in buf.getvalue().splitlines()
+                 if line.startswith(("[stream]", "[topology]",
+                                     "[transport]"))]
+        print("\n".join(lines))
+        rounds = summary["rounds"]
+        require(len(checked) == len(rounds) > 0,
+                f"(d) {case}: {len(checked)} of {len(rounds)} rounds checked")
+        require(summary["stream_retunes"] >= 1
+                and summary["stream_rounds"] == len(rounds)
+                and any(line.startswith("[stream]") for line in lines),
+                f"(d) {case}: a [stream] line and a streaming retune: "
+                f"{summary['stream_retunes']} retunes, "
+                f"{summary['stream_rounds']} streamed rounds")
+        if case == "topology":
+            require(any(line.startswith("[topology]") for line in lines)
+                    and summary["final_topology"] in ("ring", "tree")
+                    and summary["wan_transfers_per_round"] == PODS,
+                    f"(d) topology: {summary['final_topology']}, "
+                    f"{summary['wan_transfers_per_round']} transfers")
+        launcher[case] = {k: summary[k] for k in (
+            "stream_retunes", "stream_rounds", "stream_decisions", "retunes",
+            "final_topology", "topology_switches", "topology_reroutes",
+            "wan_transfers_per_round", "transfers",
+            "measured_bandwidth_mbps")}
+        print(f"[stream] (d) launcher {case}: {launcher[case]}; rounds "
+              f"(step, knobs, s) "
+              f"{[[r[0], r[1], round(r[2], 4)] for r in rounds]}; launches "
+              f"by tier {per_tier}")
+    print(f"[stream] launches by case {launches}")
+    print(f"[stream] peak memory GB by case {peaks}")
+    print(f"[stream] phase 3g: {time.perf_counter() - t_phase:.1f} s, "
           f"launches {total}, peak memory {max(peaks.values()):.2f} GB")
     return total
 
@@ -3384,6 +3909,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     fault_launches = phase_faults(torch)
     torch.cuda.empty_cache()
+    stream_launches = phase_streaming(torch)
+    torch.cuda.empty_cache()
     topk_launches = phase_strategies(torch)
     phase_paper_models(torch)
     phase_entry_point(torch)
@@ -3409,6 +3936,7 @@ def main() -> int:
                                      + control_launches[name]
                                      + transport_launches[name]
                                      + fault_launches[name]
+                                     + stream_launches[name]
                                      + moe_train_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]

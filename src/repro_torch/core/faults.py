@@ -283,8 +283,7 @@ class ChaosTransport:
         round the plan touches declines streaming (returns False), so the
         trainer ships the classic way, where :func:`resolve_round` owns the
         billing, retries and degraded membership.  Clean rounds delegate to
-        the wrapped transport (whose base class declines streaming until
-        ROADMAP Queue 1 item 11c)."""
+        the wrapped transport."""
         if self.plan.at(step if step is not None else self._step):
             return False
         return self.inner.begin_stream_round(wire_mb, step=step)

@@ -25,9 +25,10 @@ decompress.  The pod-count transforms (:func:`grow_pods`,
 :func:`shrink_pods`, :func:`resize_sync_state`) and the codec retune
 (:func:`retune_sync_state`) carry the state across reconfigurations.  The
 codec round ships through a transport (``repro_torch.core.transport``) with
-the reference's retry loop and checksums (:func:`ship_sync_payloads`).  The
-streaming re-encode (``reencode_unsent``, ``finish_codec_sync_split``) is
-ROADMAP Queue 1 item 11c.
+the reference's retry loop and checksums (:func:`ship_sync_payloads`).  A
+streaming round that retunes mid-round re-encodes each bucket's unsent
+tail at a cheaper rung (:func:`reencode_unsent`) and splices the shipped
+prefix and tail back together (:func:`finish_codec_sync_split`).
 
 Memory: at full width the f32 buffers are the bulk of device memory, so a
 round works in place where the reference builds new arrays, and leaf by
@@ -592,6 +593,23 @@ def _decode_bucket(cfg: SyncConfig, chunks: Sequence[ChunkPayload],
     return _decode_chunks(cfg, chunks, _chunk_widths(cfg, n_total), n_total)
 
 
+def _decode_into(out: torch.Tensor, cfg: SyncConfig,
+                 chunks: Sequence[ChunkPayload], widths: Sequence[int],
+                 n_total: int) -> None:
+    """Decode a (chunk, width) list of one bucket segment into ``out`` (its
+    columns), one chunk at a time; ``n_total`` is the width the segment
+    was encoded at (it fixes the codec block)."""
+    from repro_torch.kernels import ops as kops
+
+    block = min(cfg.codec_block, max(1, n_total))
+    _, decode = kops.wan_codec_fns(block=block, value_dtype=cfg.value_dtype)
+    off = 0
+    for c, m in zip(chunks, widths):
+        out[:, off:off + m].copy_(decode(c.q, c.idx.to(torch.int32),
+                                         c.scales, m))
+        off += m
+
+
 def _wire_bits(p: torch.Tensor) -> torch.Tensor:
     """A wire part as the port moves it: u16 indices as their int16 bit
     pattern (PyTorch's u16 support covers copies, not every op on every
@@ -788,15 +806,16 @@ def finish_codec_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
     ``alive`` (``(n_pods,)`` 1/0) is the degraded round: see
     :func:`_finish_from_peer`."""
     layout = bucket_layout(cfg, state.ga_buffer)
-    peer_parts = []
+    # decoded chunk by chunk into one buffer: at full width a list of
+    # decoded buckets beside their concatenation would cost a second one
+    peer_flat = torch.empty_like(payloads.flat)
     for g, name in enumerate(layout.names):
-        size = layout.sizes[g]
+        off, size = layout.offsets[g], layout.sizes[g]
         if size == 0:
-            peer_parts.append(payloads.flat[:, :0])
             continue
-        peer_parts.append(_decode_bucket(cfg.for_bucket(name),
-                                         shipped[name], size))
-    peer_flat = _cat(peer_parts)
+        bcfg = cfg.for_bucket(name)
+        _decode_into(peer_flat[:, off:off + size], bcfg, shipped[name],
+                     _chunk_widths(bcfg, size), size)
     return _finish_from_peer(cfg, params, state, payloads.flat,
                              payloads.local, peer_flat, layout, lr, alive)
 
@@ -855,6 +874,99 @@ def _receiver_update(cfg: SyncConfig, params: Pytree, peer: Pytree,
         * cfg.ga_lr_scale
     return T.tree_map(lambda p, g: p.copy_(p.float() - scale * g),
                       params, peer)
+
+
+# ----------------------------------------------- streaming mid-round retune
+
+
+def _sent_width(cfg: SyncConfig, name: str, size: int,
+                sent: Mapping[str, int]) -> Tuple[Tuple[int, ...], int, int]:
+    """A bucket's ``cfg`` chunk widths, how many of them shipped before the
+    retune (absent: all) and the dense width they cover."""
+    widths = _chunk_widths(cfg.for_bucket(name), size)
+    n_sent = sent.get(name, len(widths))
+    return widths, n_sent, int(sum(widths[:n_sent]))
+
+
+def reencode_unsent(cfg: SyncConfig, cfg_to: SyncConfig, flat: torch.Tensor,
+                    layout: BucketLayout, sent: Mapping[str, int]
+                    ) -> Tuple[Dict[str, Tuple[ChunkPayload, ...]],
+                               Dict[str, torch.Tensor]]:
+    """Re-encode every bucket's unsent chunk tail at ``cfg_to``'s cheaper
+    (top-k, dtype) knobs: the streaming mid-round retune.
+
+    ``sent`` maps bucket name -> number of ``cfg``-schedule chunks already
+    shipped (absent buckets count as fully shipped).  Chunks split on codec
+    block boundaries and ``cfg_to`` keeps ``cfg``'s ``codec_block``, so the
+    sent prefix keeps its encoding and the tail encodes on its own: block
+    selection never looks across the cut.  The tail is read in place, a
+    row-strided view of ``flat``; a tail narrower than the codec block
+    encodes at its own width (``_encode_bucket``).  Returns ``(tail_chunks,
+    tail_local)`` keyed by bucket (only buckets with an unsent tail; the
+    local reconstruction only under error feedback), which
+    :func:`finish_codec_sync_split` splices into the round."""
+    tails: Dict[str, Tuple[ChunkPayload, ...]] = {}
+    locals_: Dict[str, torch.Tensor] = {}
+    for g, name in enumerate(layout.names):
+        off, size = layout.offsets[g], layout.sizes[g]
+        if size == 0:
+            continue
+        _, _, sw = _sent_width(cfg, name, size, sent)
+        if sw >= size:
+            continue
+        tchunks, tlocal = _encode_bucket(cfg_to.for_bucket(name),
+                                         flat[:, off + sw:off + size],
+                                         want_local=cfg.error_feedback)
+        tails[name] = tchunks
+        if tlocal is not None:
+            locals_[name] = tlocal
+    return tails, locals_
+
+
+def finish_codec_sync_split(cfg: SyncConfig, cfg_to: SyncConfig,
+                            params: Pytree, state: SyncState,
+                            payloads: SyncPayloads,
+                            shipped: Mapping[str, Tuple[ChunkPayload, ...]],
+                            tail_shipped: Mapping[str,
+                                                  Tuple[ChunkPayload, ...]],
+                            tail_local: Mapping[str, torch.Tensor],
+                            sent: Mapping[str, int], lr: float = 1.0,
+                            alive: Optional[torch.Tensor] = None
+                            ) -> Tuple[Pytree, SyncState]:
+    """Finish a streaming round that retuned mid-round: each bucket's peer
+    message is its shipped ``cfg`` prefix chunks, decoded at the bucket's
+    width, then its shipped ``cfg_to`` tail chunks, decoded at the tail's
+    width; the sender-side reconstruction is spliced the same way, so
+    ``ef_residual = flat - spliced_local`` carries exactly the fidelity
+    the cheaper tail dropped.  The persistent config (and the state's
+    ``tier``) stays ``cfg``'s: the retune belongs to this round alone.
+
+    Memory: the peer message is decoded into one buffer the size of
+    ``payloads.flat``, chunk by chunk, and the tails' reconstructions are
+    copied over their columns of ``payloads.local`` in place (which then
+    holds the spliced reconstruction); no second packed buffer is built."""
+    layout = bucket_layout(cfg, state.ga_buffer)
+    flat = payloads.flat
+    peer_flat = torch.empty_like(flat)
+    for g, name in enumerate(layout.names):
+        off, size = layout.offsets[g], layout.sizes[g]
+        if size == 0:
+            continue
+        bcfg = cfg.for_bucket(name)
+        widths, n_sent, sw = _sent_width(cfg, name, size, sent)
+        if n_sent:
+            _decode_into(peer_flat[:, off:off + sw], bcfg,
+                         shipped[name][:n_sent], widths[:n_sent], size)
+        if sw < size:
+            tcfg = cfg_to.for_bucket(name)
+            _decode_into(peer_flat[:, off + sw:off + size], tcfg,
+                         tail_shipped[name],
+                         _chunk_widths(tcfg, size - sw), size - sw)
+            if cfg.error_feedback:
+                payloads.local[:, off + sw:off + size].copy_(
+                    tail_local[name])
+    return _finish_from_peer(cfg, params, state, flat, payloads.local,
+                             peer_flat, layout, lr, alive)
 
 
 def bucket_chunk_mb(cfg: SyncConfig, layout: BucketLayout

@@ -24,9 +24,8 @@ Three layers:
   (cliff-snap included, so one transfer on a collapsed link reprices it),
   fed by the transport's billed per-leg transfer times — the per-link
   generalization of the PR-5 :class:`~repro_torch.core.transport.MeasuredWanProbe`.
-- ``HierarchicalTransport`` (the reference's; ROADMAP Queue 1 item 11,
-  with the transports it subclasses) — *who ships*: a
-  ``repro.core.transport.WanTransport`` behind the PR-5 seam.
+- :class:`HierarchicalTransport` — *who ships*: a
+  :class:`~repro_torch.core.transport.WanTransport` behind the PR-5 seam.
   Shipping delegates to the inline ring (``sync._INLINE_RING``) — the SAME
   code path the legacy jit traces, so flat-ring and hierarchical runs
   produce **bit-identical** averaged parameters by construction; what the
@@ -50,20 +49,25 @@ barrier mean, inter-region exchange is MA gossip —
 its degenerate equivalences (singleton groups == flat ``ama``, one group
 == flat ``sma``).
 
-The port holds the whole module but ``HierarchicalTransport``, which
-waits for the transports: the specs, schedules and the planner are
-host-only, and the planner takes its actuator as ``apply=``.
+Everything here is host arithmetic but the ship, which is the inline
+ring's ``torch.roll`` over the pod dimension; the planner takes its
+actuator as ``apply=`` (a transport's ``set_kind``).
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
 from repro_torch.core.autotune import WanProbeEstimator
-from repro_torch.core.wan import WANConfig, transfer_time
+from repro_torch.core.sync import _INLINE_RING, ChunkPayload
+from repro_torch.core.transport import (MeasuredWanProbe, TransferRecord,
+                                        WanTransport, _close_billed_round,
+                                        _StreamRound)
+from repro_torch.core.wan import BandwidthTrace, WANConfig, transfer_time
 
 _EPS = 1e-9
 
@@ -156,7 +160,7 @@ class AggregationSchedule:
     """A compiled two-level aggregation round: which transfers happen, in
     which order, over which links.  This is the *billing and accounting*
     model of a sync round — the data movement itself stays the bit-exact
-    inline ring (see the reference's ``HierarchicalTransport.ship_bucket``)."""
+    inline ring (see :meth:`HierarchicalTransport.ship_bucket`)."""
 
     kind: str
     root: Optional[str]
@@ -363,6 +367,183 @@ class TopologySpec:
         return self.compile(beliefs).round_s(
             payload_mb, beliefs.mbps, intra_mbps=self.intra_mbps,
             latency_s=latency_s)
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical transport: the inline ring's bytes, topology-aware billing
+# ---------------------------------------------------------------------------
+
+
+class HierarchicalTransport(WanTransport):
+    """Hierarchical aggregation behind the transport seam.
+
+    Shipping delegates to the inline ring, so flat-ring and hierarchical
+    runs are bit-identical; the topology lives in the billing: each sync
+    round costs the compiled schedule's phases, per leg at that link's
+    traced bandwidth through the simulator's transfer law.  Billed per-leg
+    times feed the link beliefs (cliff-snap per link), and the schedule
+    recompiles after every round: a collapse observed at round k ships over
+    the auxiliary route at round k+1.
+
+    ``link_traces`` maps inter-region links (canonical ``link_key(a, b)``
+    tuples) to their own :class:`BandwidthTrace`; ``trace`` is the default
+    for unmapped links.  The caller owns the clock (``tick``), as with
+    :class:`~repro_torch.core.transport.SimTransport`."""
+
+    in_graph = True
+
+    def __init__(self, spec: TopologySpec, trace: BandwidthTrace,
+                 wan: Optional[WANConfig] = None,
+                 link_traces: Optional[Mapping[Link, BandwidthTrace]] = None,
+                 probe: Optional[MeasuredWanProbe] = None,
+                 beliefs: Optional[LinkBeliefs] = None):
+        super().__init__()
+        self.spec = spec
+        self.trace = trace
+        self.link_traces = dict(link_traces or {})
+        for key in self.link_traces:
+            if link_key(*key) != key:
+                raise ValueError(f"link_traces key {key} is not canonical; "
+                                 f"use link_key(a, b)")
+        self.wan = wan if wan is not None else WANConfig()
+        self.probe = probe
+        self.beliefs = (beliefs if beliefs is not None
+                        else LinkBeliefs(default_mbps=trace.mbps[0]))
+        self.clock_s = 0.0
+        self._rng = np.random.default_rng(self.wan.seed)
+        self.schedule = spec.compile(self.beliefs)
+        self.reroutes: List[Tuple[Optional[int], str]] = []
+        self.switches: List[Tuple[Optional[int], str, str]] = []
+
+    # -------------------------------------------------------------- clock
+    def tick(self, dt_s: float) -> None:
+        self.clock_s += dt_s
+
+    def link_mbps(self, a: str, b: str) -> float:
+        """The link's physical bandwidth now (its trace at the clock): what
+        billing draws from; the beliefs only see billed transfers."""
+        return self.link_traces.get(link_key(a, b), self.trace).at(
+            self.clock_s)
+
+    # ----------------------------------------------------------- actuation
+    def set_kind(self, kind: str, step: Optional[int] = None) -> None:
+        """Adopt a new topology shape (the planner's actuator).  Takes
+        effect at the next round's billing; the bytes are untouched."""
+        if kind != self.spec.kind:
+            self.switches.append((step, self.spec.kind, kind))
+            self.spec = self.spec.with_kind(kind)
+            self._recompile(step)
+
+    def _recompile(self, step: Optional[int] = None) -> None:
+        was_aux = self.schedule.uses_aux_route
+        self.schedule = self.spec.compile(self.beliefs)
+        if self.schedule.uses_aux_route and not was_aux:
+            legs = [leg for leg in self.schedule.wan_legs
+                    if leg.via is not None]
+            self.reroutes.append(
+                (step, ", ".join(f"{leg.src}->{leg.via}->{leg.dst}"
+                                 for leg in legs)))
+
+    @property
+    def wan_transfers_per_round(self) -> int:
+        """Payload-sized WAN transfers per sync round under the current
+        schedule (the flat ring's is ``n_pods``): the traffic multiplier."""
+        return self.schedule.wan_transfers
+
+    # ------------------------------------------------------------ shipping
+    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
+                    shift: int, payload_mb: float = 0.0
+                    ) -> Tuple[ChunkPayload, ...]:
+        # the hierarchy reshapes who pays for the bytes and when, never
+        # the bytes: the inline ring's ship, bit for bit
+        return _INLINE_RING.ship_bucket(name, chunks, shift, payload_mb)
+
+    def on_sync(self, wire_mb: Mapping[str, float],
+                step: Optional[int] = None) -> float:
+        """Bill one round at the current schedule (:meth:`_bill_round`),
+        split across buckets proportionally for the records, then
+        recompile the schedule against what the round measured."""
+        total = sum(wire_mb.values())
+        if total <= 0.0:
+            return 0.0
+        t = self._bill_round(total)
+        for name, mb in wire_mb.items():
+            self.records.append(TransferRecord(
+                bucket=name, payload_mb=mb, seconds=t * mb / total,
+                step=step))
+        if self.probe is not None:
+            self.probe.observe_transfer(total, t)
+        self._recompile(step)
+        return t
+
+    def _bill_round(self, total_mb: float) -> float:
+        """Price one traversal of the schedule for ``total_mb``: intra legs
+        at fabric speed, each WAN hop one seeded ``transfer_time`` draw at
+        its link's traced bandwidth (feeding that link's belief); legs
+        within a phase take the slowest, phases add up.  Shared by
+        ``on_sync`` and the streaming round (drawn once at
+        ``begin_stream_round`` and, on a retune, once more for the tail)."""
+        t = 0.0
+        for phase in self.schedule.phases:
+            if not phase.legs:
+                continue
+            if not phase.wan:
+                t += total_mb * 8.0 / self.spec.intra_mbps
+                continue
+            slowest = 0.0
+            for leg in phase.legs:
+                leg_t = 0.0
+                for a, b in leg.hops:
+                    hop_t = transfer_time(total_mb, self.link_mbps(a, b),
+                                          self.wan, self._rng)
+                    self.beliefs.observe(a, b, total_mb * 8.0 / hop_t)
+                    leg_t += hop_t
+                slowest = max(slowest, leg_t)
+            t += slowest
+        return t
+
+    # ------------------------------------------- streaming round protocol
+    supports_streaming = True
+
+    def begin_stream_round(self, wire_mb: Mapping[str, float],
+                           step: Optional[int] = None) -> bool:
+        """Arm a streaming round: bill the whole traversal now (the same rng
+        draws and belief observations ``on_sync`` makes), so a zero-retune
+        round is bit-identical to the classic one.  Nothing reads the
+        beliefs mid-round, and the schedule recompiles only at
+        ``end_stream_round``."""
+        total = sum(wire_mb.values())
+        if total <= 0.0:
+            return False
+        self._stream = _StreamRound(step, wire_mb, self._bill_round(total))
+        return True
+
+    def stream_chunk(self, name: str, chunk_mb: float) -> float:
+        secs = self._stream.bill(name, chunk_mb)
+        if self.probe is not None:
+            self.probe.observe_chunk(chunk_mb, secs)
+        return secs
+
+    def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
+                          chunk_mb: float) -> Tuple[ChunkPayload, float]:
+        shipped = _INLINE_RING.ship_bucket(name, (chunk,), shift,
+                                           chunk_mb)[0]
+        return shipped, self.stream_chunk(name, chunk_mb)
+
+    def retune_stream(self, tail_mb: float) -> None:
+        """Abort the unsent schedule: the re-encoded tail pays one fresh
+        traversal at the links' current traced bandwidths (a second round
+        of belief samples: the collapsed link is repriced twice)."""
+        st = self._stream
+        st.retuned = True
+        st.tail_mb = float(tail_mb)
+        st.t_tail = self._bill_round(tail_mb) if tail_mb > 0.0 else 0.0
+
+    def end_stream_round(self) -> float:
+        step = self._stream.step
+        t = _close_billed_round(self)
+        self._recompile(step)
+        return t
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Pluggable WAN transport layer: one seam from the billed simulator to a
 host-timed ship on the card.
 
-Counterpart of ``repro/core/transport.py`` without its streaming half.
-The sync layer (``repro_torch.core.sync``) produces wire payloads
-(per-bucket :class:`~repro_torch.core.sync.ChunkPayload` triples) and
-consumes them back; who moves the bytes to the ring peer, and how long
+Counterpart of ``repro/core/transport.py``.  The sync layer
+(``repro_torch.core.sync``) produces wire payloads (per-bucket
+:class:`~repro_torch.core.sync.ChunkPayload` triples) and consumes them
+back; who moves the bytes to the ring peer, and how long
 that took, is this module's job.  Three implementations of one protocol:
 
 - the **inline ring** (``transport=None`` /
@@ -32,9 +32,13 @@ The measured-feedback data path::
         -> WanProbeEstimator (EMA + fluctuation + cliff-snap)
         -> Adaptive/BucketedSyncController(probe_est=...)
 
-The streaming round (``begin_stream_round`` and the ``stream_*`` methods,
-``_StreamRound``) is ROADMAP.md Queue 1 item 11c: the base class declines
-a streaming round and the other stream methods raise.
+The streaming round (``begin_stream_round``, ``stream_chunk`` /
+``stream_ship_chunk``, ``retune_stream``, ``end_stream_round``) makes the
+chunk, not the round, the unit of WAN feedback: each shipped chunk's billed
+or measured seconds land in ``probe.observe_chunk`` as it lands, a
+mid-round retune re-prices the re-encoded tail, and the round closes with
+the same per-bucket records and the same one probe fold ``on_sync`` makes.
+A streaming round without a retune bills bit for bit as the classic one.
 
 Layering: ``sync`` does not import this module (transports are duck-typed
 at the seam); this module sits above ``sync``, ``wan`` and ``autotune`` and
@@ -56,7 +60,8 @@ from repro_torch.core.autotune import WanProbe, WanProbeEstimator
 from repro_torch.core.sync import (_INLINE_RING, ChunkPayload, SyncConfig,
                                    _chunk_widths, _decode_bucket,
                                    _encode_bucket, _wire_bits)
-from repro_torch.core.wan import BandwidthTrace, WANConfig, transfer_time
+from repro_torch.core.wan import (BandwidthTrace, WANConfig, stream_chunk_time,
+                                  transfer_time)
 
 _EPS = 1e-9
 
@@ -144,8 +149,73 @@ class MeasuredWanProbe:
         return self.estimator.probe
 
 
-_STREAMING = ("streaming rounds are not ported yet: see ROADMAP.md Queue 1 "
-              "item 11c")
+class _StreamRound:
+    """Mutable per-round state of a streaming ship (transport-internal).
+
+    ``t_round`` is the round's one clean transfer draw, the same draw the
+    classic ``on_sync`` would make, consumed in the same rng order; every
+    pre-retune chunk bills its pro-rata share of it
+    (``wan.stream_chunk_time``), so the first chunk's achieved bandwidth is
+    the round's achieved bandwidth.  A mid-round retune re-prices only the
+    re-encoded tail with a second draw (``t_tail`` over ``tail_mb``)."""
+
+    def __init__(self, step: Optional[int], wire_mb: Mapping[str, float],
+                 t_round: float):
+        self.step = step
+        self.wire_mb = dict(wire_mb)
+        self.total = float(sum(self.wire_mb.values()))
+        self.t_round = t_round
+        self.retuned = False
+        self.tail_mb = 0.0
+        self.t_tail = 0.0
+        self.prefix_s = 0.0             # billed seconds before the retune
+        self.billed: Dict[str, float] = {}     # bucket -> seconds shipped
+        self.shipped: Dict[str, float] = {}    # bucket -> wire MB shipped
+        self.chunks: List[Tuple[str, float, float]] = []
+        #   (bucket, chunk MB, seconds) in ship order: the replayable
+        #   per-chunk observation stream
+
+    def bill(self, name: str, chunk_mb: float) -> float:
+        if self.retuned:
+            secs = stream_chunk_time(self.t_tail, chunk_mb, self.tail_mb)
+        else:
+            secs = stream_chunk_time(self.t_round, chunk_mb, self.total)
+            self.prefix_s += secs
+        self._account(name, chunk_mb, secs)
+        return secs
+
+    def bill_measured(self, name: str, chunk_mb: float,
+                      secs: float) -> float:
+        """Account a chunk whose transfer was timed on the host (mesh): no
+        billing law, the measurement is the cost."""
+        self._account(name, chunk_mb, secs)
+        return secs
+
+    def _account(self, name: str, chunk_mb: float, secs: float) -> None:
+        self.billed[name] = self.billed.get(name, 0.0) + secs
+        self.shipped[name] = self.shipped.get(name, 0.0) + chunk_mb
+        self.chunks.append((name, chunk_mb, secs))
+
+    @property
+    def t_total(self) -> float:
+        """Round seconds: the untouched clean draw when no retune fired
+        (not a sum of chunk slices, whose float association would drift
+        the zero-retune bill), else the prefix slices plus the tail draw."""
+        if not self.retuned:
+            return self.t_round
+        return self.prefix_s + self.t_tail
+
+    @property
+    def shipped_mb(self) -> float:
+        return float(sum(self.shipped.values()))
+
+    def summary(self, t_s: float, t_round: Optional[float] = None) -> Dict:
+        """The round as ``stream_rounds`` keeps it."""
+        return {"step": self.step, "total_mb": self.total,
+                "t_round": self.t_round if t_round is None else t_round,
+                "chunks": list(self.chunks), "retuned": self.retuned,
+                "tail_mb": self.tail_mb, "t_tail": self.t_tail,
+                "shipped_mb": self.shipped_mb, "t_s": t_s}
 
 
 class WanTransport:
@@ -161,16 +231,18 @@ class WanTransport:
 
     in_graph: bool = True
     probe: Optional[MeasuredWanProbe] = None
-    #: transports that implement the chunk-granular streaming round set
-    #: this True (ROADMAP.md Queue 1 item 11c); none does yet
+    #: transports that implement the chunk-granular streaming round
+    #: (begin_stream_round / stream_* / end_stream_round) set this True;
+    #: the trainer ships the classic way (ship_bucket + on_sync) otherwise
     supports_streaming: bool = False
 
     def __init__(self):
         self.records: List[TransferRecord] = []
-        # per-round streaming summaries; empty until streaming is ported,
-        # kept on the base so consumers can read it unconditionally
+        # replayable per-round streaming summaries (only streaming
+        # transports append; kept on the base so consumers can read it
+        # unconditionally)
         self.stream_rounds: List[Dict] = []
-        self._stream = None
+        self._stream: Optional[_StreamRound] = None
 
     def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
                     shift: int, payload_mb: float = 0.0
@@ -181,25 +253,44 @@ class WanTransport:
                 step: Optional[int] = None) -> float:
         return 0.0
 
+    # ------------------------------------------- streaming round protocol
+    # A streaming round opens with the whole planned per-bucket wire
+    # schedule, ships chunk by chunk (each chunk's billed or measured
+    # transfer landing in ``probe.observe_chunk`` as it lands), may retune
+    # once mid-round (abort the unsent schedule, re-price a re-encoded
+    # tail), and closes with ``end_stream_round``, which emits the same
+    # per-bucket records and the same single probe fold ``on_sync`` would.
+    # A round with zero retunes is bit-identical to the classic path:
+    # records, probe belief and rng stream.
+
     def begin_stream_round(self, wire_mb: Mapping[str, float],
                            step: Optional[int] = None) -> bool:
-        """Decline a streaming round: the caller ships the classic way
-        (``ship_bucket`` and ``on_sync``)."""
+        """Arm a streaming round.  Returns False to decline: the caller
+        ships the round the classic way (``ship_bucket`` and ``on_sync``)."""
         del wire_mb, step
         return False
 
     def stream_chunk(self, name: str, chunk_mb: float) -> float:
-        raise NotImplementedError(_STREAMING)
+        """Billing-only ship of one chunk (no data moves): the simulator's
+        and the benchmarks' entry point.  Returns the chunk's seconds."""
+        raise NotImplementedError
 
     def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
                           chunk_mb: float) -> Tuple[ChunkPayload, float]:
-        raise NotImplementedError(_STREAMING)
+        """Ship one chunk's payload to the ring peer and bill it: returns
+        (shipped chunk, seconds), the trainer's entry point."""
+        raise NotImplementedError
 
     def retune_stream(self, tail_mb: float) -> None:
-        raise NotImplementedError(_STREAMING)
+        """Abort the unsent chunk schedule; the chunks that follow are the
+        re-encoded tail, priced as one fresh transfer of ``tail_mb``."""
+        raise NotImplementedError
 
     def end_stream_round(self) -> float:
-        raise NotImplementedError(_STREAMING)
+        """Round barrier of a streaming round: emit per-bucket records, fold
+        the round's aggregate into the probe once, return the round's
+        transfer seconds."""
+        raise NotImplementedError
 
 
 class SimTransport(WanTransport):
@@ -253,6 +344,74 @@ class SimTransport(WanTransport):
         if self.probe is not None:
             self.probe.observe_transfer(total, t)
         return t
+
+    # ------------------------------------------- streaming round protocol
+    supports_streaming = True
+
+    def begin_stream_round(self, wire_mb: Mapping[str, float],
+                           step: Optional[int] = None) -> bool:
+        """Arm a streaming round: draw the round's one clean transfer time
+        now (the same trace lookup and rng draw as ``on_sync``), so a
+        zero-retune round bills bit for bit as the classic one."""
+        total = sum(wire_mb.values())
+        if total <= 0.0:
+            return False
+        bw = self.trace.at(self.clock_s)
+        t = transfer_time(total, bw, self.wan, self._rng)
+        self._stream = _StreamRound(step, wire_mb, t)
+        return True
+
+    def stream_chunk(self, name: str, chunk_mb: float) -> float:
+        secs = self._stream.bill(name, chunk_mb)
+        if self.probe is not None:
+            self.probe.observe_chunk(chunk_mb, secs)
+        return secs
+
+    def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
+                          chunk_mb: float) -> Tuple[ChunkPayload, float]:
+        shipped = _INLINE_RING.ship_bucket(name, (chunk,), shift,
+                                           chunk_mb)[0]
+        return shipped, self.stream_chunk(name, chunk_mb)
+
+    def retune_stream(self, tail_mb: float) -> None:
+        """Abort the unsent schedule: the re-encoded tail is priced as one
+        fresh ``transfer_time`` draw at the current traced bandwidth."""
+        st = self._stream
+        st.retuned = True
+        st.tail_mb = float(tail_mb)
+        st.t_tail = (transfer_time(tail_mb, self.trace.at(self.clock_s),
+                                   self.wan, self._rng)
+                     if tail_mb > 0.0 else 0.0)
+
+    def end_stream_round(self) -> float:
+        return _close_billed_round(self)
+
+
+def _close_billed_round(transport: WanTransport) -> float:
+    """``end_stream_round`` of a billing transport (sim, hierarchical):
+    records, the one probe fold and the round summary.  Without a retune
+    the records are the canonical per-bucket split of the clean draw and
+    the probe sees (round total, clean draw), the exact sample ``on_sync``
+    feeds; a retuned round records and observes what actually shipped over
+    what it took."""
+    st = transport._stream
+    transport._stream = None
+    if not st.retuned:
+        for name, mb in st.wire_mb.items():
+            transport.records.append(TransferRecord(
+                bucket=name, payload_mb=mb,
+                seconds=st.t_round * mb / st.total, step=st.step))
+    else:
+        for name, mb in st.shipped.items():
+            transport.records.append(TransferRecord(
+                bucket=name, payload_mb=mb,
+                seconds=st.billed.get(name, 0.0), step=st.step))
+    t = st.t_total
+    mb_obs = st.total if not st.retuned else st.shipped_mb
+    if transport.probe is not None:
+        transport.probe.observe_transfer(mb_obs, t)
+    transport.stream_rounds.append(st.summary(t))
+    return t
 
 
 def _move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -366,9 +525,13 @@ class MeshTransport(WanTransport):
         return self.sharding(2) is not None
 
     # -------------------------------------------------------------- shipping
-    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
-                    shift: int, payload_mb: float = 0.0
-                    ) -> Tuple[ChunkPayload, ...]:
+    def _timed_ship(self, chunks: Sequence[ChunkPayload], shift: int,
+                    payload_mb: float) -> Tuple[Tuple[ChunkPayload, ...],
+                                                float]:
+        """Ship ``chunks`` one ring step and time it on the host: the
+        placement is waited for before the clock starts, the ship (and the
+        emulated hop) before it stops, and the rows are gathered back onto
+        the payload's device after.  Returns (shipped chunks, seconds)."""
         home = chunks[0].q.device
         n = int(chunks[0].q.shape[0])
         devs = self.sharding(n, home.type)
@@ -380,22 +543,29 @@ class MeshTransport(WanTransport):
         _wait(fence)                    # placement is not transfer time
         t0 = time.perf_counter()
         if devs is None:
-            out = _INLINE_RING.ship_bucket(name, chunks, shift)
+            out = _INLINE_RING.ship_bucket("", chunks, shift)
         else:
             sent = [[_ring_send(rows, devs, shift, _move) for rows in c]
                     for c in placed]
         _wait(fence)
         if self.emulate_mbps:
             time.sleep(payload_mb * 8.0 / self.emulate_mbps)
-        rec = TransferRecord(bucket=name, payload_mb=payload_mb,
-                             seconds=time.perf_counter() - t0)
-        self.records.append(rec)
-        self._round.append(rec)
+        secs = time.perf_counter() - t0
         if devs is not None:
             out = tuple(ChunkPayload(*(
                 torch.cat([_wire_bits(r).to(home) for r in rows]).view(
                     part.dtype) for rows, part in zip(parts, c)))
                 for parts, c in zip(sent, chunks))
+        return out, secs
+
+    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
+                    shift: int, payload_mb: float = 0.0
+                    ) -> Tuple[ChunkPayload, ...]:
+        out, secs = self._timed_ship(chunks, shift, payload_mb)
+        rec = TransferRecord(bucket=name, payload_mb=payload_mb,
+                             seconds=secs)
+        self.records.append(rec)
+        self._round.append(rec)
         return out
 
     def on_sync(self, wire_mb: Mapping[str, float],
@@ -413,6 +583,47 @@ class MeshTransport(WanTransport):
         self._round = []
         if self.probe is not None and mb > 0.0:
             self.probe.observe_transfer(mb, secs)
+        return secs
+
+    # ------------------------------------------- streaming round protocol
+    supports_streaming = True
+
+    def begin_stream_round(self, wire_mb: Mapping[str, float],
+                           step: Optional[int] = None) -> bool:
+        """Arm a streaming round.  No billing draw: every chunk's cost is
+        its measured seconds, landing as it lands."""
+        if sum(wire_mb.values()) <= 0.0:
+            return False
+        self._stream = _StreamRound(step, wire_mb, 0.0)
+        return True
+
+    def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
+                          chunk_mb: float) -> Tuple[ChunkPayload, float]:
+        """Ship one chunk, timed as ``ship_bucket`` times a bucket: its
+        seconds hold the chunk's own transfer, not the encode before it."""
+        out, secs = self._timed_ship((chunk,), shift, chunk_mb)
+        self._stream.bill_measured(name, chunk_mb, secs)
+        if self.probe is not None:
+            self.probe.observe_chunk(chunk_mb, secs)
+        return out[0], secs
+
+    def retune_stream(self, tail_mb: float) -> None:
+        """Nothing to re-price: every chunk is measured, so the re-encoded
+        (smaller) tail costs what it takes.  Kept for the round summary."""
+        self._stream.retuned = True
+        self._stream.tail_mb = float(tail_mb)
+
+    def end_stream_round(self) -> float:
+        st = self._stream
+        self._stream = None
+        secs = float(sum(st.billed.values()))
+        for name, mb in st.shipped.items():
+            self.records.append(TransferRecord(
+                bucket=name, payload_mb=mb,
+                seconds=st.billed.get(name, 0.0), step=st.step))
+        if self.probe is not None and st.shipped_mb > 0.0:
+            self.probe.observe_transfer(st.shipped_mb, secs)
+        self.stream_rounds.append(st.summary(secs, t_round=secs))
         return secs
 
     # ------------------------------------------------- overlap measurement

@@ -32,13 +32,25 @@ Counterpart of ``repro/launch/train.py``:
    sync barrier (``fault_barrier/`` under ``--ckpt-dir``).  ``--ckpt-dir``
    also keeps the parameters before each applied reconfig and, with
    ``--ckpt-every``, every N steps.
+7. **Topology** (``--topology tree|auto``, with ``--wan-trace``): a
+   ``HierarchicalTransport`` bills each round over the plan's regions
+   (intra-region reduce, gather and broadcast through the best-connected
+   root, auxiliary routes around collapsed links); ``auto`` lets the
+   ``TopologyPlanner`` switch tree and ring from the measured link
+   beliefs, under ``--adaptive-sync``.  The bytes are the ring's either
+   way.
+8. **Streaming rounds** (``--stream-retune``, ``--stream-cliff``,
+   ``--stream-hysteresis``): codec rounds ship chunk by chunk over a
+   streaming transport (sim, mesh, or the topology's), and a chunk whose
+   achieved bandwidth falls ``--stream-cliff`` below the belief re-encodes
+   the round's unsent tail one rung cheaper; the EF residual carries what
+   the tail dropped.
 
 The flags keep the reference's meanings, defaults and messages;
 ``--device`` picks the card (default) or the CPU.  The reference's
-topology and streaming flags (``--topology``, ``--stream-*``: ROADMAP.md
-Queue 1 item 11c), its snapshot engine's (``--async-checkpoint``,
-``--snapshot-every``, ``--keep-snapshots``: item 12) and ``--serve``
-(item 15a) are not ported yet, and argparse refuses them.
+snapshot engine's flags (``--async-checkpoint``, ``--snapshot-every``,
+``--keep-snapshots``: ROADMAP.md Queue 1 item 12) and ``--serve`` (item
+15a) are not ported yet, and argparse refuses them.
 
 Examples::
 
@@ -61,6 +73,15 @@ Examples::
       --compress-topk 0.05 --int8 --error-feedback --wan-trace 100@0 \\
       --transport sim --faults fail:x1@1,crash:pod1@3:rollback \\
       --ckpt-dir /tmp/run --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+      --pods 2 --steps 12 --batch 4 --seq 16 --interval 2 \\
+      --compress-topk 0.05 --int8 --error-feedback \\
+      --bucket-policy layer-class --wan-trace 100@0,0.5@5 \\
+      --transport sim:fluct=0,latency=0 --stream-retune --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+      --pods 3 --steps 12 --batch 6 --seq 16 --interval 2 \\
+      --compress-topk 0.05 --int8 --error-feedback --adaptive-sync \\
+      --wan-trace 100@0,0.5@5 --topology auto --device cpu
 """
 from __future__ import annotations
 
@@ -79,6 +100,7 @@ from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import dense
 from repro_torch.core.autotune import (AdaptiveSyncController, BucketStats,
                                        BucketedSyncController,
+                                       StreamingShipController,
                                        bucket_stats_from_sync_state)
 from repro_torch.core.control_plane import (CloudEvent, ElasticityController,
                                             EventBus, ReconfigPlan,
@@ -91,6 +113,8 @@ from repro_torch.core.sync import (BUCKET_CLASSES, BUCKET_POLICIES,
                                    VALUE_DTYPES, BucketOverride, BucketSpec,
                                    PodUnreachableError, SyncConfig,
                                    bucket_weights_of, is_sync_step)
+from repro_torch.core.topology import (HierarchicalTransport,
+                                       TopologyPlanner, TopologySpec)
 from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
                                         SimTransport)
 from repro_torch.core.wan import BandwidthTrace, WANConfig
@@ -506,6 +530,26 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     ap.add_argument("--ef-guard", type=float, default=0.9,
                     help="adaptive sync: EF-residual ratio bound the "
                          "controller must never trade away")
+    ap.add_argument("--stream-retune", action="store_true",
+                    help="chunk-granular streaming rounds: ship sync "
+                         "payloads chunk by chunk, compare each chunk's "
+                         "achieved bandwidth against the measured belief, "
+                         "and on a mid-round cliff abort the unsent "
+                         "schedule and re-encode the tail one codec rung "
+                         "cheaper (EF residual carries the fidelity "
+                         "delta).  Needs the fused codec with error "
+                         "feedback and a streaming-capable transport with "
+                         "a measured probe (sim, mesh, or topology "
+                         "tree/auto)")
+    ap.add_argument("--stream-cliff", type=float, default=4.0,
+                    help="with --stream-retune: a chunk's achieved "
+                         "bandwidth must fall this factor below the "
+                         "believed bandwidth to count as a cliff "
+                         "(same scale as the probe's cliff-snap)")
+    ap.add_argument("--stream-hysteresis", type=int, default=1,
+                    help="with --stream-retune: consecutive cliff chunks "
+                         "required before the mid-round retune fires "
+                         "(1 = react to the first chunk)")
     ap.add_argument("--transport", default="inline",
                     help="who ships sync payloads: 'inline' (the in-process "
                          "ring), 'sim[:fluct=F,latency=L,seed=S]' (billed "
@@ -529,6 +573,18 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                          "tolerant path is measured against (corruption "
                          "decodes into the parameters; a crashed peer "
                          "hangs every round)")
+    ap.add_argument("--topology", default="ring",
+                    choices=["ring", "tree", "auto"],
+                    help="aggregation topology over the plan's regions: "
+                         "'ring' (flat pod ring, legacy billing), 'tree' "
+                         "(hierarchical transport: intra-region reduce + "
+                         "gather/broadcast through the best-connected "
+                         "root, auxiliary routes around collapsed links; "
+                         "needs --wan-trace), 'auto' (tree/ring chosen by "
+                         "the TopologyPlanner from measured link beliefs "
+                         "— the third actuator; needs --adaptive-sync).  "
+                         "Numerics are identical either way; topology "
+                         "changes the billing and the traffic accounting")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and the codec run")
     args = ap.parse_args(argv)
@@ -584,6 +640,24 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     # ---------------------------------------------------------- trainer
     trace = parse_wan_trace(args.wan_trace, args.steps, args.step_time)
     transport = parse_transport(args.transport, trace, sync_cfg)
+    if args.topology != "ring":
+        if transport is not None:
+            raise SystemExit(
+                "--topology tree/auto builds its own hierarchical "
+                "transport; it composes with --transport inline only")
+        if trace is None:
+            raise SystemExit(
+                "--topology tree/auto needs --wan-trace: the hierarchical "
+                "transport bills the schedule against per-link bandwidth")
+        topo_spec = TopologySpec.from_plan(
+            plan, kind="tree" if args.topology == "tree" else "ring")
+        transport = HierarchicalTransport(
+            topo_spec, trace,
+            wan=WANConfig(bandwidth_mbps=trace.mbps[0]),
+            probe=MeasuredWanProbe())
+        print(f"[topology] {args.topology}: regions "
+              f"{list(topo_spec.regions)}, start kind {topo_spec.kind}, "
+              f"{transport.wan_transfers_per_round} WAN transfers/round")
     if transport is not None:
         mesh = ""
         if isinstance(transport, MeshTransport):
@@ -652,6 +726,45 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                               f"(topk {f}, {d}, block {blk})"
                               for n, (f, d, blk) in knobs.items()))
 
+    # ------------------------------------------------- streaming retune
+    # the chunk-level control loop: first-chunk feedback, at most one
+    # mid-round retune, the EF residual carries the unsent tail's
+    # fidelity delta
+    stream_ctl = None
+    if args.stream_retune:
+        if not (sync_cfg.uses_codec and sync_cfg.error_feedback):
+            raise SystemExit(
+                "--stream-retune re-encodes the unsent tail against the "
+                "carried residual: add --compress-topk F --int8 "
+                "--error-feedback")
+        if transport is None or not getattr(transport,
+                                            "supports_streaming", False):
+            raise SystemExit(
+                "--stream-retune needs a streaming-capable transport: "
+                "--transport sim/mesh or --topology tree/auto "
+                "(the inline ring has no chunk barrier to observe)")
+        if transport.probe is None:
+            raise SystemExit(
+                "--stream-retune compares achieved vs believed bandwidth: "
+                "the transport must carry a measured probe")
+        stream_ctl = StreamingShipController(
+            sync_cfg, model_mb, cliff_ratio=args.stream_cliff,
+            hysteresis=args.stream_hysteresis, ef_guard=args.ef_guard,
+            probe_est=transport.probe.estimator)
+        trainer.stream = stream_ctl
+        print(f"[stream] chunk-granular rounds: cliff {args.stream_cliff}x "
+              f"below belief, hysteresis {args.stream_hysteresis}, "
+              f"{len(stream_ctl.ladder)} retune rungs")
+    else:
+        if args.stream_cliff != 4.0:
+            raise SystemExit(
+                "--stream-cliff tunes the streaming retune's cliff "
+                "threshold: it needs --stream-retune")
+        if args.stream_hysteresis != 1:
+            raise SystemExit(
+                "--stream-hysteresis tunes the streaming retune's "
+                "debounce: it needs --stream-retune")
+
     # -------------------------------------------------------- elasticity
     # one control plane: the EventBus carries bandwidth/cloud churn to BOTH
     # actuators — the ElasticityController (re-plan resources) and the
@@ -673,6 +786,10 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
         probe_est=transport.probe.estimator if measured else None)
         if need_elastic else None)
     tuner = None
+    if args.topology == "auto" and not args.adaptive_sync:
+        raise SystemExit(
+            "--topology auto is the controller's third actuator: it needs "
+            "--adaptive-sync (use --topology tree for a fixed hierarchy)")
     if args.adaptive_sync:
         if not (sync_cfg.uses_codec and sync_cfg.error_feedback):
             raise SystemExit(
@@ -680,6 +797,12 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                 "feedback: add --compress-topk F --int8 --error-feedback")
         probe_kw = (dict(probe_est=transport.probe.estimator, bus=None)
                     if measured else dict(bus=bus))
+        if args.topology == "auto":
+            # the planner shares the transport's link beliefs and actuates
+            # through its set_kind: the controller decides, the transport
+            # reshapes
+            probe_kw["topology"] = TopologyPlanner(
+                transport.spec, transport.beliefs, apply=transport.set_kind)
         if sync_cfg.bucket_policy == "layer-class":
             bucket_mb = {n: w * model_mb for n, w in bweights.items()}
             tuner = BucketedSyncController(
@@ -911,6 +1034,23 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
              for n, r in tuner.max_ef_ratio_by_bucket.items()}
             if isinstance(tuner, BucketedSyncController) else None),
         "transport": args.transport,
+        "stream_retune": args.stream_retune,
+        "stream_retunes": (trainer.stream_retunes
+                           if stream_ctl is not None else None),
+        "stream_rounds": (len(transport.stream_rounds)
+                          if stream_ctl is not None else None),
+        "stream_decisions": (len(stream_ctl.decisions)
+                             if stream_ctl is not None else None),
+        "topology": args.topology,
+        "final_topology": (transport.spec.kind
+                           if isinstance(transport, HierarchicalTransport)
+                           else None),
+        "topology_switches": (len(transport.switches)
+                              if isinstance(transport, HierarchicalTransport)
+                              else None),
+        "topology_reroutes": (len(transport.reroutes)
+                              if isinstance(transport, HierarchicalTransport)
+                              else None),
         "wan_transfers_per_round": getattr(
             transport, "wan_transfers_per_round", None),
         "transfers": len(transport.records) if transport else None,

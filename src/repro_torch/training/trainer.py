@@ -14,7 +14,10 @@ host-timed ``MeshTransport``); the other strategies through
 ``apply_sync`` (sparse shipping through the CUDA top-k kernel).  The
 reference splits its jitted step from the host seam; the port runs no
 jit, so one round function serves both, and whether the ship is timed is
-up to the transport's ``ship_bucket``.  ``reconfigure`` /
+up to the transport's ``ship_bucket``.  With a
+``StreamingShipController`` (``stream=``) over a streaming transport a
+codec round ships chunk by chunk (:meth:`Trainer._stream_sync`) and may
+re-encode its unsent tail at a cheaper rung mid-round.  ``reconfigure`` /
 ``resize_train_state`` / ``apply_reconfig`` re-stack the pod dimension at
 a barrier, and ``retune`` swaps the sync config of the same strategy.
 
@@ -23,7 +26,7 @@ The step updates the stacked parameters and optimizer state in place
 parameters are gigabytes, and nothing reads a train state after the step
 that replaced it.
 
-Streaming rounds and live migration are ROADMAP Queue 1 items 11c and 12.
+Live migration is ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -36,14 +39,17 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.core.sync import (SyncConfig, SyncState, apply_sync,
-                                   bucket_layout, bucket_weights_of,
-                                   bucket_wire_mb, finish_codec_sync,
-                                   grow_pods, init_sync_state, is_sync_step,
+from repro_torch.core.sync import (ChunkPayload, SyncConfig, SyncState,
+                                   _chunk_widths, _sent_width, apply_sync,
+                                   bucket_chunk_mb, bucket_layout,
+                                   bucket_weights_of, bucket_wire_mb,
+                                   finish_codec_sync,
+                                   finish_codec_sync_split, grow_pods,
+                                   init_sync_state, is_sync_step,
                                    on_step_gradients, prepare_codec_sync,
-                                   resize_sync_state, retune_sync_state,
-                                   ship_sync_payloads, shrink_pods,
-                                   traffic_per_step_mb)
+                                   reencode_unsent, resize_sync_state,
+                                   retune_sync_state, ship_sync_payloads,
+                                   shrink_pods, traffic_per_step_mb)
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           constant_schedule, get_optimizer,
                                           global_norm)
@@ -75,6 +81,18 @@ class TrainerConfig:
         return self.lr_schedule or constant_schedule(self.lr)
 
 
+class StreamRetune(NamedTuple):
+    """What a streaming round's mid-round retune shipped beside its ``cfg``
+    prefix: the transient config, each bucket's count of prefix chunks,
+    and the re-encoded tails before and after the ship (the round hook's
+    ``retune=`` argument)."""
+
+    cfg_to: SyncConfig
+    sent: Dict[str, int]
+    tails: Dict[str, Tuple[ChunkPayload, ...]]
+    tail_shipped: Dict[str, Tuple[ChunkPayload, ...]]
+
+
 def _stack(trees: List[Pytree]) -> Pytree:
     return T.tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
@@ -91,7 +109,8 @@ def _wait(device: torch.device) -> None:
 class Trainer:
     def __init__(self, loss_fn: Callable, init_fn: Callable,
                  cfg: TrainerConfig, device="cuda",
-                 round_hook: Optional[Callable] = None, transport=None):
+                 round_hook: Optional[Callable] = None, transport=None,
+                 stream=None):
         """loss_fn(params, batch) -> (loss, metrics dict);
         init_fn(generator) -> params (single pod, on ``device``).
 
@@ -102,19 +121,34 @@ class Trainer:
         codec round as ``round_hook(state, payloads, shipped, sync)``
         (``sync``: the round's config, whose tiers a retune changes),
         outside the round's timing: a check uses it to hold the round
-        against its plain version.  Other strategies' rounds have no hook of their own;
-        ``kernels.ops.TOPK_CHECK_HOOK`` sees each sparse ship."""
+        against its plain version.  After a streaming round that retuned
+        mid-round, ``shipped`` holds only the prefix chunks and the hook
+        gets ``retune=`` a :class:`StreamRetune` as well.  Other
+        strategies' rounds have no hook of their own;
+        ``kernels.ops.TOPK_CHECK_HOOK`` sees each sparse ship.
+
+        ``stream`` (a ``repro_torch.core.autotune.StreamingShipController``)
+        makes codec rounds over a streaming transport chunk-granular:
+        each shipped chunk's billed or measured seconds reach the
+        controller as it lands, and on a mid-round bandwidth cliff the
+        round's unsent segments re-encode once at a cheaper rung
+        (``sync.reencode_unsent`` / ``finish_codec_sync_split``; the EF
+        residual carries the fidelity dropped).  A round with no retune is
+        bit-identical to the classic round."""
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.cfg = cfg
         self.device = torch.device(device)
         self.round_hook = round_hook
         self.transport = transport
+        self.stream = stream
         self.optimizer = cfg.make_optimizer()
         self.schedule = cfg.make_schedule()
         self._bucket_weights: Optional[Dict[str, float]] = None
         self._wire_mb: Optional[Dict[str, float]] = None
+        self._chunk_mb: Optional[Dict[str, Tuple[float, ...]]] = None
         self.traffic_mb = 0.0
+        self.stream_retunes = 0
         self.step_seconds: List[float] = []
         self.sync_seconds: List[float] = []
 
@@ -141,6 +175,15 @@ class Trainer:
                                    state.sync_state.ga_buffer)
             self._wire_mb = bucket_wire_mb(self.cfg.sync, layout)
         return self._wire_mb
+
+    def chunk_mb(self, state: TrainState) -> Dict[str, Tuple[float, ...]]:
+        """Per-chunk wire MB of each bucket (memoized per config): the
+        streaming ship's chunk schedule."""
+        if self._chunk_mb is None:
+            layout = bucket_layout(self.cfg.sync,
+                                   state.sync_state.ga_buffer)
+            self._chunk_mb = bucket_chunk_mb(self.cfg.sync, layout)
+        return self._chunk_mb
 
     # ------------------------------------------------------------- state
     def init_state(self, seed: int = 0) -> TrainState:
@@ -236,6 +279,101 @@ class Trainer:
         return (state._replace(params=params, sync_state=sync_state),
                 (payloads, shipped))
 
+    # ------------------------------------------------ streaming sync path
+    def _can_stream(self) -> bool:
+        return (self.stream is not None
+                and self.cfg.sync.uses_codec
+                and self.transport is not None
+                and getattr(self.transport, "supports_streaming", False))
+
+    def _stream_sync(self, state: TrainState, host_step: int):
+        """One chunk-granular codec round -> ``(state, the round hook's
+        arguments, its keywords)``, or None when the transport declines streaming this round (a chaos plan
+        armed a fault: the classic retry and degrade path runs instead).
+
+        Prepare at the live config; ship chunk by chunk, each landed chunk
+        observed by the controller against the pre-round belief; on a
+        cliff, one transient retune: the unsent segments re-encode at the
+        cheaper rung, the transport re-prices the tail, and the split
+        finish splices prefix and tail so the EF residual carries the
+        tail's fidelity delta exactly.  ``end_stream_round`` then emits the
+        records and the probe fold ``on_sync`` would.  Buckets ship in name
+        order, the reference's (its jitted prepare returns them
+        key-sorted), so a cliff lands in the same bucket."""
+        from repro_torch.core.autotune import BucketStats
+
+        cfg = self.cfg.sync
+        wire = self.wire_mb(state)
+        if not self.transport.begin_stream_round(wire, step=host_step):
+            return None
+        self.stream.note_stats(BucketStats.from_sync_state(state.sync_state))
+        self.stream.begin_round(host_step, cfg)
+        lr = self.schedule(state.step)
+        payloads = prepare_codec_sync(cfg, state.sync_state)
+        chunk_mb = self.chunk_mb(state)
+        shipped: Dict[str, List[ChunkPayload]] = {}
+        # every bucket starts at 0 sent chunks: when a retune aborts the
+        # schedule, buckets not yet reached re-encode whole
+        sent: Dict[str, int] = {name: 0 for name in payloads.chunks}
+        cfg_to: Optional[SyncConfig] = None
+        for name in sorted(payloads.chunks):
+            for i, chunk in enumerate(payloads.chunks[name]):
+                out, secs = self.transport.stream_ship_chunk(
+                    name, chunk, cfg.peer_shift, chunk_mb[name][i])
+                shipped.setdefault(name, []).append(out)
+                sent[name] = i + 1
+                cfg_to = self.stream.observe_chunk(name, chunk_mb[name][i],
+                                                   secs)
+                if cfg_to is not None:
+                    break
+            if cfg_to is not None:
+                break
+        shipped_t = {n: tuple(c) for n, c in shipped.items()}
+        tails: Dict[str, Tuple[ChunkPayload, ...]] = {}
+        if cfg_to is not None:
+            layout = bucket_layout(cfg, state.sync_state.ga_buffer)
+            tails, tail_local = reencode_unsent(cfg, cfg_to, payloads.flat,
+                                                layout, sent)
+        if not tails:
+            params, sync_state = finish_codec_sync(
+                cfg, state.params, state.sync_state, payloads, shipped_t, lr)
+            self.transport.end_stream_round()
+            self.stream.end_round()
+            return (state._replace(params=params, sync_state=sync_state),
+                    (payloads, shipped_t, cfg), {})
+        # price the re-encoded tail as one fresh transfer at the current
+        # bandwidth, then stream it out chunk by chunk
+        tail_schedule: Dict[str, Tuple[float, ...]] = {}
+        for g, name in enumerate(layout.names):
+            if name not in tails:
+                continue
+            size = layout.sizes[g]
+            _, _, sw = _sent_width(cfg, name, size, sent)
+            tcfg = cfg_to.for_bucket(name)
+            tail_schedule[name] = tuple(
+                tcfg.payload_mb(m * 4 / 1e6)
+                for m in _chunk_widths(tcfg, size - sw))
+        self.transport.retune_stream(
+            sum(mb for t in tail_schedule.values() for mb in t))
+        self.stream_retunes += 1
+        tail_shipped: Dict[str, Tuple[ChunkPayload, ...]] = {}
+        for name in sorted(tails):
+            outs = []
+            for i, chunk in enumerate(tails[name]):
+                out, secs = self.transport.stream_ship_chunk(
+                    name, chunk, cfg.peer_shift, tail_schedule[name][i])
+                outs.append(out)
+                self.stream.observe_chunk(name, tail_schedule[name][i], secs)
+            tail_shipped[name] = tuple(outs)
+        params, sync_state = finish_codec_sync_split(
+            cfg, cfg_to, state.params, state.sync_state, payloads,
+            shipped_t, tail_shipped, tail_local, sent, lr)
+        self.transport.end_stream_round()
+        self.stream.end_round()
+        return (state._replace(params=params, sync_state=sync_state),
+                (payloads, shipped_t, cfg),
+                {"retune": StreamRetune(cfg_to, sent, tails, tail_shipped)})
+
     def maybe_sync(self, state: TrainState, host_step: int,
                    model_mb: float = 0.0) -> TrainState:
         if self.cfg.n_pods > 1:
@@ -254,6 +392,16 @@ class Trainer:
             # the step's queued device work is not the round's
             _wait(self.device)
             t0 = time.perf_counter()
+            if self._can_stream():
+                streamed = self._stream_sync(state, host_step)
+                if streamed is not None:
+                    # end_stream_round was this round's barrier
+                    state, args, kw = streamed
+                    _wait(self.device)
+                    self.sync_seconds.append(time.perf_counter() - t0)
+                    if self.round_hook is not None:
+                        self.round_hook(state, *args, **kw)
+                    return state
             state, rnd = self._sync_round(state)
             _wait(self.device)
             self.sync_seconds.append(time.perf_counter() - t0)
@@ -268,8 +416,10 @@ class Trainer:
     # ------------------------------------------------------ elasticity
     def _successor(self, cfg: TrainerConfig) -> "Trainer":
         nxt = Trainer(self.loss_fn, self.init_fn, cfg, device=self.device,
-                      round_hook=self.round_hook, transport=self.transport)
+                      round_hook=self.round_hook, transport=self.transport,
+                      stream=self.stream)
         nxt.traffic_mb = self.traffic_mb
+        nxt.stream_retunes = self.stream_retunes
         nxt.step_seconds = self.step_seconds
         nxt.sync_seconds = self.sync_seconds
         return nxt
@@ -295,7 +445,7 @@ class Trainer:
         pass through untouched; the sync state goes through
         :func:`retune_sync_state` (the EF residual carries over).  An
         interval-only retune (the same :meth:`_sync_key`) also keeps the
-        cached wire accounting; one of the same bucket policy keeps the
+        cached wire and chunk accounting; one of the same bucket policy keeps the
         bucket weights."""
         new_cfg = dataclasses.replace(self.cfg, sync=sync)
         sync_state = retune_sync_state(sync, self.cfg.sync, state.sync_state,
@@ -305,6 +455,7 @@ class Trainer:
             trainer._bucket_weights = self._bucket_weights
         if self._sync_key(sync) == self._sync_key(self.cfg.sync):
             trainer._wire_mb = self._wire_mb
+            trainer._chunk_mb = self._chunk_mb
         return trainer, state._replace(sync_state=sync_state)
 
     # --------------------------------------------------------------- loop

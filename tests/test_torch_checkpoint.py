@@ -4,15 +4,17 @@
 The first part mirrors ``tests/test_checkpoint.py`` case for case, port
 against port: round trips, manifest contents, bf16 leaves, the
 ``pod_resize`` grow and shrink paths, every refusal, ``_resize_pod_dim``,
-and the atomic commit with its corruption errors.  The reference's two
-topology cases need ``HierarchicalTransport`` (ROADMAP Queue 1 item 11c)
-and are left to it.  The second part holds the format to the reference's:
+and the atomic commit with its corruption errors.  The second part holds
+the format to the reference's:
 a ``TrainState`` and a parameter tree written by either package restore in
 the other bit for bit (bf16 leaves included, and through ``pod_resize``),
 with the same keys, dtypes, shapes and step in the manifest, and the
 port's CRC32, assembled from pieces, equals ``zlib.crc32`` of the whole
 file.  The pod-dimension means are the reference's numpy expressions on
-the same arrays, so they are bit-equal too.
+the same arrays, so they are bit-equal too.  The reference's two topology
+cases close it: a reference checkpoint restored into a 3-pod run over a
+``HierarchicalTransport``, and one file restored under flat and
+hierarchical trainers to the same values.
 """
 import json
 import random
@@ -482,6 +484,88 @@ def test_params_cross_restore_with_pod_resize(tmp_path):
         for x in (_np(g), np.asarray(b), _np(a)):
             np.testing.assert_array_equal(x, np.asarray(w), strict=True)
     assert got["embed"].dtype == torch.bfloat16
+
+
+def _drive(tr, st, n_steps, n_pods, seed=3):
+    rng = np.random.default_rng(seed)
+    for step in range(n_steps):
+        x = rng.normal(size=(n_pods, 16, 8)).astype(np.float32)
+        y = (x[..., :4] * 0.5).astype(np.float32)
+        st, _ = tr.train_step(st, {"x": torch.from_numpy(x),
+                                   "y": torch.from_numpy(y)})
+        st = tr.maybe_sync(st, step, model_mb=0.001)
+    return st
+
+
+def test_restore_into_different_topology(tmp_path):
+    """Params trained and checkpointed by the reference under a flat 2-pod
+    ring restore in the port into a 3-pod run aggregating through a
+    hierarchical (2-region tree) transport: ``pod_resize`` grows the
+    stack as the reference's own restore does, bit for bit, the
+    transport ships it, and training goes on from the restored values."""
+    from repro_torch.core.topology import HierarchicalTransport, TopologySpec
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
+    params = _jax_state().params
+    jckpt.save(str(tmp_path), params, step=4,
+               metadata={"pods": 2, "topology": "ring"})
+    hier = HierarchicalTransport(
+        TopologySpec.from_regions(["sh", "sh", "cq"], kind="tree"),
+        BandwidthTrace((0.0,), (100.0,)), wan=WANConfig(seed=0))
+    tr3 = Trainer(_tloss, _tinit, TrainerConfig(
+        n_pods=3, optimizer="sgd", lr=0.05,
+        sync=SyncConfig("asgd_ga", 2, **SYNC)), device="cpu",
+        transport=hier)
+    st3 = tr3.init_state(1)
+    restored, step = ckpt.restore(str(tmp_path), st3.params,
+                                  pod_resize="mean")
+    assert step == 4
+    old = np.asarray(params["w"], np.float32)
+    new = restored["w"].numpy()
+    assert new.shape[0] == 3
+    np.testing.assert_array_equal(new[:2], old)
+    np.testing.assert_allclose(new.mean(axis=0), old.mean(axis=0),
+                               rtol=1e-5, atol=1e-6)
+    want, _ = jckpt.restore(str(tmp_path), jax.tree.map(
+        lambda x: jnp.zeros((3,) + x.shape[1:], x.dtype), params),
+        pod_resize="mean")
+    for w, g in zip(jax.tree.leaves(want), T.leaves(restored), strict=True):
+        np.testing.assert_array_equal(_np(g), np.asarray(w), strict=True)
+    st3 = _drive(tr3, st3._replace(params=restored), 4, 3)
+    assert bool(torch.isfinite(st3.params["w"]).all())
+    assert len(hier.records) > 0
+    assert hier.wan_transfers_per_round == 2
+
+
+def test_restore_same_values_across_topologies(tmp_path):
+    """A checkpoint is topology-agnostic: restoring one file under a flat
+    and a hierarchical trainer's parameter stacks (``pod_resize`` at the
+    same size) gives bit-identical stacks, the reference's restore of the
+    same file among them."""
+    from repro_torch.core.topology import HierarchicalTransport, TopologySpec
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
+    cfg = TrainerConfig(n_pods=3, optimizer="sgd", lr=0.05,
+                        sync=SyncConfig("asgd_ga", 2, **SYNC))
+    tr = Trainer(_tloss, _tinit, cfg, device="cpu")
+    st = _drive(tr, tr.init_state(0), 4, 3)
+    ckpt.save(str(tmp_path), st.params, step=4)
+    hier = Trainer(_tloss, _tinit, cfg, device="cpu",
+                   transport=HierarchicalTransport(
+                       TopologySpec.from_regions(["sh", "sh", "cq"]),
+                       BandwidthTrace((0.0,), (100.0,)),
+                       wan=WANConfig(seed=0)))
+    flat, _ = ckpt.restore(str(tmp_path), _zeros(st.params))
+    grown, _ = ckpt.restore(str(tmp_path), hier.init_state(1).params,
+                            pod_resize="mean")
+    ref, _ = jckpt.restore(str(tmp_path), jax.tree.map(
+        lambda x: jnp.zeros(x.shape, jnp.bfloat16 if x.dtype ==
+                            torch.bfloat16 else jnp.float32),
+        st.params), pod_resize="mean")
+    for a, b, r in zip(T.leaves(flat), T.leaves(grown), jax.tree.leaves(ref),
+                       strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        np.testing.assert_array_equal(_np(a), np.asarray(r), strict=True)
 
 
 # --------------------------------------------------------------- the card

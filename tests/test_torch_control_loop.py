@@ -1,5 +1,6 @@
 """Port parity: the train launcher's control loop (``--adaptive-sync``,
-``--wan-trace``, ``--events``, ``--bucket-policy layer-class``) against
+``--wan-trace``, ``--events``, ``--bucket-policy layer-class``, and the
+streaming and topology flags ``--stream-retune``, ``--topology``) against
 ``repro.launch.train`` on the same flags.
 
 Both launchers start from the same parameters (the reference's
@@ -88,9 +89,108 @@ def test_control_loop_decisions_equal_the_reference_launcher():
     assert any("int4" in knobs for _, knobs, _ in ts["rounds"])
 
 
-@pytest.mark.parametrize("flag", ["--snapshot-every", "--topology",
-                                  "--keep-snapshots", "--async-checkpoint",
-                                  "--stream-retune", "--serve"])
+def _both(flags):
+    """Run both launchers on ``flags`` from the same parameters; returns
+    (reference summary, its lines, port summary, its lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        js = jtrain.main(flags)
+    jlines = buf.getvalue().splitlines()
+    jparams = get_model_fns("transformer").init_params(
+        jax.random.key(0), jtrain.preset_tiny())
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      ttrain.preset_tiny(), device="cpu")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ts = ttrain.main(flags + ["--device", "cpu"], init_params=tparams)
+    return js, jlines, ts, buf.getvalue().splitlines()
+
+
+STREAM_FLAGS = ["--preset", "tiny", "--pods", "2", "--steps", "12",
+                "--batch", "4", "--seq", "16", "--interval", "2",
+                "--compress-topk", "0.05", "--int8", "--error-feedback",
+                "--overlap-chunks", "2", "--bucket-policy", "layer-class",
+                "--wan-trace", "100@0,0.5@5", "--log-every", "0"]
+SUMMARY_KEYS = ("stream_retune", "stream_retunes", "stream_rounds",
+                "stream_decisions", "topology", "final_topology",
+                "topology_switches", "topology_reroutes",
+                "wan_transfers_per_round", "transfers",
+                "measured_bandwidth_mbps", "wan_traffic_mb", "retunes",
+                "final_tier")
+
+
+def test_stream_retune_launcher_equals_the_reference():
+    """``--stream-retune`` over a clean sim link that collapses 200x
+    inside round 3: the ``[stream]`` line, one mid-round retune and the
+    streaming summary keys are the reference launcher's."""
+    js, jlines, ts, tlines = _both(STREAM_FLAGS + [
+        "--transport", "sim:fluct=0,latency=0", "--stream-retune",
+        "--stream-cliff", "3.0", "--stream-hysteresis", "1"])
+    pick = ("[stream]", "[transport]", "[autotune]")
+    assert [line for line in tlines if line.startswith(pick)] == \
+        [line for line in jlines if line.startswith(pick)]
+    for key in SUMMARY_KEYS:
+        assert ts[key] == js[key], key
+    assert ts["stream_retunes"] == 1 and ts["stream_rounds"] == 6
+    assert ts["loss_last"] == pytest.approx(js["loss_last"], rel=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("topology", ["tree", "auto"])
+def test_topology_launcher_equals_the_reference(topology):
+    """``--topology tree`` (a fixed hierarchy) and ``auto`` (the planner
+    as the controller's third actuator, with streaming rounds on top):
+    the ``[topology]``, ``[autotune]`` and ``[stream]`` lines and the
+    topology summary keys are the reference launcher's."""
+    extra = ["--pods", "3", "--batch", "6", "--topology", topology]
+    if topology == "auto":
+        extra += ["--adaptive-sync", "--stream-retune"]
+    js, jlines, ts, tlines = _both(STREAM_FLAGS + extra)
+    pick = ("[topology]", "[transport]", "[autotune]", "[stream]")
+    assert [line for line in tlines if line.startswith(pick)] == \
+        [line for line in jlines if line.startswith(pick)]
+    assert any(line.startswith("[topology]") for line in tlines)
+    for key in SUMMARY_KEYS:
+        assert ts[key] == js[key], key
+    assert ts["wan_transfers_per_round"] == (4 if topology == "tree" else 3)
+    assert ts["loss_last"] == pytest.approx(js["loss_last"], rel=LOSS_RTOL)
+
+
+REFUSALS = {
+    "topology-with-transport": ["--topology", "tree", "--wan-trace",
+                                "100@0", "--transport", "sim"],
+    "topology-needs-trace": ["--topology", "tree"],
+    "auto-needs-adaptive": ["--topology", "auto", "--wan-trace", "100@0",
+                            "--compress-topk", "0.05", "--int8",
+                            "--error-feedback"],
+    "stream-needs-codec": ["--stream-retune", "--wan-trace", "100@0",
+                           "--transport", "sim", "--compress-topk", "0.05",
+                           "--int8"],
+    "stream-needs-streaming-transport": ["--stream-retune",
+                                         "--compress-topk", "0.05",
+                                         "--int8", "--error-feedback"],
+    "cliff-needs-stream": ["--stream-cliff", "2.0"],
+    "hysteresis-needs-stream": ["--stream-hysteresis", "2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_stream_and_topology_refusals_equal_the_reference(case):
+    """Each refusal of the streaming and topology flags exits with the
+    reference launcher's message."""
+    flags = ["--preset", "tiny", "--steps", "1", "--log-every", "0"] + \
+        REFUSALS[case]
+    with pytest.raises(SystemExit) as jerr, \
+            contextlib.redirect_stdout(io.StringIO()):
+        jtrain.main(flags)
+    with pytest.raises(SystemExit) as terr, \
+            contextlib.redirect_stdout(io.StringIO()):
+        ttrain.main(flags + ["--device", "cpu"])
+    assert isinstance(jerr.value.code, str)
+    assert terr.value.code == jerr.value.code
+
+
+@pytest.mark.parametrize("flag", ["--snapshot-every", "--keep-snapshots",
+                                  "--async-checkpoint", "--serve"])
 def test_unported_flags_are_refused(flag, capsys):
     with pytest.raises(SystemExit) as err:
         ttrain.main(["--preset", "tiny", flag, "x", "--device", "cpu"])

@@ -479,3 +479,66 @@ def test_encode_unaligned_and_odd_blocks(cuda, block):
         plain = ops.wan_encode(x, 13, block=block, use_kernel=False)
         for a, b in zip(kern, plain):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("value_dtype", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("case", ["strided_unaligned", "strided_aligned",
+                                  "shrunk_unaligned", "shrunk_aligned"])
+def test_codec_on_streaming_tail_views(cuda, case, value_dtype):
+    """The streaming retune's tail re-encode: ``flat[:, off + sw:off +
+    size]`` read in place (a row-strided view, its base 16-byte aligned or
+    not), at the retune's cheaper top-k, and a tail narrower than the codec
+    block encoded at its own width, as ``sync._encode_bucket`` does; the
+    encode and the decode bit-equal to the plain versions, one launch
+    each, the view left as it was."""
+    from repro_torch.core.sync import SyncConfig, _chunk_widths, _encode_bucket
+    from repro_torch.kernels.wan_codec import k_per_block
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    flat = torch.randn(2, 1_000_004, generator=gen, device=cuda)
+    lo = {"strided_unaligned": 12_289, "strided_aligned": 12_288,
+          "shrunk_unaligned": 401_001, "shrunk_aligned": 401_000}[case]
+    # a shrunk block of 3000 takes the 16-byte loads on an aligned base,
+    # one of 3001 the scalar ones
+    width = {"strided_unaligned": 600_000, "strided_aligned": 600_000,
+             "shrunk_unaligned": 3_001, "shrunk_aligned": 3_000}[case]
+    view = flat[:, lo:lo + width]
+    assert view.stride(0) == flat.shape[1]
+    assert (view.data_ptr() % 16 == 0) == case.endswith("_aligned")
+    before = view.clone()
+    block = min(4096, width)
+    k_block = k_per_block(block, 0.01)
+    launches = dict(ops.LAUNCHES)
+    kern = ops.wan_encode(view, k_block, block=block,
+                          value_dtype=value_dtype)
+    plain = ops.wan_encode(view, k_block, block=block,
+                           value_dtype=value_dtype, use_kernel=False)
+    for a, b in zip(kern, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    dk = ops.wan_decode(*kern, width, block=block, value_dtype=value_dtype)
+    dp = ops.wan_decode(*plain, width, block=block, value_dtype=value_dtype,
+                        use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dp)
+    assert ops.LAUNCHES["wan_encode"] == launches["wan_encode"] + 1
+    assert ops.LAUNCHES["wan_decode"] == launches["wan_decode"] + 1
+    assert torch.equal(view, before)
+    # the sync layer's tail encode: chunks on codec-block boundaries, the
+    # block shrunk to the tail's width, the local reconstruction decoded
+    cfg = SyncConfig("asgd_ga", 2, compress_topk=0.01, quantize_int8=True,
+                     value_dtype=value_dtype, error_feedback=True,
+                     overlap_chunks=4)
+    chunks, local = _encode_bucket(cfg, view, want_local=True)
+    off, parts = 0, []
+    for c, m in zip(chunks, _chunk_widths(cfg, width), strict=True):
+        q, idx, scales = ops.wan_encode(view[:, off:off + m], k_block,
+                                        block=block, value_dtype=value_dtype,
+                                        use_kernel=False)
+        assert torch.equal(c.q, q) and torch.equal(c.scales, scales)
+        assert torch.equal(c.idx.to(torch.int32), idx)
+        parts.append(ops.wan_decode(q, idx, scales, m, block=block,
+                                    value_dtype=value_dtype,
+                                    use_kernel=False))
+        off += m
+    assert off == width
+    assert torch.equal(local, torch.cat(parts, dim=1))

@@ -1,14 +1,18 @@
-"""Port parity: the aggregation topology without transports
-(``repro_torch.core.topology``: ``LinkLeg``, ``Phase``,
-``AggregationSchedule``, ``TopologySpec``, ``TopologyPlanner``) against
+"""Port parity: the aggregation topology (``repro_torch.core.topology``:
+``LinkLeg``, ``Phase``, ``AggregationSchedule``, ``TopologySpec``,
+``TopologyPlanner``, ``HierarchicalTransport``) against
 ``repro.core.topology``.
 
-The reference's planner and schedule cases (``tests/test_topology.py``)
-that need no ``HierarchicalTransport`` run on the port; the same beliefs
-compile the same schedule and the same streams give the same planner and
-controller decisions as the reference's, exactly; and the topology
-scenario of ``experiments/bench/BENCH_autotune.json`` replays through a
-fresh ``LinkBeliefs`` + ``TopologyPlanner`` decision for decision, reason
+The reference's cases (``tests/test_topology.py``) run on the port; the
+same beliefs compile the same schedule and the same streams give the same
+planner and controller decisions as the reference's, exactly; the
+hierarchical transport ships the inline ring's bytes (params and telemetry
+bit-identical to the flat ring's, also across a ``set_kind``) and its
+billing law, reroute stream and traffic legs equal the reference's float
+for float (the reference's transport replays the port's wire dicts and
+clock); and the topology scenario of
+``experiments/bench/BENCH_autotune.json`` replays through a fresh
+``LinkBeliefs`` + ``TopologyPlanner`` decision for decision, reason
 strings (with their cost estimates) included.
 """
 import dataclasses
@@ -22,16 +26,25 @@ import torch
 from repro.core import autotune as jautotune
 from repro.core import sync as jsync
 from repro.core import topology as jtopology
+from repro.core import transport as jtransport
+from repro.core import wan as jwan
 from repro_torch.core import autotune as tautotune
 from repro_torch.core import sync as tsync
 from repro_torch.core import topology as ttopology
+from repro_torch.core import transport as ttransport
+from repro_torch.core import wan as twan
 from repro_torch.core.autotune import AdaptiveSyncController, BucketStats
 from repro_torch.core.cost import adaptive_traffic_mb, bucket_payload_table
-from repro_torch.core.sync import SyncConfig, hierarchical_average
-from repro_torch.core.topology import (TOPOLOGY_KINDS, LinkBeliefs,
-                                       TopologyPlanner, TopologySpec,
-                                       link_key)
-from repro_torch.core.wan import SimCloud, WANConfig, simulate
+from repro_torch import tree as T
+from repro_torch.core.sync import (BucketOverride, SyncConfig,
+                                   hierarchical_average)
+from repro_torch.core.topology import (TOPOLOGY_KINDS, HierarchicalTransport,
+                                       LinkBeliefs, TopologyPlanner,
+                                       TopologySpec, link_key)
+from repro_torch.core.transport import MeasuredWanProbe
+from repro_torch.core.wan import (BandwidthTrace, SimCloud, WANConfig,
+                                  simulate, transfer_time)
+from repro_torch.training.trainer import Trainer, TrainerConfig
 
 torch.set_num_threads(2)
 
@@ -55,6 +68,110 @@ def _sched(s):
                          for l in p.legs))
                   for p in s.phases),
             s.wan_transfers, s.uses_aux_route)
+
+
+SYNC = SyncConfig("asgd_ga", 2, compress_topk=0.2, quantize_int8=True,
+                  error_feedback=True, codec_block=128, overlap_chunks=2,
+                  bucket_policy="layer-class",
+                  buckets=(BucketOverride("norm", compress_topk=0.5),))
+TRACE = BandwidthTrace(times_s=(0.0, 3.0), mbps=(100.0, 2.0))
+
+
+def _loss(params, batch):
+    pred = batch["x"] @ params["w"] + params["bias"]
+    reg = torch.mean(params["embed"] ** 2)
+    return torch.mean((pred - batch["y"]) ** 2) + 0.01 * reg, {}
+
+
+def _init(gen):
+    return {"w": torch.randn(8, 4, generator=gen) * 0.1,
+            "bias": torch.zeros(4),
+            "embed": torch.randn(16, 4, generator=gen) * 0.1}
+
+
+class _WireLog:
+    """Wraps a transport and logs each ``on_sync`` (wire dict, step) at its
+    clock, so the reference's transport can replay the same calls."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["inner"], name)
+
+    def on_sync(self, wire_mb, step=None):
+        self.calls.append((self.inner.clock_s, dict(wire_mb), step))
+        return self.inner.on_sync(wire_mb, step=step)
+
+
+def _run(transport, n_pods=2, n_steps=10, sync=SYNC, seed=7,
+         set_kind_at=None, set_kind_to=None):
+    """Drive the port's trainer; returns (state, trainer, per-step
+    (msg_norm, ef_residual) copies)."""
+    tr = Trainer(_loss, _init,
+                 TrainerConfig(n_pods=n_pods, optimizer="sgd", lr=0.05,
+                               sync=sync),
+                 device="cpu", transport=transport)
+    st = tr.init_state(0)
+    rng = np.random.default_rng(seed)
+    snaps = []
+    for step in range(n_steps):
+        if set_kind_at is not None and step == set_kind_at:
+            transport.set_kind(set_kind_to, step=step)
+        x = rng.normal(size=(n_pods, 16, 8)).astype(np.float32)
+        y = (x[..., :4] * 0.5).astype(np.float32)
+        st, _ = tr.train_step(st, {"x": torch.from_numpy(x),
+                                   "y": torch.from_numpy(y)})
+        st = tr.maybe_sync(st, step, model_mb=0.001)
+        if transport is not None and hasattr(transport, "tick"):
+            transport.tick(0.5)
+        snaps.append((st.sync_state.msg_norm.clone(),
+                      st.sync_state.ef_residual.clone()))
+    return st, tr, snaps
+
+
+def _assert_same_stream(a, b, label):
+    """Bit-identical params and SyncState telemetry after the same
+    stream, at every step."""
+    st_a, _, snaps_a = a
+    st_b, _, snaps_b = b
+    for la, lb in zip(T.leaves(st_a.params), T.leaves(st_b.params)):
+        assert torch.equal(la, lb), f"{label}: params"
+    for field in ("ef_residual", "msg_norm", "resid_norm", "tier"):
+        assert torch.equal(getattr(st_a.sync_state, field),
+                           getattr(st_b.sync_state, field)), \
+            f"{label}: {field}"
+    for i, ((ma, ra), (mb, rb)) in enumerate(zip(snaps_a, snaps_b)):
+        assert torch.equal(ma, mb) and torch.equal(ra, rb), \
+            f"{label}: step {i}"
+
+
+def _jhier(regions, kind, trace, wan, link_traces=None, probe=True):
+    """The reference's HierarchicalTransport on the same knobs."""
+    jtraces = {k: jwan.BandwidthTrace(v.times_s, v.mbps)
+               for k, v in (link_traces or {}).items()}
+    return jtopology.HierarchicalTransport(
+        jtopology.TopologySpec.from_regions(regions, kind=kind),
+        jwan.BandwidthTrace(trace.times_s, trace.mbps),
+        wan=jwan.WANConfig(**dataclasses.asdict(wan)),
+        link_traces=jtraces,
+        probe=jtransport.MeasuredWanProbe() if probe else None)
+
+
+def _replay(jt, calls, set_kind_at=None, set_kind_to=None):
+    """Replay logged ``on_sync`` calls (clock, wire, step) on the
+    reference's transport."""
+    for clock, wire, step in calls:
+        if set_kind_at is not None and step >= set_kind_at and \
+                jt.spec.kind != set_kind_to:
+            jt.set_kind(set_kind_to, step=set_kind_at)
+        jt.clock_s = clock
+        jt.on_sync(wire, step=step)
+
+
+def _records(t):
+    return [(r.bucket, r.payload_mb, r.seconds, r.step) for r in t.records]
 
 
 # -------------------------------------------------------- schedule compile
@@ -191,6 +308,215 @@ def test_from_plan_groups_pods_by_region():
     spec = TopologySpec.from_plan(plan, kind="ring")
     assert spec.regions == ("pod0", "pod1", "pod2") and spec.n_pods == 3
     assert len(spec.links()) == 3
+
+
+# ---------------------------------------- the hierarchical transport
+
+
+def test_hierarchical_bit_identical_to_inline_random_streams():
+    """Shipping through a hierarchical transport (any shape, any region
+    grouping, any bucket policy) gives params and per-bucket telemetry
+    bit-identical to the flat inline ring at every sync; its billing is
+    the reference transport's on the same wire dicts, float for float."""
+    rng = np.random.default_rng(0)
+    for case in range(6):
+        n_pods = int(rng.integers(2, 6))
+        regions = _random_grouping(rng, n_pods)
+        kind = ("ring", "tree")[case % 2]
+        policy = ("single", "layer-class")[int(rng.integers(0, 2))]
+        sync = dataclasses.replace(
+            SYNC, bucket_policy=policy,
+            buckets=SYNC.buckets if policy == "layer-class" else ())
+        seed = int(rng.integers(0, 1_000))
+        spec = TopologySpec.from_regions(regions, kind=kind)
+        wan = WANConfig(fluctuation=0.2, seed=3)
+        hier = HierarchicalTransport(spec, TRACE, wan=wan,
+                                     probe=MeasuredWanProbe())
+        log = _WireLog(hier)
+        label = (f"case {case}: pods={n_pods} regions={regions} "
+                 f"kind={kind} policy={policy} seed={seed}")
+        _assert_same_stream(
+            _run(None, n_pods=n_pods, sync=sync, seed=seed),
+            _run(log, n_pods=n_pods, sync=sync, seed=seed), label)
+        assert len(hier.records) > 0, label
+        jt = _jhier(regions, kind, TRACE, wan)
+        _replay(jt, log.calls)
+        assert _records(hier) == _records(jt), label
+        assert hier.beliefs.snapshot() == jt.beliefs.snapshot(), label
+        assert hier.probe.estimator.bandwidth_mbps == \
+            jt.probe.estimator.bandwidth_mbps, label
+
+
+def test_ef_residual_carries_across_topology_retune():
+    """Switching topology mid-run (the actuator's ``set_kind`` on a live
+    transport) is invisible to the numerics: the EF residual carries and
+    the stream stays bit-identical to the inline path; the switch and the
+    billing after it are the reference's."""
+    spec = TopologySpec.from_regions(["sh", "sh", "cq"], kind="ring")
+    pre = _run(HierarchicalTransport(spec, TRACE, wan=WANConfig(seed=0)),
+               n_pods=3, n_steps=6)
+    assert float(pre[0].sync_state.ef_residual.norm()) > 0
+    hier = HierarchicalTransport(spec, TRACE, wan=WANConfig(seed=0),
+                                 probe=MeasuredWanProbe())
+    log = _WireLog(hier)
+    full = _run(log, n_pods=3, n_steps=12, set_kind_at=6,
+                set_kind_to="tree")
+    inline = _run(None, n_pods=3, n_steps=12)
+    _assert_same_stream(inline, full, "topology retune stream")
+    assert hier.spec.kind == "tree"
+    assert hier.switches == [(6, "ring", "tree")]
+    jt = _jhier(["sh", "sh", "cq"], "ring", TRACE, WANConfig(seed=0))
+    _replay(jt, log.calls, set_kind_at=6, set_kind_to="tree")
+    assert jt.switches == hier.switches
+    assert _records(hier) == _records(jt)
+    assert _sched(hier.schedule) == _sched(jt.schedule)
+
+
+def test_collapse_reroutes_within_one_sync_round_stream():
+    """Random networks with an injected 10x collapse on a random link: the
+    round that bills the collapsed link feeds its belief, and the next
+    schedule no longer crosses that link directly.  The reference's
+    transport, driven alongside, bills and reroutes the same, float for
+    float."""
+    rng = np.random.default_rng(42)
+    n_rerouted = 0
+    for stream in range(120):
+        n_regions = int(rng.integers(3, 6))
+        regions = [f"r{i}" for i in range(n_regions)]
+        kind = ("tree", "ring")[int(rng.integers(0, 2))]
+        spec = TopologySpec.from_regions(regions, kind=kind)
+        base = float(rng.uniform(50.0, 200.0))
+        collapse_at = float(rng.uniform(2.0, 6.0))
+        links = sorted({link_key(a, b) for a in regions for b in regions
+                       if a != b})
+        bad = links[int(rng.integers(0, len(links)))]
+        traces = {l: BandwidthTrace((0.0,), (base,)) for l in links}
+        traces[bad] = BandwidthTrace((0.0, collapse_at),
+                                     (base, base / 10.0))
+        wan = WANConfig(fluctuation=0.0, latency_s=0.0,
+                        seed=int(rng.integers(0, 99)))
+        tr = HierarchicalTransport(
+            spec, BandwidthTrace((0.0,), (base,)), link_traces=traces,
+            wan=wan)
+        jt = _jhier(regions, kind, BandwidthTrace((0.0,), (base,)), wan,
+                    link_traces=traces, probe=False)
+        collapsed_seen_at = None
+        for step in range(16):
+            crossed = {h for leg in tr.schedule.wan_legs
+                       for h in leg.hops}
+            if collapsed_seen_at is not None:
+                if not (kind == "ring" and n_regions == 3):
+                    assert bad not in crossed, (
+                        f"stream {stream}: step {step} still crosses "
+                        f"{bad} after collapse billed at "
+                        f"{collapsed_seen_at}")
+                    n_rerouted += 1
+            assert tr.on_sync({"all": 1.0}, step=step) == \
+                jt.on_sync({"all": 1.0}, step=step)
+            if (collapsed_seen_at is None and tr.clock_s >= collapse_at
+                    and bad in crossed):
+                collapsed_seen_at = step
+            tr.tick(1.0)
+            jt.tick(1.0)
+        assert tr.reroutes == jt.reroutes, f"stream {stream}"
+        assert _sched(tr.schedule) == _sched(jt.schedule)
+    assert n_rerouted > 100
+
+
+def test_hierarchical_billing_matches_schedule_law():
+    """``on_sync``'s billed round is reproducible from the schedule and the
+    seeded rng: per WAN hop one ``transfer_time`` draw at that link's
+    traced bandwidth, phases summing the slowest leg; the reference's
+    transport bills the same, float for float."""
+    spec = TopologySpec.from_regions(["a", "a", "b", "c"], kind="tree")
+    wan = WANConfig(fluctuation=0.3, latency_s=0.05, seed=11)
+    traces = {link_key("a", "b"): BandwidthTrace((0.0,), (50.0,)),
+              link_key("a", "c"): BandwidthTrace((0.0,), (10.0,))}
+    tr = HierarchicalTransport(spec, BandwidthTrace((0.0,), (100.0,)),
+                               wan=wan, link_traces=traces,
+                               probe=MeasuredWanProbe())
+    sched = tr.schedule
+    wire = {"dense": 0.8, "norm": 0.2}
+    t = tr.on_sync(wire, step=0)
+    rng = np.random.default_rng(11)
+    want = 0.0
+    for phase in sched.phases:
+        if not phase.wan:
+            want += 1.0 * 8.0 / spec.intra_mbps
+            continue
+        want += max(
+            sum(transfer_time(
+                1.0, traces.get(h, BandwidthTrace((0.0,), (100.0,))).at(0.0),
+                wan, rng) for h in leg.hops)
+            for leg in phase.legs)
+    assert t == pytest.approx(want)
+    assert sum(r.seconds for r in tr.records) == pytest.approx(t)
+    assert tr.probe.n_observations == 1
+    assert tr.probe.last_mbps == pytest.approx(1.0 * 8.0 / t)
+    jt = _jhier(["a", "a", "b", "c"], "tree",
+                BandwidthTrace((0.0,), (100.0,)), wan, link_traces=traces)
+    assert jt.on_sync(wire, step=0) == t
+    assert _records(tr) == _records(jt)
+    assert tr.beliefs.snapshot() == jt.beliefs.snapshot()
+
+
+def test_trainer_traffic_uses_schedule_legs():
+    """``Trainer.maybe_sync`` bills ``wan_transfers_per_round`` when the
+    transport has one: a 2-region tree over 3 pods makes 2 transfers a
+    round, not 3; the same count as the reference transport's."""
+    spec = TopologySpec.from_regions(["sh", "sh", "cq"], kind="tree")
+    hier = HierarchicalTransport(spec, TRACE, wan=WANConfig(seed=0))
+    assert hier.wan_transfers_per_round == 2 == _jhier(
+        ["sh", "sh", "cq"], "tree", TRACE, WANConfig(seed=0),
+        probe=False).wan_transfers_per_round
+    _, tr_hier, _ = _run(hier, n_pods=3, n_steps=4)
+    _, tr_flat, _ = _run(None, n_pods=3, n_steps=4)
+    assert tr_hier.traffic_mb == pytest.approx(tr_flat.traffic_mb * 2 / 3)
+    per_step = jsync.traffic_per_step_mb(
+        jsync.SyncConfig("asgd_ga", 2, compress_topk=0.2,
+                         quantize_int8=True, error_feedback=True,
+                         codec_block=128, overlap_chunks=2,
+                         bucket_policy="layer-class",
+                         buckets=(jsync.BucketOverride("norm",
+                                                       compress_topk=0.5),)),
+        0.001, bucket_weights=tr_hier._bucket_weights)
+    assert tr_hier.traffic_mb == pytest.approx(per_step * 2 * 4)
+
+
+def test_planner_actuates_through_set_kind():
+    """The planner takes the transport's ``set_kind`` as ``apply=``: a
+    collapse billed on the ring's links moves the planner to the tree,
+    and the transport's next schedule is the tree's, as in the
+    reference."""
+    def drive(mod, tr_mod, wan_mod, trace_args, wan_kw):
+        spec = mod.TopologySpec.from_regions(["a", "b", "c"],
+                                             kind="ring")
+        traces = {mod.link_key("a", "b"): wan_mod.BandwidthTrace(
+            (0.0, 2.0), (100.0, 1.0))}
+        tr = mod.HierarchicalTransport(
+            spec, wan_mod.BandwidthTrace(*trace_args),
+            wan=wan_mod.WANConfig(**wan_kw), link_traces=traces,
+            probe=tr_mod.MeasuredWanProbe())
+        planner = mod.TopologyPlanner(tr.spec, tr.beliefs, hysteresis=1,
+                                      apply=tr.set_kind)
+        kinds = []
+        for step in range(8):
+            planner.decide(step, 10.0)
+            tr.on_sync({"all": 10.0}, step=step)
+            tr.tick(1.0)
+            kinds.append(tr.spec.kind)
+        return tr, planner, kinds
+
+    wan_kw = dict(fluctuation=0.0, latency_s=0.0, seed=0)
+    tr, planner, kinds = drive(ttopology, ttransport, twan,
+                               ((0.0,), (100.0,)), wan_kw)
+    jtr, jplanner, jkinds = drive(jtopology, jtransport, jwan,
+                                  ((0.0,), (100.0,)), wan_kw)
+    assert kinds == jkinds and "tree" in kinds
+    assert tr.switches == jtr.switches != []
+    assert [list(d) for d in planner.decisions] == \
+        [list(d) for d in jplanner.decisions]
+    assert _records(tr) == _records(jtr)
 
 
 # --------------------------------------------- hierarchical_average mapping

@@ -558,10 +558,17 @@ def test_sim_billing_equals_the_reference():
     assert [r.mbps for r in tt.records] == [r.mbps for r in jt.records]
     assert tt.probe.n_observations == jt.probe.n_observations == 6
     assert tt.probe.last_mbps == jt.probe.last_mbps
-    assert tt.stream_rounds == [] and not tt.supports_streaming
-    assert tt.begin_stream_round({"all": 1.0}) is False
-    with pytest.raises(NotImplementedError, match="11c"):
-        tt.stream_chunk("all", 1.0)
+    # classic rounds leave no streaming summary; both sims stream, an
+    # empty round declines, and a streamed round bills as the reference's
+    assert tt.stream_rounds == jt.stream_rounds == []
+    assert tt.supports_streaming and jt.supports_streaming
+    assert tt.begin_stream_round({}) is jt.begin_stream_round({}) is False
+    assert tt.begin_stream_round({"all": 1.0}, step=8) is \
+        jt.begin_stream_round({"all": 1.0}, step=8) is True
+    assert [tt.stream_chunk("all", mb) for mb in (0.25, 0.75)] == \
+        [jt.stream_chunk("all", mb) for mb in (0.25, 0.75)]
+    assert tt.end_stream_round() == jt.end_stream_round()
+    assert tt.stream_rounds == jt.stream_rounds
 
 
 def test_measured_loop_decisions_equal_the_reference():
