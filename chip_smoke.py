@@ -89,6 +89,25 @@ Phases (any failure raises and the script exits non-zero):
    removed.  Prints each save's and restore's GB and seconds, the free disk
    (the phase fails below twice the state and the params) and the round
    times; the checkpoints live in a temporary directory it removes.
+3h. The async snapshot engine at full width: 3f's setup (the 20.13 GB
+   state). (a) A blocking ``checkpoint.save`` of the trainer's state, then
+   two ``AsyncCheckpointEngine`` snapshots, each followed at once by
+   in-place steps: the first snapshot's manifest (size and CRC32) equals
+   the blocking save's, the second reuses the first's page-locked buffer
+   set; prints ``snapshot()``'s host s, the next step's s and the steps'
+   s while the commit runs against steps with no snapshot, each commit's
+   s and the pinned GB.  (b) The launcher with ``--async-checkpoint
+   --events cloud_left:pod1@0 --serve`` against the same argv without the
+   engine: losses bit-equal step for step, one migration, no migrator
+   error, the 1-pod params' MB staged, 3 snapshots, step 2 durable; prints
+   every ``snapshot()`` (a backpressure stall included), commit and the
+   stage's join, the reconfig barrier's s and both arms' peak memory.
+   (c) ``--faults crash:pod1@1:rollback`` with snapshots in flight against
+   the blocking barrier path: equal losses and fault counters, the
+   ``restore_last`` s (its drain included).  (d) ``--serve``: 6 requests,
+   48 tokens.  The phase needs twice the state on disk and three times
+   in ``MemAvailable``; everything lives in a temporary directory it
+   removes.
 4. Entry point: ``repro_torch.launch.train.main`` on the tiny preset.
 2c. SSD scan: hold the kernel to its plain version (``ref.ssd``) within
    the reference's tolerance (``y / max|y|`` within 1e-5, the final state
@@ -304,6 +323,17 @@ STREAM_TOPO_LINK = ("eu", "us")
 STREAM_TOPO_FAST, STREAM_TOPO_SLOW = 2000.0, 500.0
 STREAM_TOPO_COLLAPSE = ((0.0, 1.0), (2000.0, 20.0))
 STREAM_LAUNCH_STEPS = 8
+# phase 3h, the async snapshot engine: (a) warm steps (one round) and
+# steps timed without and then with a commit in flight; (b) pod1 leaves
+# at step 0: staged from the step-0 snapshot (the stage drains the queue,
+# the step-2 barrier snapshot with it), reconciled at the step-2 barrier,
+# then two steps at 1 pod; (c) pod1 crashes in the step-2 round, rolled
+# back to the step-0 snapshot, removed at that barrier, one step after
+SNAP_TIMED_STEPS = 2
+SNAP_MIGRATE_STEPS = 4
+SNAP_EVENT = "cloud_left:pod1@0"
+SNAP_CRASH_STEPS = 3
+SNAP_CRASH = "crash:pod1@1:rollback"
 # phase 5c: gemma3-12b's prefill, 2048 prompt tokens and 8 new ones
 GEMMA_NEW_TOKENS = 8
 GEMMA_CHECKED_LAYERS = (0, 5)       # a windowed layer and a global one
@@ -2147,6 +2177,349 @@ def phase_streaming(torch, device: str = "cuda", cfg=None,
     return total
 
 
+def mem_available_gb() -> float:
+    """The host's ``MemAvailable`` (``/proc/meminfo``), in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+@contextlib.contextmanager
+def timed_engine(torch, log: list):
+    """Time the snapshot engine and the migrator in the block (the
+    launcher's included): each ``snapshot()``'s host seconds (a
+    backpressure stall included) with the pool's pinned GB after it, each
+    commit's seconds on the worker, each ``restore_last`` (its drain
+    included) and each join of a staged migration at the barrier, as
+    ``(kind, step or None, seconds, pinned GB or None)``; after each join,
+    the migrator's errors and supersedes as ``("migrator", errors,
+    restaged)`` (not the migrator, which holds the staged state)."""
+    from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
+    from repro_torch.training.trainer import LiveMigrator
+
+    snap, commit = (AsyncCheckpointEngine.snapshot,
+                    AsyncCheckpointEngine._commit_snapshot)
+    restore_last, join = (AsyncCheckpointEngine.restore_last,
+                          LiveMigrator._join_pending)
+
+    def pinned(eng):
+        return sum(b.nbytes for b in eng._host_bufs
+                   if b.registered) / 1e9
+
+    def timed_snapshot(self, tree, step, *args, **kw):
+        t0 = time.perf_counter()
+        snap(self, tree, step, *args, **kw)
+        log.append(("snapshot", step, time.perf_counter() - t0,
+                    pinned(self)))
+
+    def timed_commit(self, keys, host, step, *args, **kw):
+        t0 = time.perf_counter()
+        commit(self, keys, host, step, *args, **kw)
+        log.append(("commit", step, time.perf_counter() - t0, None))
+
+    def timed_restore_last(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = restore_last(self, *args, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        log.append(("restore_last", out[1], time.perf_counter() - t0, None))
+        return out
+
+    def timed_join(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = join(self, *args, **kw)
+        log.append(("stage join", None, time.perf_counter() - t0, None))
+        log.append(("migrator", [repr(e) for e in self.errors],
+                    self.restaged))
+        return out
+
+    AsyncCheckpointEngine.snapshot = timed_snapshot
+    AsyncCheckpointEngine._commit_snapshot = timed_commit
+    AsyncCheckpointEngine.restore_last = timed_restore_last
+    LiveMigrator._join_pending = timed_join
+    try:
+        yield
+    finally:
+        AsyncCheckpointEngine.snapshot = snap
+        AsyncCheckpointEngine._commit_snapshot = commit
+        AsyncCheckpointEngine.restore_last = restore_last
+        LiveMigrator._join_pending = join
+
+
+@contextlib.contextmanager
+def recorded_losses(out: list):
+    """Every ``Trainer.train_step``'s mean loss in the block, in order."""
+    from repro_torch.training.trainer import Trainer
+
+    step = Trainer.train_step
+
+    def recorded(self, *args, **kw):
+        state, metrics = step(self, *args, **kw)
+        out.append(float(metrics["loss"]))
+        return state, metrics
+
+    Trainer.train_step = recorded
+    try:
+        yield
+    finally:
+        Trainer.train_step = step
+
+
+def phase_snapshots(torch, device: str = "cuda", cfg=None,
+                    seq: int = 512) -> dict:
+    """Phase 3h: the async snapshot engine, live pod migration and the
+    launcher's ``--serve`` at granite-8b width, on phase 3f's setup.
+    Returns the codec launches of its runs."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.checkpoint.async_engine import (AsyncCheckpointEngine,
+                                                     blocking_equivalent)
+    from repro_torch.configs import granite_8b
+    from repro_torch.core import sync as S
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig, _wait
+
+    t_phase = time.perf_counter()
+    cfg = cfg or granite_8b.CONFIG.replace(n_layers=2)
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=TOPK, quantize_int8=True,
+                        error_feedback=True, bucket_policy="layer-class")
+    total = {"wan_encode": 0, "wan_decode": 0}
+
+    def peak_gb() -> float:
+        return (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else float("nan"))
+
+    def reset_peak():
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
+                                  data_size=1.0) for i in range(PODS))
+    plan = build_training_plan(TrainingRequest(
+        model=cfg.name, clouds=clouds, sync=sync, n_iters=4,
+        global_batch=8))
+    batches = train.make_batches(plan, cfg.vocab_size, seq, device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    # the launcher runs get no --ckpt-dir (its pre-reconfig saves would
+    # add ~27 GB of writes): their snapshot and barrier directories are
+    # temporary directories, made here and removed with the rest
+    tempdir, tempfile.tempdir = tempfile.tempdir, tmp
+    log, out = [], {}
+    try:
+        # ------------------------------------------------------------ (a)
+        reset_peak()
+        trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                          lambda g: transformer.init_params(g, cfg, device),
+                          TrainerConfig(n_pods=PODS, optimizer="sgd",
+                                        lr=0.02, sync=sync), device=device)
+        state = trainer.init_state(SEED)
+        ops.reset_launches()
+        for step in range(2):                   # one codec round
+            state, _ = trainer.train_step(state, batches(step))
+            state = trainer.maybe_sync(state, step)
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        gb = state_gb(torch, state)
+        params_mb = sum(x.numel() * x.element_size()
+                        for x in T.leaves(state.params)) / PODS / 1e6
+        free = shutil.disk_usage(tmp).free / 1e9
+        avail = mem_available_gb()
+        # disk: (a) a blocking save beside a snapshot, (b) two 2-pod
+        # snapshots, then a 1-pod one; host memory: (b)'s two pinned sets
+        # beside the staged restore (the f32 file, then the 1-pod state)
+        need_disk, need_mem = 2 * gb + 1, 3 * gb
+        print(f"[snap] {tmp}: {free:.1f} GB free disk, {avail:.1f} GB "
+              f"MemAvailable, state {gb:.2f} GB, params {params_mb:.1f} MB "
+              f"a pod")
+        require(free >= need_disk and avail >= need_mem,
+                f"the snapshot cases need {need_disk:.1f} GB of disk and "
+                f"{need_mem:.1f} GB of host memory")
+
+        def steps_s(n, sync_first=True):
+            """Seconds of each of ``n`` steps, the device synchronized at
+            each end (and before the first with ``sync_first``)."""
+            nonlocal state
+            if sync_first:
+                _wait(torch.device(device))
+            out, t0 = [], time.perf_counter()
+            for _ in range(n):
+                state, _ = trainer.train_step(state, batches(3))
+                _wait(torch.device(device))
+                out.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+            return out
+
+        quiet = steps_s(SNAP_TIMED_STEPS)
+        _wait(torch.device(device))
+        t0 = time.perf_counter()
+        bdir = blocking_equivalent(state, 1, os.path.join(tmp, "a_block"),
+                                   metadata={"model": cfg.name})
+        block_s = time.perf_counter() - t0
+        eng = AsyncCheckpointEngine(os.path.join(tmp, "a_snap"), keep=1)
+        snaps = []
+        with timed_engine(torch, log):
+            for s in (1, 2):
+                # the first snapshot pins its buffer set, the second reuses
+                # it; the step after each writes the params in place,
+                # behind the copies
+                _wait(torch.device(device))
+                t0 = time.perf_counter()
+                eng.snapshot(state, s, metadata={"model": cfg.name})
+                t1 = time.perf_counter()
+                after = steps_s(1, sync_first=False)[0]
+                busy = steps_s(SNAP_TIMED_STEPS)
+                eng.wait()
+                snaps.append({"snapshot() s": round(t1 - t0, 4),
+                              "next step s": round(after, 4),
+                              "steps while committing s":
+                                  [round(t, 4) for t in busy],
+                              "snapshot to durable s":
+                                  round(time.perf_counter() - t0, 2)})
+                if s == 1:
+                    ma = ckpt.load_manifest(eng.last_durable()[1])
+                    mb = ckpt.load_manifest(bdir)
+                    require(all(ma[k] == mb[k] for k in (
+                        "keys", "dtypes", "shapes", "step", "metadata",
+                        "arrays_bytes", "arrays_crc32")),
+                        f"(a) snapshot manifest == the blocking save's: "
+                        f"{ma['arrays_bytes']} / {ma['arrays_crc32']} vs "
+                        f"{mb['arrays_bytes']} / {mb['arrays_crc32']}")
+                    shutil.rmtree(os.path.join(tmp, "a_block"))
+        pinned = sum(b.nbytes for b in eng._host_bufs) / 1e9
+        require(len(eng._host_bufs) == 1,
+                f"(a) {len(eng._host_bufs)} buffer sets for two snapshots")
+        eng.close()
+        for snap, c in zip(snaps, [e for e in log if e[0] == "commit"]):
+            snap["commit s"] = round(c[2], 2)
+        out["a"] = {"blocking save s": round(block_s, 2),
+                    "steps with no snapshot s": [round(t, 4) for t in quiet],
+                    "first snapshot": snaps[0], "second snapshot": snaps[1],
+                    "pinned GB": round(pinned, 3),
+                    "arrays_bytes": ma["arrays_bytes"],
+                    "arrays_crc32": ma["arrays_crc32"],
+                    "peak GB": round(peak_gb(), 2)}
+        del state, trainer
+        shutil.rmtree(os.path.join(tmp, "a_snap"))
+        log.clear()
+
+        # ----------------------------------------------------- (b) and (d)
+        check_round, per_tier, checked, mark = bucketed_round_check(torch)
+        base = ["--pods", str(PODS), "--batch", "8", "--seq", str(seq),
+                "--interval", "2", "--compress-topk", str(TOPK), "--int8",
+                "--error-feedback", "--bucket-policy", "layer-class",
+                "--log-every", "0", "--device", device]
+
+        def launch(argv):
+            reset_peak()
+            ops.reset_launches()
+            mark.update(ops.LAUNCHES)
+            losses, buf = [], io.StringIO()
+            t0 = time.perf_counter()
+            with recorded_losses(losses), timed_engine(torch, log), \
+                    contextlib.redirect_stdout(buf):
+                summary = train.main(argv, model_cfg=cfg,
+                                     round_hook=check_round)
+            for k in total:
+                total[k] += ops.LAUNCHES[k]
+            lines = [line for line in buf.getvalue().splitlines()
+                     if line.startswith(("[elasticity]", "[faults]",
+                                         "[ckpt] async engine", "[serve]"))]
+            return {"summary": summary, "losses": losses, "lines": lines,
+                    "peak GB": round(peak_gb(), 2),
+                    "wall s": round(time.perf_counter() - t0, 1),
+                    "launches": {k: ops.LAUNCHES[k] for k in total}}
+
+        argv_b = base + ["--steps", str(SNAP_MIGRATE_STEPS), "--events",
+                         SNAP_EVENT]
+        live = launch(argv_b + ["--async-checkpoint", "--serve"])
+        live_log, log[:] = list(log), []
+        pause = launch(argv_b)
+        ls, ps = live["summary"], pause["summary"]
+        migrators = [e[1:] for e in live_log if e[0] == "migrator"]
+        require(live["losses"] == pause["losses"]
+                and len(live["losses"]) == SNAP_MIGRATE_STEPS,
+                f"(b) losses bit-equal step for step: {live['losses']} vs "
+                f"{pause['losses']}")
+        require(ls["migrations"] == 1 == ls["reconfigs"] == ps["reconfigs"]
+                and ls["final_pods"] == 1 == ps["final_pods"]
+                and migrators == [([], 0)]
+                and ls["staged_mb"] == round(params_mb, 3)
+                and ls["snapshots"] == 3 and ls["last_durable_step"] == 2,
+                f"(b) migrations {ls['migrations']}, staged "
+                f"{ls['staged_mb']} MB (want {params_mb:.3f}), snapshots "
+                f"{ls['snapshots']}, last durable {ls['last_durable_step']},"
+                f" migrator (errors, restaged) {migrators}")
+        # (d) --serve on pod 0's final params after the live run
+        require(ls["serve"] is not None and ls["serve"]["requests"] == 6
+                and ls["serve"]["new_tokens"] == 48,
+                f"(d) serve {ls['serve']}")
+        out["b"] = {
+            "live": {"reconfig barrier s": ls["reconfigs_at"][0][2],
+                     "peak GB": live["peak GB"], "wall s": live["wall s"]},
+            "pause": {"reconfig barrier s": ps["reconfigs_at"][0][2],
+                      "peak GB": pause["peak GB"],
+                      "wall s": pause["wall s"]},
+            "launches": live["launches"]}
+        out["d"] = ls["serve"]
+
+        # ------------------------------------------------------------ (c)
+        argv_c = base + ["--steps", str(SNAP_CRASH_STEPS), "--wan-trace",
+                         CONTROL_TRACE, "--transport", TRANSPORT_SIM,
+                         "--faults", SNAP_CRASH]
+        c_live = launch(argv_c + ["--async-checkpoint"])
+        c_log, log[:] = list(log), []
+        c_block = launch(argv_c)
+        cs, cb = c_live["summary"], c_block["summary"]
+        keys = ("rollbacks", "crash_recoveries", "degraded_rounds",
+                "reconfigs", "final_pods", "retries")
+        require(c_live["losses"] == c_block["losses"]
+                and all(cs[k] == cb[k] for k in keys)
+                and cs["rollbacks"] == 1 and cs["final_pods"] == 1,
+                f"(c) async == blocking: {c_live['losses']} vs "
+                f"{c_block['losses']}, "
+                f"{[(k, cs[k], cb[k]) for k in keys]}")
+        restore_s = [e[2] for e in c_log if e[0] == "restore_last"]
+        require(len(restore_s) == 1, f"(c) {len(restore_s)} restore_last")
+        out["c"] = {"restore_last s (drain included)": round(restore_s[0], 2),
+                    "live peak GB": c_live["peak GB"],
+                    "blocking peak GB": c_block["peak GB"],
+                    "live wall s": c_live["wall s"],
+                    "blocking wall s": c_block["wall s"]}
+        require(os.listdir(tmp) == [],
+                f"the launchers left {os.listdir(tmp)} behind")
+    finally:
+        tempfile.tempdir = tempdir
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    print(f"[snap] (a) {cfg.name} x{cfg.n_layers} layers, {PODS} pods: "
+          f"{out['a']}")
+    for name, lg in (("(b) live", live_log), ("(c) live", c_log)):
+        print(f"[snap] {name} engine (kind, step, s, pinned GB): "
+              f"{[(e[0], e[1], round(e[2], 4), e[3] and round(e[3], 2)) for e in lg if e[0] != 'migrator']}")
+    print(f"[snap] (b) live migration == pause and restore, losses bit-equal "
+          f"{live['losses']}; {out['b']}; (d) serve {out['d']}")
+    print(f"[snap] (b) lines: {live['lines']}")
+    print(f"[snap] (c) rollback with snapshots in flight == blocking "
+          f"barrier path, losses {c_live['losses']}; {out['c']}")
+    print(f"[snap] phase 3h: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}")
+    return total
+
+
 def phase_entry_point(torch) -> None:
     from repro_torch.launch import train
 
@@ -3911,6 +4284,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     stream_launches = phase_streaming(torch)
     torch.cuda.empty_cache()
+    snap_launches = phase_snapshots(torch)
+    torch.cuda.empty_cache()
     topk_launches = phase_strategies(torch)
     phase_paper_models(torch)
     phase_entry_point(torch)
@@ -3937,6 +4312,7 @@ def main() -> int:
                                      + transport_launches[name]
                                      + fault_launches[name]
                                      + stream_launches[name]
+                                     + snap_launches[name]
                                      + moe_train_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]

@@ -21,11 +21,16 @@ leaf and the whole file in host memory at once (and reads the file twice
 more, to check it and to load it), the port moves one leaf at a time
 between the device and the file, and touches each byte once.  The save
 writes the archive ``np.savez`` writes (one stored zip64 member
-``a{i}.npy`` a leaf), with the leaf's copy to the host overlapping the
-write of the one before; the restore reads each member straight into its
-host buffer.  Threads checksum the data in chunks, and the file's CRC32,
-the same number as the reference's, is assembled from those pieces and
-the few header bytes between them.  ``restore`` takes ``device=`` where
+``a{i}.npy`` a leaf, zip64 central records only where an offset or size
+needs them), with the leaf's copy to the host overlapping the write of
+the one before; the restore reads each member straight into its host
+buffer.  Every member is dated at the zip epoch (1980-01-01 00:00), so
+one tree always writes the same bytes: the size and CRC32 in two
+manifests of one tree are equal (an async snapshot's and a blocking
+save's), and equal to the reference's when its clock reads the epoch.
+Threads checksum the data in chunks, and the file's CRC32, the same
+number as the reference's, is assembled from those pieces and the few
+header bytes between them.  ``restore`` takes ``device=`` where
 the reference takes ``shardings=``.
 """
 from __future__ import annotations
@@ -37,7 +42,6 @@ import os
 import shutil
 import struct
 import tempfile
-import time
 import zipfile
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -65,6 +69,12 @@ _END64_LOCATOR = struct.Struct("<4sLQL")
 _END = struct.Struct("<4s4H2LH")
 _ZIP64_VERSION = 45
 _U32 = 0xFFFFFFFF
+# what zipfile writes beside them: a central record carries zip64 fields
+# past 2 GiB, the archive a zip64 end record past 2 GiB or 65535 members
+_ZIP64_LIMIT = (1 << 31) - 1
+_COUNT_LIMIT = (1 << 16) - 1
+# every member's date and time, in DOS form: 1980-01-01 00:00:00
+_DOS_DATE, _DOS_TIME = 1 << 5 | 1, 0
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -221,9 +231,6 @@ def _write_npz(path: str, leaves) -> Tuple[int, int]:
     archive at ``path`` (the layout ``np.savez`` writes); the next leaf's
     copy to the host runs while this one is written.  Returns the file's
     size and CRC32."""
-    t = time.localtime()[:6]
-    dosdate = (t[0] - 1980) << 9 | t[1] << 5 | t[2]
-    dostime = t[3] << 11 | t[4] << 5 | t[5] // 2
     pieces, entries = [], []
 
     def put(f, b: bytes) -> None:
@@ -244,26 +251,43 @@ def _write_npz(path: str, leaves) -> Tuple[int, int]:
             entries.append((name, crc, size, f.tell()))
             put(f, _LOCAL_HEADER.pack(
                 b"PK\003\004", _ZIP64_VERSION, 0, 0, zipfile.ZIP_STORED,
-                dostime, dosdate, crc, _U32, _U32, len(name), 20)
+                _DOS_TIME, _DOS_DATE, crc, _U32, _U32, len(name), 20)
                 + name + struct.pack("<HHQQ", 1, 16, size, size))
             f.write(head)
             f.write(data)
             pieces.extend(body)
         start = f.tell()
         for name, crc, size, offset in entries:
+            big = [size, size] if size > _ZIP64_LIMIT else []
+            big += [offset] if offset > _ZIP64_LIMIT else []
+            extra = (struct.pack(f"<HH{len(big)}Q", 1, 8 * len(big), *big)
+                     if big else b"")
             put(f, _CENTRAL.pack(
                 b"PK\001\002", _ZIP64_VERSION, 3, _ZIP64_VERSION, 0, 0,
-                zipfile.ZIP_STORED, dostime, dosdate, crc, _U32, _U32,
-                len(name), 28, 0, 0, 0, 0o600 << 16, _U32)
-                + name + struct.pack("<HH3Q", 1, 24, size, size, offset))
+                zipfile.ZIP_STORED, _DOS_TIME, _DOS_DATE, crc,
+                *([_U32] * 2 if size > _ZIP64_LIMIT else [size] * 2),
+                len(name), len(extra), 0, 0, 0, 0o600 << 16,
+                _U32 if offset > _ZIP64_LIMIT else offset) + name + extra)
         end64 = f.tell()
         n, cd = len(entries), end64 - start
-        put(f, _END64.pack(b"PK\006\006", _END64.size - 12, _ZIP64_VERSION,
-                           _ZIP64_VERSION, 0, 0, n, n, cd, start)
-            + _END64_LOCATOR.pack(b"PK\006\007", 0, end64, 1)
-            + _END.pack(b"PK\005\006", 0, 0, min(n, 0xFFFF),
-                        min(n, 0xFFFF), min(cd, _U32), min(start, _U32), 0))
+        if n > _COUNT_LIMIT or start > _ZIP64_LIMIT or cd > _ZIP64_LIMIT:
+            put(f, _END64.pack(b"PK\006\006", _END64.size - 12,
+                               _ZIP64_VERSION, _ZIP64_VERSION, 0, 0, n, n,
+                               cd, start)
+                + _END64_LOCATOR.pack(b"PK\006\007", 0, end64, 1))
+        put(f, _END.pack(b"PK\005\006", 0, 0, min(n, 0xFFFF),
+                         min(n, 0xFFFF), min(cd, _U32), min(start, _U32), 0))
         return f.tell(), _crc_of(pieces)
+
+
+def write_files(directory: str, leaves, manifest: dict) -> None:
+    """Write ``arrays.npz`` and then ``manifest.json``, with the arrays'
+    size and CRC32 as its commit record, into the existing
+    ``directory``."""
+    size, crc = _write_npz(os.path.join(directory, _ARRAYS), leaves)
+    manifest = dict(manifest, arrays_bytes=size, arrays_crc32=crc)
+    with open(os.path.join(directory, _MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
 
 
 def _commit(directory: str, leaves, manifest: dict) -> None:
@@ -273,14 +297,9 @@ def _commit(directory: str, leaves, manifest: dict) -> None:
     parent = os.path.dirname(os.path.abspath(directory)) or "."
     tmp = tempfile.mkdtemp(prefix=".ckpt-stage-", dir=parent)
     try:
-        apath = os.path.join(tmp, _ARRAYS)
-        size, crc = _write_npz(apath, leaves)
-        manifest = dict(manifest, arrays_bytes=size, arrays_crc32=crc)
-        mpath = os.path.join(tmp, _MANIFEST)
-        with open(mpath, "w") as f:
-            json.dump(manifest, f, indent=1)
-        os.replace(apath, os.path.join(directory, _ARRAYS))
-        os.replace(mpath, os.path.join(directory, _MANIFEST))
+        write_files(tmp, leaves, manifest)
+        for name in (_ARRAYS, _MANIFEST):
+            os.replace(os.path.join(tmp, name), os.path.join(directory, name))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -437,9 +456,15 @@ def _resize_pod_dim(arr: np.ndarray, n_new: int, how: str) -> np.ndarray:
         return np.concatenate([arr, fill], axis=0)
     kept = arr[:n_new]
     if how == "mean":
-        shift = (arr.astype(np.float32).mean(axis=0, keepdims=True)
-                 - kept.astype(np.float32).mean(axis=0, keepdims=True))
-        kept = (kept.astype(np.float32) + shift).astype(arr.dtype)
+        # the reference's expression, value for value, with fewer
+        # temporaries (a state holds tens of GB): an f32 array is not
+        # copied to f32, and the shift is formed and applied in place
+        f32 = functools.partial(np.ndarray.astype, dtype=np.float32,
+                                copy=False)
+        shift = f32(arr).mean(axis=0, keepdims=True)
+        shift -= f32(kept).mean(axis=0, keepdims=True)
+        kept = np.add(f32(kept), shift, out=shift if n_new == 1 else None)
+        kept = kept.astype(arr.dtype, copy=False)
     return kept
 
 

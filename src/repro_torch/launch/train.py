@@ -45,12 +45,23 @@ Counterpart of ``repro/launch/train.py``:
    achieved bandwidth falls ``--stream-cliff`` below the belief re-encodes
    the round's unsent tail one rung cheaper; the EF residual carries what
    the tail dropped.
+9. **Snapshots and live migration** (``--async-checkpoint``,
+   ``--snapshot-every``, ``--keep-snapshots``): an
+   ``AsyncCheckpointEngine`` snapshots the full train state at step 0, at
+   every sync barrier (and every N steps) off the step; a reconfiguration
+   stages its new pod count from the last durable snapshot in the
+   background (``LiveMigrator``) and reconciles at the barrier; a
+   rollback-mode crash restores the last durable snapshot; the blocking
+   barrier checkpoint of 6 is then not written.  Snapshots go to
+   ``snapshots/`` under ``--ckpt-dir``, else to a temporary directory
+   removed when the run ends (the reference keeps its ``mkdtemp``): a run
+   at granite-8b width on the card writes ~20 GB a snapshot.
+10. **Serving smoke** (``--serve``): a 4-slot ``ContinuousEngine`` serves
+    6 requests, 8 new tokens each, on pod 0's final parameters
+    (encoder-decoder modules print a skip).
 
 The flags keep the reference's meanings, defaults and messages;
-``--device`` picks the card (default) or the CPU.  The reference's
-snapshot engine's flags (``--async-checkpoint``, ``--snapshot-every``,
-``--keep-snapshots``: ROADMAP.md Queue 1 item 12) and ``--serve`` (item
-15a) are not ported yet, and argparse refuses them.
+``--device`` picks the card (default) or the CPU.
 
 Examples::
 
@@ -82,6 +93,10 @@ Examples::
       --pods 3 --steps 12 --batch 6 --seq 16 --interval 2 \\
       --compress-topk 0.05 --int8 --error-feedback --adaptive-sync \\
       --wan-trace 100@0,0.5@5 --topology auto --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+      --pods 2 --steps 8 --batch 4 --seq 16 --interval 2 \\
+      --compress-topk 0.05 --int8 --error-feedback --async-checkpoint \\
+      --events cloud_left:pod1@2 --serve --device cpu
 """
 from __future__ import annotations
 
@@ -96,6 +111,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.configs.base import dense
 from repro_torch.core.autotune import (AdaptiveSyncController, BucketStats,
@@ -120,7 +136,8 @@ from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
 from repro_torch.core.wan import BandwidthTrace, WANConfig
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.models.registry import get_model_fns
-from repro_torch.training.trainer import (Trainer, TrainerConfig, _wait,
+from repro_torch.training.trainer import (LiveMigrator, Trainer,
+                                          TrainerConfig, _wait,
                                           apply_reconfig)
 
 
@@ -509,6 +526,20 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                     help="per-pod data distribution, e.g. 2:1")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--async-checkpoint", action="store_true",
+                    help="stream snapshots off the training step: an "
+                         "AsyncCheckpointEngine captures the full train "
+                         "state at every sync barrier on a background "
+                         "thread (atomic step-tagged dirs), and pod "
+                         "reconfigurations migrate live from the last "
+                         "durable snapshot instead of pausing to "
+                         "checkpoint-restore")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="with --async-checkpoint: also snapshot every N "
+                         "steps between barriers (0 = barriers only)")
+    ap.add_argument("--keep-snapshots", type=int, default=2,
+                    help="with --async-checkpoint: retention depth — the "
+                         "engine prunes to the N newest durable snapshots")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--events", default="",
                     help="mid-run cloud events, e.g. "
@@ -585,6 +616,12 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                          "— the third actuator; needs --adaptive-sync).  "
                          "Numerics are identical either way; topology "
                          "changes the billing and the traffic accounting")
+    ap.add_argument("--serve", action="store_true",
+                    help="after training, run a short continuous-batching "
+                         "serving smoke on pod-0's final parameters "
+                         "(prefill -> slot insert -> generate over a "
+                         "4-slot pool); decoder-only modules only — "
+                         "encoder-decoder modules print a skip")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and the codec run")
     args = ap.parse_args(argv)
@@ -666,6 +703,19 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                     f"{'sharded' if sharded else 'unsharded'}")
         print(f"[transport] {args.transport}: "
               f"{type(transport).__name__}{mesh}")
+    if not args.async_checkpoint:
+        if args.snapshot_every:
+            raise SystemExit(
+                "--snapshot-every tunes the async snapshot engine's "
+                "cadence: it needs --async-checkpoint")
+        if args.keep_snapshots != 2:
+            raise SystemExit(
+                "--keep-snapshots tunes the async snapshot engine's "
+                "retention: it needs --async-checkpoint")
+    elif args.keep_snapshots < 1:
+        raise SystemExit(
+            "--keep-snapshots must keep at least the one snapshot the "
+            "rollback/migration paths recover from")
     fault_plan = parse_faults(args.faults)
     if args.no_tolerance and fault_plan is None:
         raise SystemExit(
@@ -839,12 +889,35 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
     n_rollbacks = 0
     decisions, rounds, reconfigs_at = [], [], []
 
+    # async snapshot engine: full-train-state snapshots streamed off the
+    # step at every sync barrier; reconfigurations migrate live from the
+    # last durable snapshot and crashes roll back to it.  Without
+    # --ckpt-dir the snapshots live in a temporary directory, removed when
+    # the run ends (or, if it raises, when the object is collected)
+    engine = migrator = snap_tmp = None
+    if args.async_checkpoint:
+        if args.ckpt_dir:
+            snap_root = f"{args.ckpt_dir}/snapshots"
+        else:
+            snap_tmp = tempfile.TemporaryDirectory(prefix="snapshots_")
+            snap_root = snap_tmp.name
+        engine = AsyncCheckpointEngine(snap_root, keep=args.keep_snapshots)
+        migrator = LiveMigrator(engine)
+        engine.snapshot(state, 0,
+                        metadata={"model": name, "pods": trainer.cfg.n_pods})
+        print(f"[ckpt] async snapshot engine at {snap_root}: keep "
+              f"{args.keep_snapshots}, cadence "
+              f"{'every ' + str(args.snapshot_every) + ' steps + ' if args.snapshot_every else ''}"
+              f"sync barriers")
+
     # mid-round crash recovery: keep a checkpoint of the full train state
     # at the last completed sync barrier; a rollback-mode crash unwinds to
-    # it.  Without --ckpt-dir it lives in a temporary directory, removed
-    # when the run ends (or, if it raises, when the object is collected)
+    # it (the async engine's durable snapshots subsume this blocking
+    # path).  Without --ckpt-dir it lives in a temporary directory, as the
+    # snapshots do
     barrier_dir = barrier_tmp = None
-    if chaos is not None and chaos.tolerate and chaos.plan.has_crashes:
+    if engine is None and chaos is not None and chaos.tolerate \
+            and chaos.plan.has_crashes:
         if args.ckpt_dir:
             barrier_dir = f"{args.ckpt_dir}/fault_barrier"
         else:
@@ -871,6 +944,14 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                   f"diff {rc.diff.summary()}, "
                   f"batch split {rc.new.batch_split}, "
                   f"interval {rc.new.request.sync.interval}")
+            if migrator is not None and not rc.diff.is_empty:
+                # live migration: pre-move the target-pod-count state from
+                # the last durable snapshot off the step path; surviving
+                # pods keep stepping until the barrier reconciles
+                keep_pods, n_new = rc.pod_transition()
+                migrator.stage(state, n_new, keep=keep_pods)
+                print(f"[elasticity] staging {n_new}-pod migration from "
+                      f"the last durable snapshot (background)")
 
     for step in range(args.steps):
         # WAN trace: segment changes surface as bandwidth_changed events on
@@ -916,14 +997,23 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
             # pod's replica and cannot be re-stacked; restore the barrier
             # (the crash then degrades rounds until the pod is removed).
             # Out of the handler, whose traceback holds the round's buffers
-            state, _ = ckpt.restore(barrier_dir, like=state)
+            if engine is not None:
+                state, _ = engine.restore_last(like=state)
+            else:
+                state, _ = ckpt.restore(barrier_dir, like=state)
             n_rollbacks += 1
             print(f"[faults] pod {crashed} unreachable mid-round at "
                   f"step {step + 1}: rolled back to the last sync barrier")
         else:
             at_sync = trainer.cfg.n_pods > 1 and \
                 is_sync_step(trainer.cfg.sync, step)
-            if barrier_dir is not None and at_sync:
+            if engine is not None and (
+                    at_sync or (args.snapshot_every and
+                                (step + 1) % args.snapshot_every == 0)):
+                engine.snapshot(state, step + 1,
+                                metadata={"model": name,
+                                          "pods": trainer.cfg.n_pods})
+            elif barrier_dir is not None and at_sync:
                 ckpt.save(barrier_dir, state, step=step + 1,
                           metadata={"model": name,
                                     "pods": trainer.cfg.n_pods})
@@ -964,8 +1054,14 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                                         "pods": trainer.cfg.n_pods})
                 _wait(device)
                 tb = time.perf_counter()
-                trainer, state, applied = apply_reconfig(trainer, state,
-                                                         pending)
+                if migrator is not None:
+                    # one barrier, not a pause: the staged migration joins
+                    # here and the live state is re-stacked in place
+                    trainer, state, applied = migrator.reconcile(
+                        trainer, state, pending)
+                else:
+                    trainer, state, applied = apply_reconfig(
+                        trainer, state, pending)
                 _wait(device)
                 if applied:
                     reconfigs_at.append([step + 1, trainer.cfg.n_pods,
@@ -983,6 +1079,12 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                         # re-anchor the autotuner's belief so its next
                         # update reasons about the knobs actually running
                         tuner.resync(trainer.cfg.sync)
+                    if engine is not None:
+                        # re-anchor the durable base on the new membership
+                        # (an old-pod-count snapshot cannot back a rollback)
+                        engine.snapshot(state, step + 1,
+                                        metadata={"model": name,
+                                                  "pods": trainer.cfg.n_pods})
                     print(f"[elasticity] reconfig applied at barrier "
                           f"step {step + 1}: {trainer.cfg.n_pods} pods, "
                           f"sync interval "
@@ -1003,6 +1105,46 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
                       metadata={"model": name, "sync": args.sync})
     if barrier_tmp is not None:
         barrier_tmp.cleanup()
+    last_durable = None
+    if engine is not None:
+        engine.wait()
+        durable = engine.last_durable()
+        last_durable = durable[0] if durable is not None else None
+        engine.close()
+        print(f"[ckpt] async engine: {engine.committed} snapshots "
+              f"committed, last durable step {last_durable}")
+        if snap_tmp is not None:
+            snap_tmp.cleanup()
+
+    # -------------------------------------------------- serving smoke
+    serve_info = None
+    if args.serve:
+        if fns.prefill is None:
+            print(f"[serve] module '{module}' has no prefill/decode-cache "
+                  f"path (encoder-decoder) — skipping serving smoke")
+            serve_info = {"skipped": module}
+        else:
+            from repro_torch.serving.engine import (ContinuousEngine,
+                                                    ContinuousScheduler)
+            pod0 = T.tree_map(lambda x: x[0], state.params)
+            sched = ContinuousScheduler(ContinuousEngine(
+                None, pod0, n_slots=4, cache_len=64, cfg=cfg,
+                module=module))
+            srng = np.random.default_rng(0)
+            for _ in range(6):
+                plen = int(srng.integers(4, 17))
+                sched.submit(srng.integers(0, cfg.vocab_size, plen)
+                             .astype(np.int32), max_new=8)
+            outs = sched.run()
+            serve_info = {
+                "requests": len(outs),
+                "new_tokens": sum(len(v) for v in outs.values()),
+                "decode_steps": sched.engine.decode_steps,
+            }
+            print(f"[serve] continuous-batching smoke on pod-0 params: "
+                  f"{serve_info['requests']} requests, "
+                  f"{serve_info['new_tokens']} tokens in "
+                  f"{serve_info['decode_steps']} pool decode steps")
 
     final = trainer.cfg.sync
     summary = {
@@ -1070,6 +1212,13 @@ def main(argv=None, *, model_cfg=None, init_params=None, round_hook=None):
         "crash_recoveries": (chaos.crash_recoveries
                              if chaos is not None else None),
         "rollbacks": n_rollbacks if chaos is not None else None,
+        "async_checkpoint": args.async_checkpoint,
+        "snapshots": engine.committed if engine is not None else None,
+        "last_durable_step": last_durable,
+        "migrations": migrator.migrations if migrator is not None else None,
+        "staged_mb": (round(migrator.staged_mb, 3)
+                      if migrator is not None else None),
+        "serve": serve_info,
         "decisions": decisions,
         "rounds": rounds,
         "reconfigs_at": reconfigs_at,

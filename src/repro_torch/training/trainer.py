@@ -26,10 +26,15 @@ The step updates the stacked parameters and optimizer state in place
 parameters are gigabytes, and nothing reads a train state after the step
 that replaced it.
 
-Live migration is ROADMAP Queue 1 item 12.
+:class:`LiveMigrator` stages a pod grow or shrink from the async snapshot
+engine's last durable snapshot on a background thread (restored to the
+host: the card already holds the live state) and reconciles it at the
+next sync barrier through :func:`apply_reconfig`, so a migrated run is
+bit-identical to a pause-and-restore one.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 import dataclasses
@@ -532,6 +537,143 @@ def apply_reconfig(trainer: Trainer, state: TrainState, reconfig
     new_trainer, new_state = trainer.reconfigure(
         state, n_new, keep=keep, sync=reconfig.new.request.sync)
     return new_trainer, new_state, True
+
+
+# ---------------------------------------------------------------------------
+# elasticity: live pod migration off the step path
+# ---------------------------------------------------------------------------
+
+
+def _resized_like(tree: Pytree, n_old: int, n_new: int) -> Pytree:
+    """Shape and dtype skeleton of ``tree`` on the ``meta`` device (nothing
+    allocated) with every pod-stacked leaf's leading dimension re-sized
+    ``n_old -> n_new``; ``int`` leaves (the step) pass through."""
+    def f(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        shape = tuple(x.shape)
+        if len(shape) >= 1 and shape[0] == n_old:
+            shape = (n_new,) + shape[1:]
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+    return T.tree_map(f, tree)
+
+
+class LiveMigrator:
+    """Live pod migration: a grow or shrink staged off the training step.
+
+    On a ``PlanDiff`` the surviving pods keep stepping.  :meth:`stage`
+    materializes the target-pod-count state from the async engine's last
+    durable snapshot on a background thread, through the checkpoint
+    layer's ``pod_resize="mean"`` transform, onto the host: in a
+    deployment this is the bulk WAN shipment of the migration (the
+    ``migration_wire_mb`` bytes the DES bills as overlapped background
+    traffic).  At the next sync barrier :meth:`reconcile` applies the
+    pod-resize transforms to the *live* state (:func:`apply_reconfig` /
+    :func:`resize_train_state`: EF residuals and optimizer moments carried
+    under the invariants ``retune_sync_state`` guarantees), so the
+    reconciled state is bit-identical to a pause-and-restore taken at the
+    barrier; the staged restore validates the target structure and stands
+    by as the recovery base if the barrier never comes (a pod crash
+    mid-migration).  The reconfiguration's only stall is the one barrier
+    it reconciles at, plus whatever of the stage (draining the engine's
+    queue, reading the snapshot) has not finished by then."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._pending: Optional[Tuple[threading.Thread, Dict[str, Any]]] = None
+        self.migrations = 0
+        self.restaged = 0
+        self.staged_mb = 0.0
+        self.errors: List[Exception] = []
+        self.last_staged: Optional[Dict[str, Any]] = None
+
+    @property
+    def pending(self) -> bool:
+        return self._pending is not None
+
+    def stage(self, state: TrainState, n_new: int,
+              keep: Optional[Tuple[int, ...]] = None) -> None:
+        """Start materializing the ``n_new``-pod state from the last
+        durable snapshot in the background.  Supersedes any earlier
+        un-reconciled stage (the launcher composes events between
+        barriers: only the barrier-time plan is reconciled)."""
+        from repro_torch.checkpoint import checkpoint as _ckpt
+
+        if self._pending is not None:
+            self._join_pending(superseded=True)
+        n_old = T.leaves(state.params)[0].shape[0]
+        like = _resized_like(state, n_old, n_new)
+        holder: Dict[str, Any] = {"n_new": n_new,
+                                  "keep": tuple(keep) if keep else None}
+
+        def work():
+            try:
+                self.engine.wait()
+                durable = self.engine.last_durable()
+                if durable is None:
+                    return
+                snap_step, path = durable
+                staged, ckpt_step = _ckpt.restore(path, like=like,
+                                                  device="cpu",
+                                                  pod_resize="mean")
+                holder.update(
+                    state=staged, snapshot_step=snap_step,
+                    ckpt_step=ckpt_step,
+                    mb=sum(x.numel() * x.element_size()
+                           for x in T.leaves(staged.params)) / 1e6)
+            except Exception as e:   # noqa: BLE001 — surfaced at reconcile
+                holder["error"] = e
+
+        t = threading.Thread(target=work, daemon=True, name="live-migrator")
+        t.start()
+        self._pending = (t, holder)
+
+    def _join_pending(self, superseded: bool = False) -> Optional[Dict]:
+        t, holder = self._pending
+        t.join()
+        self._pending = None
+        err = holder.get("error")
+        if err is not None:
+            # a failed stage degrades to a plain barrier re-stack: the
+            # reconcile math never depended on the staged bytes
+            self.errors.append(err)
+            return None
+        if superseded:
+            self.restaged += 1
+            return None
+        if "state" not in holder:
+            return None   # no durable snapshot yet: nothing was staged
+        return holder
+
+    def reconcile(self, trainer: Trainer, state: TrainState, reconfig
+                  ) -> Tuple[Trainer, TrainState, bool]:
+        """At the sync barrier: reconcile the migration against the live
+        state.  Same signature and semantics as :func:`apply_reconfig`, and
+        bit-identical results: the staged snapshot never enters the
+        numerics, it only pre-moved the bytes a joining or leaving pod
+        needs and pre-validated the target structure."""
+        staged = self._join_pending() if self._pending is not None else None
+        new_trainer, new_state, applied = apply_reconfig(trainer, state,
+                                                         reconfig)
+        if not applied:
+            return new_trainer, new_state, applied
+        self.migrations += 1
+        if staged is not None:
+            if staged["n_new"] != new_trainer.cfg.n_pods:
+                # the plan evolved between stage and barrier: the staged
+                # skeleton is stale, and the barrier re-stack covered it
+                self.restaged += 1
+            else:
+                ref = T.leaves(new_state.params)
+                got = T.leaves(staged["state"].params)
+                if [(tuple(a.shape), a.dtype) for a in got] != \
+                        [(tuple(a.shape), a.dtype) for a in ref]:
+                    raise RuntimeError(
+                        "staged migration skeleton does not match the "
+                        "reconciled state — snapshot/plan divergence")
+                self.staged_mb += staged["mb"]
+                self.last_staged = staged
+        return new_trainer, new_state, applied
 
 
 # ---------------------------------------------------------------------------

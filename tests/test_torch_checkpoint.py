@@ -231,6 +231,24 @@ def test_resize_pod_dim_bf16_roundtrip_keeps_dtype():
                                       want.view(np.uint16))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+@pytest.mark.parametrize("n_old,n_new", [(2, 1), (3, 1), (4, 2), (5, 3)])
+def test_resize_pod_dim_mean_shrink_is_the_references_bits(n_old, n_new,
+                                                           dtype):
+    """The mean shrink forms its shift in place with fewer temporaries;
+    its values are the reference's expression's, bit for bit, in the
+    input's dtype, and the input is left as it was."""
+    rng = np.random.default_rng(n_old * 10 + n_new)
+    arr = (rng.normal(size=(n_old, 6, 5)) * 100).astype(
+        ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype)
+    before = arr.copy()
+    got = ckpt._resize_pod_dim(arr, n_new, "mean")
+    want = jckpt._resize_pod_dim(arr, n_new, "mean")
+    assert got.dtype == want.dtype == arr.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    np.testing.assert_array_equal(arr.view(np.uint8), before.view(np.uint8))
+
+
 def test_resize_pod_dim_same_size_is_identity():
     arr = np.random.default_rng(2).normal(size=(3, 4)).astype(np.float32)
     for mode in ("mean", "clone", "drop"):
@@ -344,6 +362,37 @@ def test_manifest_crc_is_the_whole_files(tmp_path, monkeypatch):
     assert m["arrays_crc32"] == zlib.crc32(blob)
     out, _ = ckpt.restore(str(tmp_path), _zeros(tree))
     _equal(tree, out)
+
+
+@pytest.mark.parametrize("zip64_limit,count_limit", [
+    ((1 << 31) - 1, (1 << 16) - 1), (200, (1 << 16) - 1), (1000, 2)])
+def test_archive_is_np_savez_bytes_at_the_epoch(tmp_path, monkeypatch,
+                                                zip64_limit, count_limit):
+    """With zipfile's clock at the zip epoch, at which the port dates every
+    member, ``np.savez`` of the same leaves writes the port's archive byte
+    for byte, also where sizes, offsets or the member count pass zipfile's
+    zip64 limits (lowered here, for both writers, so small files pass
+    them)."""
+    import time
+
+    epoch = time.struct_time((1980, 1, 1, 0, 0, 0, 1, 1, 0))
+    monkeypatch.setattr(zipfile.time, "localtime", lambda *a: epoch)
+    monkeypatch.setattr(zipfile, "ZIP64_LIMIT", zip64_limit)
+    monkeypatch.setattr(zipfile, "ZIP_FILECOUNT_LIMIT", count_limit)
+    monkeypatch.setattr(ckpt, "_ZIP64_LIMIT", zip64_limit)
+    monkeypatch.setattr(ckpt, "_COUNT_LIMIT", count_limit)
+    rng = np.random.default_rng(8)
+    leaves = [rng.normal(size=60).astype(np.float32),
+              np.asarray(3, np.int32), np.ones((7, 3), np.float32),
+              np.zeros(0, np.float32)]
+    np.savez(tmp_path / "ref.npz", **{f"a{i}": v
+                                      for i, v in enumerate(leaves)})
+    size, crc = ckpt._write_npz(
+        str(tmp_path / "port.npz"),
+        [torch.from_numpy(v) if v.ndim else int(v) for v in leaves])
+    blob = (tmp_path / "port.npz").read_bytes()
+    assert blob == (tmp_path / "ref.npz").read_bytes()
+    assert (size, crc) == (len(blob), zlib.crc32(blob))
 
 
 # ------------------------------------------- the format, across packages

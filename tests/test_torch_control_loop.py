@@ -1,6 +1,8 @@
 """Port parity: the train launcher's control loop (``--adaptive-sync``,
-``--wan-trace``, ``--events``, ``--bucket-policy layer-class``, and the
-streaming and topology flags ``--stream-retune``, ``--topology``) against
+``--wan-trace``, ``--events``, ``--bucket-policy layer-class``, the
+streaming and topology flags ``--stream-retune``, ``--topology``, the
+snapshot engine's ``--async-checkpoint``, ``--snapshot-every``,
+``--keep-snapshots`` and the ``--serve`` smoke) against
 ``repro.launch.train`` on the same flags.
 
 Both launchers start from the same parameters (the reference's
@@ -170,13 +172,17 @@ REFUSALS = {
                                          "--int8", "--error-feedback"],
     "cliff-needs-stream": ["--stream-cliff", "2.0"],
     "hysteresis-needs-stream": ["--stream-hysteresis", "2"],
+    "snapshot-every-needs-async": ["--snapshot-every", "3"],
+    "keep-snapshots-needs-async": ["--keep-snapshots", "3"],
+    "keep-snapshots-at-least-one": ["--async-checkpoint",
+                                    "--keep-snapshots", "0"],
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_stream_and_topology_refusals_equal_the_reference(case):
-    """Each refusal of the streaming and topology flags exits with the
-    reference launcher's message."""
+    """Each refusal of the streaming, topology and snapshot flags exits
+    with the reference launcher's message."""
     flags = ["--preset", "tiny", "--steps", "1", "--log-every", "0"] + \
         REFUSALS[case]
     with pytest.raises(SystemExit) as jerr, \
@@ -189,13 +195,62 @@ def test_stream_and_topology_refusals_equal_the_reference(case):
     assert terr.value.code == jerr.value.code
 
 
-@pytest.mark.parametrize("flag", ["--snapshot-every", "--keep-snapshots",
-                                  "--async-checkpoint", "--serve"])
-def test_unported_flags_are_refused(flag, capsys):
-    with pytest.raises(SystemExit) as err:
-        ttrain.main(["--preset", "tiny", flag, "x", "--device", "cpu"])
-    assert err.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+SNAPSHOT_FLAGS = ["--preset", "tiny", "--pods", "2", "--steps", "8",
+                  "--batch", "4", "--seq", "16", "--interval", "2",
+                  "--compress-topk", "0.05", "--int8", "--error-feedback",
+                  "--async-checkpoint", "--log-every", "0"]
+SNAPSHOT_CASES = {
+    # pod1 leaves at step 2: staged from the step-2 snapshot, reconciled
+    # at the step-4 barrier, then re-anchored at 1 pod
+    "migration": ["--events", "cloud_left:pod1@2"],
+    # a rollback-mode crash at the step-4 round: restored from the last
+    # durable snapshot, then pod1 removed at the next barrier
+    "rollback": ["--wan-trace", "100@0", "--transport", "sim",
+                 "--faults", "crash:pod1@3:rollback"],
+    # the cadence between barriers and a deeper retention
+    "cadence": ["--events", "cloud_left:pod1@4", "--snapshot-every", "3",
+                "--keep-snapshots", "3"],
+}
+SNAPSHOT_KEYS = ("async_checkpoint", "snapshots", "last_durable_step",
+                 "migrations", "staged_mb", "rollbacks", "reconfigs",
+                 "final_pods", "crash_recoveries", "degraded_rounds")
+
+
+@pytest.mark.parametrize("case", sorted(SNAPSHOT_CASES))
+def test_async_checkpoint_launcher_equals_the_reference(case):
+    """``--async-checkpoint`` (replacing the check that argparse refused
+    the snapshot flags and ``--serve``, which the port now has): the
+    ``[elasticity]``, ``[faults]`` and engine lines and the snapshot
+    summary keys are the reference launcher's; losses within
+    ``LOSS_RTOL``."""
+    js, jlines, ts, tlines = _both(SNAPSHOT_FLAGS + SNAPSHOT_CASES[case])
+    pick = ("[elasticity]", "[faults]", "[ckpt] async engine:")
+    assert [line for line in tlines if line.startswith(pick)] == \
+        [line for line in jlines if line.startswith(pick)]
+    for key in SNAPSHOT_KEYS:
+        assert ts[key] == js[key], key
+    assert ts["snapshots"] >= 3 and ts["last_durable_step"] is not None
+    if case == "rollback":
+        assert ts["rollbacks"] == 1 and ts["migrations"] == 1
+    else:
+        assert ts["migrations"] == 1 and ts["staged_mb"] > 0
+    assert ts["loss_first"] == pytest.approx(js["loss_first"],
+                                             rel=LOSS_RTOL)
+    assert ts["loss_last"] == pytest.approx(js["loss_last"], rel=LOSS_RTOL)
+
+
+def test_serve_smoke_equals_the_reference():
+    """``--serve``: the 4-slot continuous-batching smoke on pod 0's final
+    parameters; the ``serve`` block and its line are the reference's."""
+    js, jlines, ts, tlines = _both(
+        ["--preset", "tiny", "--pods", "2", "--steps", "4", "--batch", "4",
+         "--seq", "16", "--interval", "2", "--log-every", "0", "--serve"])
+    assert ts["serve"] == js["serve"] == {"requests": 6, "new_tokens": 48,
+                                          "decode_steps": 15}
+    assert [line for line in tlines if line.startswith("[serve]")] == \
+        [line for line in jlines if line.startswith("[serve]")]
+    assert js["async_checkpoint"] is ts["async_checkpoint"] is False
+    assert ts["snapshots"] is ts["migrations"] is None
 
 
 def test_adaptive_sync_needs_the_codec_with_error_feedback():

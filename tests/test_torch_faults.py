@@ -2,9 +2,9 @@
 the launcher's ``--faults`` / ``--no-tolerance`` / ``--ckpt-dir``) against
 ``repro.core.faults`` and ``repro.launch.train``.
 
-The cases mirror ``tests/test_faults.py`` one for one, but for the crash
-with an async snapshot in flight, which needs the snapshot engine
-(ROADMAP Queue 1 item 12).  Each case runs the same scenario through both
+The cases mirror ``tests/test_faults.py`` one for one, the crash with an
+async snapshot in flight through the port's ``AsyncCheckpointEngine``.
+Each case runs the same scenario through both
 packages from the same inputs: ``SYNC``, ``TRACE``, the ``_loss`` /
 ``_init`` model (the reference draws the parameters, which reach the port
 as numpy) and rng-7 batches.  The port's own contract holds bit for bit
@@ -43,6 +43,7 @@ from repro.training.trainer import Trainer as JTrainer
 from repro.training.trainer import TrainerConfig as JTrainerConfig
 from repro_torch import convert
 from repro_torch import tree as T
+from repro_torch.checkpoint.checkpoint import restore as ckpt_restore
 from repro_torch.core import control_plane as tcp
 from repro_torch.core import faults as tfaults
 from repro_torch.core import sync as tsync
@@ -441,6 +442,93 @@ def test_crash_rollback_raises_once_then_degrades():
     assert chaos.round_failed_pods == ()     # removed pod stops degrading
     assert chaos.outcomes == jchaos.outcomes
     assert chaos.degraded_rounds == jchaos.degraded_rounds
+
+
+def test_crash_with_async_snapshot_in_flight_recovers_from_durable(
+        tmp_path):
+    """Rollback-mode crash while the async engine still has snapshots in
+    flight: recovery comes from ``last_durable()`` (the queue drains
+    first), the restored state is bit-equal to the barrier capture it
+    committed, no torn or staged snapshot is ever visible, and the
+    post-rollback degraded rounds keep their invariants (dead row's
+    telemetry zeroed)."""
+    import threading
+
+    from repro_torch.checkpoint.async_engine import (AsyncCheckpointEngine,
+                                                     list_steps, step_dir)
+    from repro_torch.core.sync import is_sync_step
+
+    sync = dataclasses.replace(TSYNC, bucket_policy="single", buckets=())
+    plan = FaultPlan((FaultEvent("crash", step=3, pod=2,
+                                 mode="rollback"),))
+    chaos = _transport("port", plan)
+    tr = Trainer(_loss, _init,
+                 TrainerConfig(n_pods=3, optimizer="sgd", lr=0.05,
+                               sync=sync),
+                 device="cpu", transport=chaos)
+    st = tr.init_state(0)
+    root = str(tmp_path)
+
+    def capture(state):
+        return T.tree_map(lambda x: x.clone()
+                          if isinstance(x, torch.Tensor) else x, state)
+
+    def same(a, b):
+        for x, y in zip(T.leaves(a), T.leaves(b), strict=True):
+            assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                    else x == y)
+
+    eng = AsyncCheckpointEngine(root, keep=2)
+    gate = threading.Event()
+    orig = eng._commit_snapshot
+
+    def gated(*item):
+        assert gate.wait(timeout=30)
+        orig(*item)
+
+    eng._commit_snapshot = gated
+    eng.snapshot(st, 0)
+    captures = {0: capture(st)}
+    rng = np.random.default_rng(7)
+    rollbacks = 0
+    for step in range(6):
+        x = rng.normal(size=(3, 16, 8)).astype(np.float32)
+        y = (x[..., :4] * 0.5).astype(np.float32)
+        st, _ = tr.train_step(st, {"x": torch.from_numpy(x),
+                                   "y": torch.from_numpy(y)})
+        try:
+            st = tr.maybe_sync(st, step, model_mb=0.001)
+        except PodUnreachableError:
+            # the crash caught the engine mid-commit: release it and
+            # recover from the last DURABLE snapshot, not the queue
+            assert eng.last_durable() is None
+            gate.set()
+            st, snap_step = eng.restore_last(like=st)
+            rollbacks += 1
+            same(captures[snap_step], st)
+        else:
+            if is_sync_step(sync, step):
+                eng.snapshot(st, step + 1)
+                captures[step + 1] = capture(st)
+    assert rollbacks == 1
+    gate.set()
+    eng.wait()
+    # no torn state: nothing staged left behind, and every committed
+    # snapshot restores cleanly bit-equal to its barrier capture
+    assert not any(n.endswith(".tmp") or n.startswith(".ckpt-stage-")
+                   for n in os.listdir(root))
+    steps = list_steps(root)
+    assert steps == sorted(steps) and len(steps) <= 2
+    for s in steps:
+        out, got = ckpt_restore(step_dir(root, s), st)
+        assert got == s
+        same(captures[s], out)
+    # degraded rounds after the rollback keep the mask invariants: the
+    # dead pod's telemetry row is zero, the survivors' state sane
+    assert chaos.degraded_rounds >= 1
+    assert float(st.sync_state.msg_norm[2].sum()) == 0.0
+    assert bool(torch.isfinite(st.params["w"]).all())
+    eng.close()
 
 
 # -------------------------------------------------- chaos property test

@@ -542,3 +542,120 @@ def test_codec_on_streaming_tail_views(cuda, case, value_dtype):
         off += m
     assert off == width
     assert torch.equal(local, torch.cat(parts, dim=1))
+
+
+# ------------------------------------------------- the async snapshot engine
+
+
+def _snapshot_trainer(cuda):
+    """A 2-pod trainer over a linear model big enough (64 MB of f32
+    params and momentum, bf16 beside them) that the capture's copies are
+    still running when the next step is queued."""
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    def loss(params, batch):
+        pred = batch["x"] @ params["w"] + params["e"].float().sum()
+        return torch.mean((pred - batch["y"]) ** 2), {}
+
+    def init(gen):
+        return {"w": torch.randn(4096, 2048, generator=gen, device=cuda)
+                * 0.01,
+                "e": (torch.randn(1024, 1024, generator=gen, device=cuda)
+                      * 1e-3).to(torch.bfloat16)}
+
+    tr = Trainer(loss, init, TrainerConfig(
+        n_pods=2, optimizer="momentum", lr=0.05,
+        sync=SyncConfig("asgd_ga", 1000)), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"x": torch.randn(2, 64, 4096, generator=gen, device=cuda),
+             "y": torch.randn(2, 64, 2048, generator=gen, device=cuda)}
+    return tr, tr.init_state(0), batch
+
+
+def _host_copy(tree):
+    from repro_torch import tree as T
+
+    return T.tree_map(lambda x: x.detach().cpu().clone()
+                      if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _equal_trees(a, b):
+    from repro_torch import tree as T
+
+    for x, y in zip(T.leaves(a), T.leaves(b), strict=True):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        else:
+            assert x == y
+
+
+def test_snapshot_then_in_place_step_commits_pre_step_values(cuda, tmp_path):
+    """``snapshot()`` returns with its device-to-host copies queued; the
+    next ``train_step``, which writes the params and momentum in place, is
+    ordered behind them on the device, so the committed snapshot holds the
+    pre-step values; the buffers are page-locked."""
+    from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
+
+    tr, state, batch = _snapshot_trainer(cuda)
+    state, _ = tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    want = _host_copy(state)
+    with AsyncCheckpointEngine(str(tmp_path), keep=1) as eng:
+        eng.snapshot(state, 1)
+        state, _ = tr.train_step(state, batch)
+        after = _host_copy(state)
+        out, step = eng.restore_last(like=state)
+        assert all(b.block.is_pinned() for b in eng._host_bufs)
+    assert step == 1
+    _equal_trees(out, want)
+    assert not torch.equal(after.params["w"], want.params["w"])
+
+
+def test_pinned_pool_is_reused_across_two_snapshots(cuda, tmp_path):
+    """Two snapshots of one layout, drained in between, go through the same
+    page-locked block and views, and each commits its own values."""
+    from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
+    from repro_torch.checkpoint.checkpoint import restore
+
+    tr, state, batch = _snapshot_trainer(cuda)
+    with AsyncCheckpointEngine(str(tmp_path), keep=2) as eng:
+        want0 = _host_copy(state)
+        eng.snapshot(state, 0)
+        eng.wait()
+        sets = list(eng._host_bufs)
+        ptr = sets[0].block.data_ptr()
+        state, _ = tr.train_step(state, batch)
+        want1 = _host_copy(state)
+        eng.snapshot(state, 1)
+        eng.wait()
+        assert eng._host_bufs == sets and len(sets) == 1
+        assert sets[0].block.data_ptr() == ptr and sets[0].block.is_pinned()
+        for s, want in ((0, want0), (1, want1)):
+            out, _ = restore(str(tmp_path / f"step_{s:08d}"), state)
+            _equal_trees(out, want)
+
+
+def test_stream_order_holds_when_a_restack_frees_the_old_state(
+        cuda, tmp_path):
+    """A re-stack right after ``snapshot()`` frees the old state while its
+    copies may still run; the allocator must not hand that memory to the
+    new tensors before the copies end, so the snapshot commits the old
+    values though the new state overwrites freshly allocated memory."""
+    from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
+    from repro_torch.checkpoint.checkpoint import restore
+    from repro_torch.training.trainer import resize_train_state
+
+    tr, state, batch = _snapshot_trainer(cuda)
+    state, _ = tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    want = _host_copy(state)
+    with AsyncCheckpointEngine(str(tmp_path), keep=1) as eng:
+        eng.snapshot(state, 1)
+        state = resize_train_state(tr.cfg.sync, state, 3)
+        junk = [torch.full((4096, 2048), 7.0, device=cuda)
+                for _ in range(8)]
+        eng.wait()
+        out, _ = restore(str(tmp_path / "step_00000001"), want)
+    _equal_trees(out, want)
+    assert state.params["w"].shape[0] == 3 and len(junk) == 8
