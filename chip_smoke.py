@@ -29,16 +29,19 @@ Phases (any failure raises and the script exits non-zero):
    MQA, f32 inputs, non-causal, window 256 with softcap 50, Dh 256 and the
    reference's kernel-test cases, and on the bf16 tensor-core path at Dh
    32-256 causal and not, S 1-65, Sq != Sk both ways, windows, strided
-   views; a misaligned bf16 view must be refused; then time it at the main
-   path's shape (ms, TFLOP/s) beside its bound, its plain version and
-   ``F.scaled_dot_product_attention`` (timed only, never used by the port).
+   views, qwen2-vl's 12 heads over 2; a misaligned bf16 view must be
+   refused; then time it at the main path's shape and at qwen2-vl's (B 1,
+   S 2048, H 12, K 2) (ms, TFLOP/s) beside its bound, its plain version
+   and ``F.scaled_dot_product_attention`` (timed only, never used by the
+   port).
 3. Training path: granite-8b at full width (depth cut to 2 layers, bf16,
    random weights from a seed), 2 pods, global batch 8, seq 512, sgd, an
    ASGD-GA sync every 2 steps through the int8 codec with error feedback,
-   4 steps through ``Trainer.fit``.  Each round's EF residual must equal
-   ``flat - local`` and the kernel's decode of the shipped payload must
-   equal the plain decode, bit for bit.  The launch counts of this run
-   show that the rounds went through the kernels.
+   4 steps through ``Trainer.fit`` (granite's ``remat="full"``: each
+   layer group recomputed in the backward).  Each round's EF residual
+   must equal ``flat - local`` and the kernel's decode of the shipped
+   payload must equal the plain decode, bit for bit.  The launch counts
+   of this run show that the rounds went through the kernels.
 3d. The control loop: phase 3's model and batch through
    ``repro_torch.launch.train.main`` with ``--bucket-policy layer-class
    --adaptive-sync --wan-trace ... --events ...`` (``CONTROL_*``): the
@@ -206,6 +209,25 @@ Phases (any failure raises and the script exits non-zero):
    0.05 with error feedback, ``--bucket-policy layer-class
    --bucket-patterns moe-router``), 8 steps: finite losses, non-empty
    ``moe`` and ``router`` buckets, every codec round held as in 3d.
+6f. qwen2-vl-2b at its published size (28 layers, d_model 1536, 12 heads
+   over 2 KV heads of 128, M-RoPE sections (16, 24, 24), 1.78 B
+   parameters, bf16, random weights from a seed, ``attention_impl=
+   "pallas"``): (a) ``ServingEngine.generate`` at B 2 over a 2048-token
+   prompt with seeded patch embeddings over the first 256 positions, 16
+   new tokens: 28 flash launches, each held to ``ref.sdpa`` on the same
+   M-RoPE-rotated q, k, v; layer 0's M-RoPE on the card within 1e-2 of
+   the CPU's on the same q (default and vision-grid positions); the first
+   256 embeddings equal to the cast patches; the patches move the
+   last-token logits.  (b) A 4-slot pool of cache_len 2080 behind one
+   replica: 8 requests drawn as the serving launcher draws them, 16 new
+   each at ``(3, B, 1)`` positions, request 0 alone giving the same
+   tokens; then the serve launcher with ``--arch qwen2-vl-2b``.  (c) 19
+   layers (the most whose ``remat="none"`` run peaks under 75 GB) trained
+   as phase 3 at seq 1024 with the patch embeddings, under ``remat``
+   "none", "full" and "dots": losses and final parameters equal across the
+   arms, every codec round held as phase 3's; prints each arm's peak (of
+   the run, and to the end of the first step), step and round times and
+   launches.
 
 Every time is a CUDA-event median of calls made back to back, taken the
 same way for a kernel, its plain version and the library call.  The line
@@ -554,8 +576,6 @@ def flash_close(torch, out, expect, what: str) -> float:
 
 
 def phase_flash(torch) -> dict:
-    import torch.nn.functional as F
-
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -586,6 +606,8 @@ def phase_flash(torch) -> dict:
         ((1, 1024, 32, 8, 128, bf16), {"causal": False}),
         ((1, 1024, 32, 16, 128, bf16), {"window": 256, "softcap": 50.0}),
         ((1, 1024, 16, 8, 256, bf16), {}),            # Dh 256
+        ((2, 2048, 12, 2, 128, bf16), {}),            # qwen2-vl: 6 a group
+        ((1, 1000, 12, 2, 128, f32), {}),
     ]
     # the reference's kernel tests (tests/test_kernels.py)
     for shape in ((2, 128, 4, 2, 64), (1, 256, 4, 4, 64), (2, 96, 6, 2, 32),
@@ -623,34 +645,78 @@ def phase_flash(torch) -> dict:
     require(refused and ops.LAUNCHES["flash_attention"] == before,
             "a misaligned bf16 view is refused with ValueError, unlaunched")
     print(f"[flash] kernel within tolerance of ref.sdpa on {len(cases) + 1} "
-          f"cases (the serving shape, ragged S, MQA, f32, non-causal, "
+          f"cases (the serving shape, ragged S, MQA, qwen2-vl's GQA group "
+          f"of 6, f32, non-causal, "
           f"window+softcap, Dh 32-256, S 1-65, Sq != Sk, strided views, "
           f"the reference's kernel tests); a misaligned view refused")
 
-    B, S, H, K, Dh = 1, SERVE_PROMPT_LEN, 32, 8, 128
-    q, k, v = inputs(B, S, H, K, Dh, bf16)
+    entry = time_flash(torch, inputs(1, SERVE_PROMPT_LEN, 32, 8, 128, bf16))
+    # qwen2-vl-2b's prefill shape (phase 6f): a GQA group of 6
+    time_flash(torch, inputs(1, VL_PROMPT, 12, 2, 128, bf16))
+    return {"flash_attention": {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33", **entry}}
+
+
+def time_flash(torch, qkv) -> dict:
+    """Hold the causal flash kernel to ``ref.sdpa`` on ``qkv`` and time it
+    (ms, TFLOP/s) beside its bound, its plain version and
+    ``F.scaled_dot_product_attention``; prints one ``[flash]`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    q, k, v = qkv
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
     out = ops.flash_attention(q, k, v)
-    err = flash_close(torch, out, ref.sdpa(q, k, v), "main-path shape")
+    err = flash_close(torch, out, ref.sdpa(q, k, v),
+                      f"timed shape {(B, S, H, K, Dh)}")
     ms = time_ms(torch, lambda: ops.flash_attention(q, k, v), reps=50)
     plain_ms = time_ms(torch, lambda: ref.sdpa(q, k, v), reps=10)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), reps=50)
-    flops = 2 * S * S * H * Dh                  # causal QK^T and PV
+    flops = 2 * B * S * S * H * Dh              # causal QK^T and PV
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
     f_ms = flops / BF16_FLOP_PER_S * 1e3
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound, by = max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
     print(f"[flash] {(B, S, H, K, Dh)} bf16 causal: {ms:.4f} ms = "
-          f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bound:.4f} ms by {by}, "
-          f"plain {plain_ms:.3f} ms, F.scaled_dot_product_attention "
-          f"{lib_ms:.4f} ms = {ms / lib_ms:.2f}x), max |err| {err:.3g}")
-    return {"flash_attention": {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:33",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}}
+          f"{flops / ms / 1e9:.1f} TFLOP/s (bound {bound:.4f} ms by {by}: "
+          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB; plain "
+          f"{plain_ms:.3f} ms, F.scaled_dot_product_attention {lib_ms:.4f} "
+          f"ms = {ms / lib_ms:.2f}x), max |err| {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def codec_round_check(torch, rounds: list):
+    """A ``round_hook`` holding each single-bucket codec round to its
+    definition: the EF residual == ``flat - local``, the kernel's decode of
+    the shipped payload == the plain decode, bit for bit; appends the EF
+    residual's norm to ``rounds``.  Its compare launches are not the main
+    path's and leave the counts as they were."""
+    from repro_torch.core import sync as S
+    from repro_torch.kernels import ops
+
+    def check_round(state, payloads, shipped, sync):
+        counts = dict(ops.LAUNCHES)
+        ef = state.sync_state.ef_residual
+        require(torch.equal(ef, payloads.flat - payloads.local),
+                "EF residual == flat - local")
+        n = payloads.flat.shape[1]
+        bcfg = sync.for_bucket("all")
+        kern = S._decode_bucket(bcfg, shipped["all"], n)
+        widths = S._chunk_widths(bcfg, n)
+        plain = S._cat([ops.wan_decode(
+            c.q, c.idx.to(torch.int32), c.scales, m, block=BLOCK,
+            use_kernel=False) for c, m in zip(shipped["all"], widths)])
+        require(torch.equal(kern, plain), "peer decode kernel == plain")
+        rounds.append(float(ef.norm()))
+        ops.LAUNCHES.update(counts)
+    return check_round
 
 
 def phase_main_path(torch) -> dict:
@@ -675,30 +741,12 @@ def phase_main_path(torch) -> dict:
         global_batch=8))
     batches = make_batches(plan, cfg.vocab_size, 512, "cuda")
     rounds = []
-
-    def check_round(state, payloads, shipped, sync):
-        """Hold the round to its definition; these compare launches are
-        not the main path's and leave its counts as they were."""
-        counts = dict(ops.LAUNCHES)
-        ef = state.sync_state.ef_residual
-        require(torch.equal(ef, payloads.flat - payloads.local),
-                "EF residual == flat - local")
-        n = payloads.flat.shape[1]
-        bcfg = sync.for_bucket("all")
-        kern = S._decode_bucket(bcfg, shipped["all"], n)
-        widths = S._chunk_widths(bcfg, n)
-        plain = S._cat([ops.wan_decode(
-            c.q, c.idx.to(torch.int32), c.scales, m, block=BLOCK,
-            use_kernel=False) for c, m in zip(shipped["all"], widths)])
-        require(torch.equal(kern, plain), "peer decode kernel == plain")
-        rounds.append(float(ef.norm()))
-        ops.LAUNCHES.update(counts)
-
     trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
                       lambda g: transformer.init_params(g, cfg, "cuda"),
                       TrainerConfig(n_pods=PODS, optimizer="sgd", lr=0.02,
                                     sync=sync),
-                      device="cuda", round_hook=check_round)
+                      device="cuda", round_hook=codec_round_check(torch,
+                                                                  rounds))
     state = trainer.init_state(SEED)
     leaves = T.leaves(state.params)
     n_params = sum(x.numel() for x in leaves) // PODS
@@ -3598,6 +3646,19 @@ WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 32, 32
 # (tests/test_models.py::test_whisper_decode_matches_forward), in f32
 WHISPER_STEP_ATOL, WHISPER_STEP_RTOL = 2e-3, 2e-2
 MOE_TRAIN_STEPS = 8
+VL_BATCH, VL_PROMPT, VL_NEW_TOKENS = 2, 2048, 16
+VL_PATCH_SCALE = 0.02
+VL_GRID_W = 16                      # 256 patches on a 16 x 16 grid
+VL_TRAIN_SEQ, VL_TRAIN_STEPS = 1024, 4
+# the most layers at which the "none" arm peaks under VL_PEAK_GB
+# (tools/remat_depth.py on the card)
+VL_TRAIN_LAYERS = 19
+VL_PEAK_GB = 75.0
+# if recompute is not bit-equal on the card, the largest relative gap held
+VL_REMAT_RTOL = 1e-6
+# M-RoPE on the card against the CPU: each side's f32 cos and sin, one
+# bf16 rounding of the rotation, so at most about one bf16 ulp apart
+MROPE_TOL = 1e-2
 
 
 def flash_hook_all(torch, checked: list):
@@ -4256,6 +4317,335 @@ def phase_moe_training(torch) -> dict:
     return {k: launches[k] for k in ("wan_encode", "wan_decode")}
 
 
+def vl_positions(torch, batch: int, seq: int, n_patches: int):
+    """(3, batch, seq) M-RoPE positions in qwen2-vl's scheme: the patches
+    at t 0 on a ``VL_GRID_W``-wide (h, w) grid, the text after them counting
+    on from the largest patch position on every component."""
+    pos = torch.zeros(3, batch, seq, dtype=torch.int32)
+    i = torch.arange(n_patches, dtype=torch.int32)
+    pos[1, :, :n_patches] = i // VL_GRID_W
+    pos[2, :, :n_patches] = i % VL_GRID_W
+    start = int(pos[:, :, :n_patches].max()) + 1
+    pos[:, :, n_patches:] = start + torch.arange(seq - n_patches,
+                                                 dtype=torch.int32)
+    return pos
+
+
+def vl_train_arm(torch, layers: int, remat: str, steps: int) -> dict:
+    """qwen2-vl-2b at full width, cut to ``layers``, under ``remat``:
+    phase 3's setup (2 pods, global batch 8, sgd, ASGD-GA interval 2, int8
+    top-k 0.01 with error feedback) at seq ``VL_TRAIN_SEQ``, each pod's
+    rows carrying the same seeded patch embeddings, ``steps`` steps through
+    ``Trainer.fit``; every codec round held as phase 3's are.  Returns the
+    losses, the step and round times, the peak memory (of the run, and to
+    the end of the first step), the launches and the final parameters
+    copied to the host."""
+    from repro_torch import tree as T
+    from repro_torch.configs import qwen2_vl_2b
+    from repro_torch.core import sync as S
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = qwen2_vl_2b.CONFIG.replace(n_layers=layers, remat=remat)
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=TOPK, quantize_int8=True,
+                        error_feedback=True)
+    clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
+                                  data_size=1.0) for i in range(PODS))
+    plan = build_training_plan(TrainingRequest(
+        model=cfg.name, clouds=clouds, sync=sync, n_iters=steps,
+        global_batch=8))
+    tokens = make_batches(plan, cfg.vocab_size, VL_TRAIN_SEQ, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    patches = VL_PATCH_SCALE * torch.randn(
+        PODS, max(plan.batch_split), cfg.vision_patches, cfg.d_model,
+        generator=gen, device="cuda")
+
+    def batches(step):
+        return {**tokens(step), "patch_emb": patches}
+
+    rounds = []
+    trainer = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                      lambda g: transformer.init_params(g, cfg, "cuda"),
+                      TrainerConfig(n_pods=PODS, optimizer="sgd", lr=0.02,
+                                    sync=sync),
+                      device="cuda", round_hook=codec_round_check(torch,
+                                                                  rounds))
+    state = trainer.init_state(SEED)
+    leaves = T.leaves(state.params)
+    n_params = sum(x.numel() for x in leaves) // PODS
+    model_mb = sum(x.numel() * x.element_size() for x in leaves) / PODS / 1e6
+    # the peak up to the end of the first step, before any sync round:
+    # the state plus one step's activations and gradients
+    first_peak = []
+    train_step = trainer.train_step
+
+    def step_and_peak(state, batch):
+        out = train_step(state, batch)
+        if not first_peak:
+            torch.cuda.synchronize()
+            first_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+        return out
+
+    trainer.train_step = step_and_peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, hist = trainer.fit(state, batches, steps, model_mb=model_mb)
+    torch.cuda.synchronize()
+    out = {"layers": layers, "n_params": n_params,
+           "losses": hist["loss_per_pod"],
+           "launches": dict(ops.LAUNCHES),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "step_peak_gb": first_peak[0],
+           "step_s": list(trainer.step_seconds),
+           "sync_s": list(trainer.sync_seconds), "rounds": rounds,
+           "params": [x.cpu() for x in T.leaves(state.params)]}
+    del trainer, state, leaves, patches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_qwen2_vl(torch) -> dict:
+    """Phase 6f: qwen2-vl-2b at its published size (28 layers, d_model
+    1536, 12 heads over 2 KV heads of 128, M-RoPE sections (16, 24, 24),
+    vocab 151,936 padded to 153,600, untied; bf16, random weights from a
+    seed, ``attention_impl="pallas"``).  (a) ``ServingEngine.generate`` at
+    B 2 over a 2048-token prompt with seeded patch embeddings over the
+    first 256 positions, 16 new tokens: 28 flash launches in the prefill,
+    each held to ``ref.sdpa`` on the same M-RoPE-rotated q, k, v; layer 0's
+    M-RoPE on the card held to the CPU's on the same q; the first 256
+    embeddings equal to the cast patches; the last-token logits moved by
+    them.  (b) A 4-slot ``ContinuousEngine`` behind one replica: 8 requests
+    drawn as the serving launcher draws them at ``--prompt-len 2048``, 16
+    new each, decoded at ``(3, B, 1)`` positions; request 0 alone in a
+    fresh pool gives the same tokens; then ``launch.serve.main --arch
+    qwen2-vl-2b``.  (c) Training at full width, ``VL_TRAIN_LAYERS`` layers,
+    under ``remat`` "none", "full" and "dots": equal losses and final
+    parameters (bit for bit, else within ``VL_REMAT_RTOL``), each arm's
+    peak memory, step times and launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import route_and_submit
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import (ContinuousEngine,
+                                            ContinuousScheduler,
+                                            ServingEngine)
+    from repro_torch.serving.router import GeoRouter, ReplicaSpec
+
+    t_phase = time.perf_counter()
+    arch = get_arch("qwen2-vl-2b")
+    cfg = arch.config.replace(attention_impl="pallas")
+    arch = dataclasses.replace(arch, config=cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = transformer.init_params(gen, cfg, "cuda")
+    n_params = sum(x.numel() for x in T.leaves(params))
+    require(n_params == cfg.param_count() == 1_782_142_464,
+            f"{n_params} params")
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in T.leaves(params)) / 1e9
+    cache_len = VL_PROMPT + 32
+    with torch.no_grad():                  # warm cuBLAS and the kernel
+        transformer.prefill(params, cfg, torch.zeros(
+            1, 64, dtype=torch.int32, device="cuda"), 96)
+    torch.cuda.synchronize()
+
+    # ----------------------------------------- (a) the batched engine
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (VL_BATCH, VL_PROMPT)
+                          ).astype(np.int32)
+    patches = VL_PATCH_SCALE * torch.randn(
+        VL_BATCH, cfg.vision_patches, cfg.d_model, generator=gen,
+        device="cuda")
+    engine = ServingEngine(arch, params, cache_len=cache_len)
+    checked, check_s = [], [0.0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.FLASH_CHECK_HOOK = clocked(torch, flash_hook_all(torch, checked),
+                                   check_s)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.generate(prompt, VL_NEW_TOKENS, patch_emb=patches)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0 - check_s[0]
+    batch_launches = dict(ops.LAUNCHES)
+    ops.FLASH_CHECK_HOOK = None
+    batch_peak = torch.cuda.max_memory_allocated() / 1e9
+    require(batch_launches == only(batch_launches,
+                                   flash_attention=cfg.n_layers),
+            f"qwen2-vl generate launches {batch_launches}: {cfg.n_layers} "
+            f"flash launches in the prefill")
+    require(len(checked) == cfg.n_layers,
+            f"{len(checked)} flash launches held to ref.sdpa")
+    require(res.tokens.shape == (VL_BATCH, VL_NEW_TOKENS)
+            and bool(((res.tokens >= 0)
+                      & (res.tokens < cfg.vocab_size)).all()),
+            f"{VL_NEW_TOKENS} tokens a row in the vocabulary")
+
+    tok = torch.from_numpy(prompt).to("cuda")
+    with torch.no_grad():
+        emb = transformer._embed(params, cfg, tok, patches)
+        require(torch.equal(emb[:, :cfg.vision_patches],
+                            patches.to(emb.dtype)),
+                "embeddings 0-255 == the patches cast to bf16")
+        p0 = T.tree_map(lambda x: x[0], params["blocks"]["pos0"])
+        hn = L.rmsnorm(p0["ln1"], emb, cfg.norm_eps)
+        q = (hn @ p0["attn"]["wq"]).reshape(
+            VL_BATCH, VL_PROMPT, cfg.n_heads, cfg.resolved_head_dim)
+        gaps = {}
+        for name, pos in (("default", transformer._positions_for(
+                cfg, tok, None).cpu()),
+                ("vision grid", vl_positions(torch, VL_BATCH, VL_PROMPT,
+                                             cfg.vision_patches))):
+            got = L.apply_mrope(q, pos.to("cuda"), cfg.rope_theta,
+                                cfg.mrope_sections).cpu().float()
+            want = L.apply_mrope(q.cpu(), pos, cfg.rope_theta,
+                                 cfg.mrope_sections).float()
+            diff = (got - want).abs()
+            require(bool((diff <= MROPE_TOL + MROPE_TOL * want.abs()).all()),
+                    f"layer 0 M-RoPE ({name} positions) on the card within "
+                    f"{MROPE_TOL} of the CPU's (max |diff| "
+                    f"{float(diff.max()):.3g})")
+            gaps[name] = float(diff.max())
+        with_pe, _ = engine.prefill(prompt, patch_emb=patches)
+        without, _ = engine.prefill(prompt)
+        moved = float((with_pe - without).abs().max())
+    require(moved > 0, "the patches move the last-token logits")
+    del emb, p0, hn, q, with_pe, without, engine   # p0: views of params
+    print(f"[qwen2-vl] {cfg.name} x{cfg.n_layers} layers, {n_params:,} "
+          f"params ({weights_gb:.2f} GB bf16), heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} x {cfg.resolved_head_dim}, M-RoPE "
+          f"{cfg.mrope_sections}, {cfg.vision_patches} vision placeholders")
+    print(f"[qwen2-vl] generate B {VL_BATCH} x {VL_PROMPT} with patch "
+          f"embeddings, {VL_NEW_TOKENS} new: launches {batch_launches}; all "
+          f"{len(checked)} flash launches within "
+          f"{FLASH_TOL['torch.bfloat16']} of ref.sdpa (max |err| "
+          f"{max(checked):.3g}); {gen_s:.3f} s net of the checks "
+          f"({check_s[0]:.3f} s); peak {batch_peak:.2f} GB")
+    print(f"[qwen2-vl] layer 0 M-RoPE on the card vs the CPU, max |diff| "
+          f"{gaps}; embeddings 0-{cfg.vision_patches - 1} == the cast "
+          f"patches; the patches move the last-token logits by up to "
+          f"{moved:.3g}")
+
+    # ------------------------------------------------ (b) the slot pool
+    region = SERVE_REGIONS[0]
+    pool = ContinuousEngine(None, params, n_slots=SERVE_SLOTS,
+                            cache_len=cache_len, cfg=cfg,
+                            module="transformer")
+    sched = ContinuousScheduler(pool)
+    router = GeoRouter([ReplicaSpec(region=region, n_slots=SERVE_SLOTS)],
+                       mode="balanced")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    placed = route_and_submit(router, {region: sched}, (region,),
+                              SERVE_REQUESTS, VL_PROMPT, VL_NEW_TOKENS,
+                              cfg.vocab_size, seed=0)
+    results = sched.run()
+    torch.cuda.synchronize()
+    pool_launches = dict(ops.LAUNCHES)
+    pool_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_prefills = len(pool.prefill_seconds)
+    require(n_prefills == SERVE_REQUESTS, f"{n_prefills} prefills")
+    require(pool_launches == only(pool_launches, flash_attention=cfg.n_layers
+                                  * n_prefills),
+            f"qwen2-vl pool launches {pool_launches}")
+    require(sorted(results) == list(range(SERVE_REQUESTS))
+            and all(len(t) == VL_NEW_TOKENS
+                    and all(0 <= int(x) < cfg.vocab_size for x in t)
+                    for t in results.values()),
+            f"every request finished with {VL_NEW_TOKENS} tokens")
+    solo = ContinuousEngine(None, params, n_slots=SERVE_SLOTS,
+                            cache_len=cache_len, cfg=cfg,
+                            module="transformer")
+    alone = serve_pool(solo, [placed[0][2]], VL_NEW_TOKENS)[0]
+    require(list(alone) == list(results[placed[0][1]]),
+            "request 0 alone == request 0 beside its neighbours")
+    print(f"[qwen2-vl] pool of {SERVE_SLOTS} slots, cache_len {cache_len}: "
+          f"prompts {[len(p[2]) for _, p in sorted(placed.items())]}, "
+          f"{VL_NEW_TOKENS} new each at (3, B, 1) positions; launches "
+          f"{pool_launches}; request 0 alone == beside its neighbours")
+    print(f"[qwen2-vl] prefill s {[round(t, 4) for t in pool.prefill_seconds]}"
+          f" (median {statistics.median(pool.prefill_seconds):.4f}), median "
+          f"decode step {statistics.median(pool.step_seconds):.4f} s over "
+          f"{len(pool.step_seconds)} steps; peak {pool_peak:.2f} GB")
+    del params, pool, solo, sched
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        served = serve.main(["--arch", "qwen2-vl-2b", "--smoke", "--replicas",
+                             "2", "--requests", "6"])
+    summary, _ = json.JSONDecoder().raw_decode(
+        buf.getvalue()[buf.getvalue().index("{"):])
+    require(summary["device"] == "cuda" and summary["arch"] == "qwen2-vl-2b"
+            and len(served) == 6, f"serve launcher: {summary}")
+    print(f"[qwen2-vl] launch.serve --arch qwen2-vl-2b --smoke: "
+          f"{summary['requests']} requests, {summary['new_tokens']} tokens, "
+          f"routes {summary['routes']}")
+
+    # ------------------------------------------- (c) training and remat
+    arms = {r: vl_train_arm(torch, VL_TRAIN_LAYERS, r, VL_TRAIN_STEPS)
+            for r in ("none", "full", "dots")}
+    base = arms["none"]
+    require(base["peak_gb"] < VL_PEAK_GB,
+            f"the 'none' arm peaks under {VL_PEAK_GB} GB: "
+            f"{base['peak_gb']:.2f}")
+    for r, arm in arms.items():
+        require(all(math.isfinite(v) for row in arm["losses"] for v in row),
+                f"{r}: finite losses {arm['losses']}")
+        require(len(arm["rounds"]) == VL_TRAIN_STEPS // 2,
+                f"{r}: {len(arm['rounds'])} codec rounds checked")
+        require(arm["launches"] == only(arm["launches"], wan_encode=2,
+                                        wan_decode=4),
+                f"{r}: launches {arm['launches']}")
+    gaps = {}
+    for r in ("full", "dots"):
+        arm = arms[r]
+        equal = arm["losses"] == base["losses"] and all(
+            torch.equal(a, b) for a, b in zip(arm["params"],
+                                               base["params"]))
+        gap = 0.0 if equal else max(
+            float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-30)
+            for a, b in zip(arm["params"], base["params"]))
+        loss_gap = max(abs(x - y) / abs(y) for ra, rb in zip(
+            arm["losses"], base["losses"]) for x, y in zip(ra, rb))
+        require(equal or max(gap, loss_gap) <= VL_REMAT_RTOL,
+                f"remat {r}: losses and parameters == 'none' (largest "
+                f"relative gap {max(gap, loss_gap):.3g})")
+        gaps[r] = "bit-equal" if equal else f"{max(gap, loss_gap):.3g}"
+    print(f"[qwen2-vl] training {base['layers']} of 28 layers (the most "
+          f"whose 'none' arm peaks under {VL_PEAK_GB:.0f} GB: "
+          f"tools/remat_depth.py), {base['n_params']:,} params/pod, {PODS} "
+          f"pods, batch 8, seq {VL_TRAIN_SEQ}, patch embeddings, asgd_ga@2, "
+          f"int8 top-k {TOPK} + EF, {VL_TRAIN_STEPS} steps; losses "
+          f"{[[round(v, 4) for v in row] for row in base['losses']]}; "
+          f"against 'none': {gaps}")
+    for r, arm in arms.items():
+        print(f"[qwen2-vl] remat {r}: peak {arm['peak_gb']:.2f} GB (to the "
+              f"end of the first step, before any round: "
+              f"{arm['step_peak_gb']:.2f} GB), step s "
+              f"{[round(t, 4) for t in arm['step_s']]}, sync-round s "
+              f"{[round(t, 4) for t in arm['sync_s']]}, launches "
+              f"{arm['launches']}")
+    print(f"[qwen2-vl] phase 6f {time.perf_counter() - t_phase:.1f} s")
+    launches = {k: batch_launches[k] + pool_launches[k]
+                + sum(a["launches"][k] for a in arms.values())
+                for k in batch_launches}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4306,6 +4696,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_train_launches = phase_moe_training(torch)
     torch.cuda.empty_cache()
+    vl_launches = phase_qwen2_vl(torch)
+    torch.cuda.empty_cache()
     for name in ("wan_encode", "wan_decode"):
         kernels[name]["launches"] = (train_launches[name]
                                      + control_launches[name]
@@ -4313,11 +4705,13 @@ def main() -> int:
                                      + fault_launches[name]
                                      + stream_launches[name]
                                      + snap_launches[name]
-                                     + moe_train_launches[name])
+                                     + moe_train_launches[name]
+                                     + vl_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]
         + gemma_launches["flash_attention"]
-        + sum(f["flash_attention"] for f in family_launches))
+        + sum(f["flash_attention"] for f in family_launches)
+        + vl_launches["flash_attention"])
     kernels["ssd_scan"]["launches"] = (
         mamba_launches["ssd_scan"]
         + sum(f["ssd_scan"] for f in family_launches))

@@ -5,9 +5,10 @@ windows, head_dim 256), ``minitron-8b`` and ``gemma2-27b`` (alternating
 windows, attention and final-logit soft-caps), the SSM ``mamba2-1.3b``, the
 MoE decoders ``qwen3-moe-30b-a3b`` and ``kimi-k2-1t-a32b``, the hybrid
 ``jamba-1.5-large-398b`` (Mamba and attention positions, MoE on every other
-one) and the encoder-decoder ``whisper-tiny`` (module ``encdec``).  The
-reference's ``qwen2-vl-2b`` needs multimodal positions (ROADMAP.md Queue 1
-item 9b).
+one), the encoder-decoder ``whisper-tiny`` (module ``encdec``) and the
+vision-language ``qwen2-vl-2b`` (M-RoPE, a stubbed vision encoder's patch
+embeddings over the first positions): every arch of the reference's
+registry, in its order.
 """
 from __future__ import annotations
 
@@ -25,19 +26,11 @@ _MODULES = {
     "kimi-k2-1t-a32b": ("kimi_k2_1t_a32b", "transformer"),
     "gemma3-12b": ("gemma3_12b", "transformer"),
     "minitron-8b": ("minitron_8b", "transformer"),
+    "qwen2-vl-2b": ("qwen2_vl_2b", "transformer"),
     "gemma2-27b": ("gemma2_27b", "transformer"),
 }
 
 ARCH_IDS = tuple(_MODULES)
-
-# every arch id of the reference's registry (repro/configs/__init__.py), in
-# its order: a name outside it is unknown (KeyError, as the reference
-# raises); a name in it that is not in ARCH_IDS is not ported yet
-REFERENCE_ARCH_IDS = (
-    "qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "mamba2-1.3b",
-    "whisper-tiny", "granite-8b", "kimi-k2-1t-a32b", "gemma3-12b",
-    "minitron-8b", "qwen2-vl-2b", "gemma2-27b",
-)
 
 
 @dataclass(frozen=True)
@@ -49,14 +42,8 @@ class Arch:
 
 
 def get_arch(name: str) -> Arch:
-    if name not in REFERENCE_ARCH_IDS:
-        raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{sorted(REFERENCE_ARCH_IDS)}")
     if name not in _MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ported: {sorted(_MODULES)}); "
-            f"see ROADMAP.md Queue 1 item 9b (M-RoPE, sdpa_chunked and the "
-            f"vision placeholders)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     modname, kind = _MODULES[name]
     mod = importlib.import_module(f"repro_torch.configs.{modname}")
     return Arch(name=name, config=mod.CONFIG, smoke=mod.smoke_config(),
@@ -64,5 +51,5 @@ def get_arch(name: str) -> Arch:
 
 
 def all_archs():
-    """Every ported arch, in the reference's registry order."""
+    """Every arch, in the reference's registry order."""
     return [get_arch(n) for n in ARCH_IDS]

@@ -6,7 +6,7 @@ multiple of the pattern period; the decoder stack is executed as a
 loop over ``n_layers // period`` *groups*, each group applying the
 pattern positions in order with its own parameters (stacked on a leading
 group axis, as in the reference, so parameter trees convert leaf for leaf).
-The port runs every family but the vision one (ROADMAP Queue 1 item 9b).
+The port runs every family the reference does.
 
 The pattern mechanism expresses every assigned architecture:
 
@@ -124,7 +124,9 @@ class ModelConfig:
     # (shard the expert FFN hidden dim over data; activations reduce instead
     # of weights gathering — wins when weights >> activations per step)
     moe_param_shard: str = "fsdp"
-    # remat policy for the scanned group body: "none" | "full" | "dots"
+    # remat policy for each layer group of the training forward: "none" |
+    # "full" (keep the group's inputs) | "dots" (also keep x @ W products);
+    # the port checkpoints with torch.utils.checkpoint (transformer.py)
     remat: str = "full"
     # scan over layer groups (compact HLO) vs python-unrolled groups (exact
     # cost_analysis — XLA-CPU counts while bodies once, so the dry-run

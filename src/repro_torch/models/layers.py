@@ -1,16 +1,19 @@
 """Decoder layers as plain functions over nested dicts of tensors.
 
-Counterpart of ``repro/models/layers.py`` less M-RoPE and ``sdpa_chunked``
-(ROADMAP.md Queue 1 item 9b): activations
-are ``(B, S, D)``, attention ``(B, S, H, Dh)``; parameters are created in
-``cfg.param_dtype`` and compute runs in ``cfg.compute_dtype`` with f32
-softmax and normalization.  The projections, the MLP and the unembed stay
-``torch.matmul`` (the reference leaves them to XLA).  Full-sequence
-attention is the plain ``sdpa_reference`` under ``attention_impl="xla"``
-(the reference's default) and the CUDA flash kernel under ``"pallas"``;
-decode attends over a :class:`KVCache` with ``sdpa_reference``, as the
-reference does.  Cross-attention (``kv_override``, the encoder-decoder's)
-attends over given K/V with no mask.
+Counterpart of ``repro/models/layers.py``: activations are ``(B, S, D)``,
+attention ``(B, S, H, Dh)``; parameters are created in ``cfg.param_dtype``
+and compute runs in ``cfg.compute_dtype`` with f32 softmax and
+normalization.  Positions are ``(B, S)``, or ``(3, B, S)`` (t, h, w) under
+qwen2-vl's M-RoPE, whose masks read the first component.  The projections,
+the MLP and the unembed stay ``torch.matmul`` (the reference leaves them to
+XLA).  Full-sequence attention is the plain ``sdpa_reference`` under
+``attention_impl="xla"`` (the reference's default), the online-softmax
+loop over key chunks ``sdpa_chunked`` under ``"xla_chunked"`` (plain
+PyTorch, as the reference runs it in XLA) and the CUDA flash kernel under
+``"pallas"``; decode attends over a :class:`KVCache` with
+``sdpa_reference``, as the reference does.  Cross-attention
+(``kv_override``, the encoder-decoder's) attends over given K/V with no
+mask.
 """
 from __future__ import annotations
 
@@ -53,9 +56,15 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, Dh); positions: (B, S) int."""
-    half = x.shape[-1] // 2
     freqs = _rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs          # (B, S, half)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of ``x`` (B, S, H, Dh) by f32 ``angles``
+    (B, S, Dh/2)."""
+    half = x.shape[-1] // 2
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -63,15 +72,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): ``positions`` is (3, B, S), (t, h, w).
+
+    The ``head_dim/2`` frequency slots are split into ``sections`` (summing
+    to head_dim/2); slot group i rotates by the i-th position component.
+    Equal components give :func:`apply_rope`'s result bit for bit."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim/2 = {half}")
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    pos = positions.float()
+    parts, start = [], 0
+    for comp, n in enumerate(sections):
+        parts.append(pos[comp][..., None] * freqs[start:start + n])
+        start += n
+    return _rotate(x, torch.cat(parts, dim=-1))           # (B, S, half)
+
+
 def position_embed(cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
     if cfg.pos_embed == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
-    if cfg.pos_embed == "none":
-        return x
-    raise NotImplementedError(
-        f"pos_embed {cfg.pos_embed!r} is not ported yet: see ROADMAP.md "
-        f"Queue 1 item 9 (the dense LM stack)")
+    if cfg.pos_embed == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return x
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -134,27 +161,84 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def sdpa_chunked(q, k, v, q_pos, k_pos, *, causal: bool,
+                 window: Optional[int], softcap: float = 0.0,
+                 chunk: int = 512) -> torch.Tensor:
+    """Blockwise attention with an online softmax over key chunks, the
+    reference's ``sdpa_chunked`` (a ``lax.scan`` in XLA there, a loop of
+    plain PyTorch here): it never holds the (Sq, Sk) score matrix, only
+    (Sq, chunk).  q: (B, Sq, H, Dh); k, v: (B, Sk, K, Dh); q_pos (B, Sq)
+    and k_pos (B, Sk) are the absolute positions the masks read.  Keys are
+    padded to a whole chunk at position -1,000,000, masked scores are
+    -1e30, and a row that has seen no key yet keeps a zero running max."""
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    c = min(chunk, Sk)
+    pad = (-Sk) % c
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1_000_000)
+    qh = q.reshape(B, Sq, K, G, Dh).float() / math.sqrt(Dh)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, K, G, Sq, 1), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, K, G, Sq, Dh), dtype=torch.float32,
+                      device=q.device)
+    for start in range(0, Sk + pad, c):
+        kb, vb = kf[:, start:start + c], vf[:, start:start + c]
+        pb = k_pos[:, start:start + c][:, None, :]           # (B, 1, c)
+        s = _softcap(torch.einsum("bqkgd,bskd->bkgqs", qh, kb), softcap)
+        vis = pb > (-1_000_000 + 1)                          # padding off
+        if causal:
+            vis = vis & (pb <= q_pos[:, :, None])
+        if window is not None:
+            vis = vis & (pb > (q_pos[:, :, None] - window))
+        vis = vis[:, None, None].expand(s.shape)
+        s = torch.where(vis, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(m_new <= -1e29, 0.0, m_new)
+        p = torch.where(vis, torch.exp(s - m_safe), 0.0)
+        alpha = torch.where(m <= -1e29, 0.0, torch.exp(m - m_safe))
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bkgqs,bskd->bkgqd", p, vb)
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)                # (B,K,G,Sq,Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
+
+
 def _sdpa(cfg: ModelConfig, q, k, v, bias, *, causal: bool,
-          window: Optional[int]) -> torch.Tensor:
-    """Dispatch between the plain attention and the flash kernel.
+          window: Optional[int],
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dispatch between the plain attention, the chunked loop and the flash
+    kernel.
 
     ``"pallas"`` sends a multi-token query to ``ops.flash_attention``, which
     builds its masks from positions ``0..S-1`` and ignores ``bias``: the
     callers (``forward`` without explicit positions, ``prefill``) give it
-    exactly those positions."""
+    exactly those positions.  ``"xla_chunked"`` sends a multi-token query
+    with ``positions`` to :func:`sdpa_chunked` with keys at ``0..Sk-1``, as
+    the reference does, whatever the query positions."""
     impl = cfg.attention_impl
-    if impl in ("xla_chunked", "pallas_interpret"):
+    if impl == "pallas_interpret":
         raise NotImplementedError(
-            f"attention_impl {impl!r} is not ported yet: see ROADMAP.md "
-            f"Queue 1 item 9 (sdpa_chunked) and Queue 2 item 3 (the flash "
-            f"kernel runs compiled on the card, with no interpret mode)")
+            "attention_impl 'pallas_interpret' runs a Pallas kernel in "
+            "interpret mode; the port's flash kernel runs compiled on the "
+            "card under 'pallas' (ROADMAP.md Queue 2 item 3)")
     if impl == "pallas" and q.shape[1] > 1:
         from repro_torch.kernels import ops
 
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=cfg.attn_softcap, bias=bias)
-    if impl not in ("xla", "pallas"):
+    if impl not in ("xla", "xla_chunked", "pallas"):
         raise ValueError(f"unknown attention_impl {impl!r}")
+    if impl == "xla_chunked" and q.shape[1] > 1 and positions is not None:
+        k_pos = torch.arange(k.shape[1], device=k.device)[None].expand(
+            k.shape[0], k.shape[1])
+        return sdpa_chunked(q, k, v, positions, k_pos, causal=causal,
+                            window=window, softcap=cfg.attn_softcap)
     return sdpa_reference(q, k, v, bias, softcap=cfg.attn_softcap)
 
 
@@ -178,19 +262,23 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
       - cross-attention: ``kv_override`` gives precomputed ``(k, v)``
         ``(B, Sk, K, Dh)``; the queries attend over all of them, with no
         mask; returns ``(out, None)``.
+
+    ``positions`` is ``(B, S)``, or ``(3, B, S)`` under M-RoPE; every mask
+    reads its first component, as the reference's do.
     """
     B, S, D = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     cdt = cfg.dtype("compute")
     x = x.to(cdt)
     q = (x @ params["wq"].to(cdt)).reshape(B, S, H, Dh)
+    tok_pos = positions if positions.dim() == 2 else positions[0]  # (B, S)
 
     if kv_override is not None:
         k, v = kv_override
         q = position_embed(cfg, q, positions)
-        k_pos = torch.arange(k.shape[1], dtype=positions.dtype,
+        k_pos = torch.arange(k.shape[1], dtype=tok_pos.dtype,
                              device=x.device)[None].expand(B, k.shape[1])
-        bias = attn_bias(positions, k_pos, None, causal=False, window=None)
+        bias = attn_bias(tok_pos, k_pos, None, causal=False, window=None)
         out = _sdpa(cfg, q, k, v, bias, causal=False, window=None)
         return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), None
 
@@ -200,9 +288,13 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
     k = position_embed(cfg, k, positions)
 
     if cache is None:
-        bias = attn_bias(positions, positions, None, causal=causal,
-                         window=spec.window)
-        out = _sdpa(cfg, q, k, v, bias, causal=causal, window=spec.window)
+        if cfg.attention_impl == "xla_chunked" and S > 1:
+            bias = None       # sdpa_chunked masks chunk by chunk
+        else:
+            bias = attn_bias(tok_pos, tok_pos, None, causal=causal,
+                             window=spec.window)
+        out = _sdpa(cfg, q, k, v, bias, causal=causal, window=spec.window,
+                    positions=tok_pos)
         return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), None
 
     # ------------------------------------------------------------- decode
@@ -225,7 +317,7 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
     else:
         k_pos = slots.expand(B, C)
         k_valid = slots <= pos[:, None]
-    bias = attn_bias(positions, k_pos, k_valid, causal=True,
+    bias = attn_bias(tok_pos, k_pos, k_valid, causal=True,
                      window=spec.window)
     out = sdpa_reference(q, cache.k.to(cdt), cache.v.to(cdt), bias,
                          softcap=cfg.attn_softcap)

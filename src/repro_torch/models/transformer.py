@@ -12,10 +12,18 @@ pattern mixes both), ``prefill`` and ``decode_step``.  Windowed and
 soft-capped attention positions run as in the reference; SSM positions (the
 mamba2 family, jamba's Mamba layers) run
 :func:`~repro_torch.models.ssm.ssm_apply`; MoE positions (qwen3-moe,
-kimi-k2, jamba) run :func:`~repro_torch.models.moe.moe_apply`.  Vision
-placeholders (qwen2-vl) are ROADMAP Queue 1 item 9b, and the
-encoder-decoder family lives in ``encdec.py``; both raise
+kimi-k2, jamba) run :func:`~repro_torch.models.moe.moe_apply`.  qwen2-vl
+runs M-RoPE over ``(3, B, S)`` positions, and its stubbed vision encoder's
+``patch_emb`` ``(B, Np, D)`` takes the place of the first ``Np`` token
+embeddings.  The encoder-decoder family lives in ``encdec.py`` and raises
 ``NotImplementedError`` here.
+
+``forward`` checkpoints each layer group by ``cfg.remat``, as the
+reference's ``_maybe_remat`` wraps its scanned group: ``"none"`` keeps
+every activation, ``"dots"`` keeps the outputs of the unbatched products
+(``x @ W``, which fold to ``aten.mm``) and recomputes the rest, anything
+else (``"full"``) keeps the group's inputs alone.  Recompute runs the same
+operations on the same inputs, so gradients are unchanged.
 
 One difference in dispatch, not in function: the reference's ``prefill``
 runs its SSM positions through ``ssd_chunked``; the port's ``prefill`` runs
@@ -27,9 +35,12 @@ reference's ``use_ssm_kernel`` flag.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import tree as T
 from repro_torch.models import layers as L
@@ -41,10 +52,6 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.vision_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: vision placeholders and M-RoPE are not ported "
-            f"yet (see ROADMAP.md Queue 1 item 9b)")
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder model runs through "
@@ -148,41 +155,93 @@ def _add_aux(total: Optional[dict], aux: dict) -> dict:
     return aux if total is None else {k: total[k] + aux[k] for k in total}
 
 
-def _arange_positions(tokens: torch.Tensor) -> torch.Tensor:
+def _positions_for(cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """``positions`` if given, else ``0..S-1`` per row: ``(B, S)``, or
+    ``(3, B, S)`` under M-RoPE.  Explicit positions under ``"pallas"``
+    raise: the flash kernel masks from ``0..S-1``."""
+    if positions is not None:
+        if cfg.attention_impl == "pallas":
+            raise NotImplementedError(
+                "attention_impl 'pallas' builds its masks from positions "
+                "0..S-1 and takes no explicit positions")
+        return positions
     B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32,
-                        device=tokens.device)[None].expand(B, S)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=tokens.device)[None].expand(B, S)
+    if cfg.pos_embed == "mrope":
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           patch_emb: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, the first ``Np`` rows replaced by ``patch_emb``
+    ``(B, Np, D)`` (cast to their dtype) for a model with vision
+    placeholders, as the reference's ``dynamic_update_slice``: out of
+    place, so the replaced rows take no gradient."""
+    h = L.embed_apply(params["embed"], cfg, tokens)
+    if patch_emb is None or not cfg.vision_patches:
+        return h
+    n = patch_emb.shape[1]
+    if n > h.shape[1]:
+        raise ValueError(f"patch_emb holds {n} patches, more than the "
+                         f"{h.shape[1]} positions of the sequence")
+    return torch.cat([patch_emb.to(h.dtype), h[:, n:]], dim=1)
+
+
+# the PyTorch form of jax's ``dots_with_no_batch_dims_saveable``: ``x @ W``
+# folds to ``mm`` (``addmm`` with a bias) and is kept; attention's and the
+# experts' batched products are ``bmm`` and are recomputed with the rest
+_DOTS = partial(create_selective_checkpoint_contexts,
+                [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` checkpointed by ``cfg.remat`` while grad is enabled (without
+    grad there is nothing to keep, and ``fn`` runs as it is).  Non-reentrant
+    checkpointing: the trainer takes each pod's gradients with
+    ``torch.autograd.grad``, which the reentrant form refuses."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False, context_fn=_DOTS)
+    return partial(checkpoint, fn, use_reentrant=False)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            use_ssm_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
-    """Full-sequence forward. Returns (logits f32, aux).
+            patch_emb: Optional[torch.Tensor] = None,
+            use_ssm_kernel: bool = False,
+            return_hidden: bool = False) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence forward. Returns (logits f32, aux), or with
+    ``return_hidden`` (the final-normed hidden state, aux).
     ``use_ssm_kernel`` sends the SSM positions' SSD through
     ``ops.ssd_scan``, as the reference's flag does."""
     check_supported(cfg)
-    if positions is None:
-        positions = _arange_positions(tokens)
-    elif cfg.attention_impl == "pallas":
-        raise NotImplementedError(
-            "attention_impl 'pallas' builds its masks from positions "
-            "0..S-1 and takes no explicit positions")
-    h = L.embed_apply(params["embed"], cfg, tokens)
-    per_group = []
-    for g in range(cfg.n_groups):
+    positions = _positions_for(cfg, tokens, positions)
+    h = _embed(params, cfg, tokens, patch_emb)
+
+    def group(h, gp):
         group_aux = None
         for i, spec in enumerate(cfg.pattern):
-            gp = _select_group(params["blocks"][f"pos{i}"], g)
-            h, aux = _apply_position(gp, cfg, spec, h, positions,
+            h, aux = _apply_position(gp[f"pos{i}"], cfg, spec, h, positions,
                                      use_ssm_kernel=use_ssm_kernel)
             group_aux = _add_aux(group_aux, aux)
+        return h, group_aux
+
+    run = _maybe_remat(cfg, group)
+    per_group = []
+    for g in range(cfg.n_groups):
+        h, group_aux = run(h, _select_group(params["blocks"], g))
         per_group.append(group_aux)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = L.unembed_apply(params["embed"], cfg, h)
     # the reference sums each group's positions in order, then the groups
     aux = {k: torch.sum(torch.stack([a[k] for a in per_group]), dim=0)
            for k in per_group[0]}
-    return logits, aux
+    if return_hidden:
+        return h, aux
+    return L.unembed_apply(params["embed"], cfg, h), aux
 
 
 def _select_group(tree: Any, g: int) -> Any:
@@ -207,9 +266,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
             use_ssm_kernel: bool = False) -> Tuple[torch.Tensor, dict]:
     """Next-token LM loss plus the MoE auxiliaries. batch: {tokens,
-    labels[, mask, positions]}."""
+    labels[, mask, positions, patch_emb]}."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           positions=batch.get("positions"),
+                          patch_emb=batch.get("patch_emb"),
                           use_ssm_kernel=use_ssm_kernel)
     ce = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
     total = ce + M.moe_loss(aux, cfg) if cfg.has_moe else ce
@@ -258,6 +318,8 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     B = token.shape[0]
     pos = torch.as_tensor(cache_pos, device=token.device).to(torch.int32)
     positions = (pos.expand(B) if pos.dim() == 0 else pos)[:, None]
+    if cfg.pos_embed == "mrope":
+        positions = positions[None].expand(3, B, 1)
     h = L.embed_apply(params["embed"], cfg, token)
     for g in range(cfg.n_groups):
         caches = _group_cache(cache, g)
@@ -271,21 +333,24 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: int) -> Tuple[torch.Tensor, Params]:
+            cache_len: int, *, positions: Optional[torch.Tensor] = None,
+            patch_emb: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt ``(B, S)`` and build its decode cache of
     ``cache_len`` positions.  As in the reference, each attention position
     recomputes the prompt's K/V into the cache; a ring buffer shorter than
     the prompt keeps the tail, rolled so that slot j holds position
     p = j (mod C).  Each SSM position writes its final state and the last
     conv inputs, its SSD running through ``ops.ssd_scan`` (the kernel on
-    the card).  Returns (last-token logits ``(B, V)`` f32, cache)."""
+    the card).  ``positions`` and ``patch_emb`` as in :func:`forward`.
+    Returns (last-token logits ``(B, V)`` f32, cache)."""
     check_supported(cfg)
     B, Sq = tokens.shape
-    positions = _arange_positions(tokens)
+    positions = _positions_for(cfg, tokens, positions)
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
     cdt = cfg.dtype("compute")
     K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    h = L.embed_apply(params["embed"], cfg, tokens)
+    h = _embed(params, cfg, tokens, patch_emb)
     for g in range(cfg.n_groups):
         caches = _group_cache(cache, g)
         for i, spec in enumerate(cfg.pattern):

@@ -13,9 +13,11 @@ Counterpart of ``repro/serving/engine.py``, three layers, bottom to top:
   is copied in place into a free slot's row, and one ``decode_step`` call
   with the ``(n_slots,)`` position vector advances every slot at its own
   position (the reference ``vmap``s a single-sequence step over slots;
-  here the batch dimension is written out; SSM positions need no
-  position; an MoE position routes each slot's token alone, with the
-  capacity of one token, as the reference's per-slot ``vmap`` does).  Each
+  here the batch dimension is written out; under M-RoPE the vector
+  becomes ``(3, n_slots, 1)``, every component the slot's position; SSM
+  positions need no position; an MoE position routes each slot's token
+  alone, with the capacity of one token, as the reference's per-slot
+  ``vmap`` does).  Each
   row reads only its own cache row and position, so a slot's tokens are
   bit-identical whether or not another slot was inserted or evicted
   mid-flight.
@@ -63,7 +65,9 @@ class ServingEngine:
     ``encdec.init_cache`` as the encoder output (whose cross K/V each
     decoder block projects once), and the prompt is fed token by token
     through ``decode_step`` (teacher forcing); the model has no one-shot
-    prefill."""
+    prefill.  A model with vision placeholders (qwen2-vl) takes the
+    reference's ``patch_emb`` extra ``(B, Np, D)``, which its prefill
+    writes over the first ``Np`` embeddings."""
 
     def __init__(self, arch: Arch, params: Tree, *, cache_len: int = 1024,
                  use_smoke: bool = False):
@@ -92,8 +96,11 @@ class ServingEngine:
                 logits, cache = self.fns.decode_step(
                     self.params, self.cfg, tokens[:, i:i + 1], cache, i)
             return logits[:, 0], cache
+        patch_emb = extras.get("patch_emb")
+        if patch_emb is not None:
+            patch_emb = torch.as_tensor(patch_emb, device=self.device)
         return self.fns.prefill(self.params, self.cfg, tokens,
-                                self.cache_len)
+                                self.cache_len, patch_emb=patch_emb)
 
     @torch.no_grad()
     def generate(self, prompt, n_new: int, *, temperature: float = 0.0,
@@ -102,7 +109,8 @@ class ServingEngine:
         """Greedy (``temperature <= 0``) or sampled generation; sampling
         draws from ``generator`` (a ``torch.Generator`` on the engine's
         device; the reference takes a JAX key).  ``extras`` go to
-        :meth:`prefill` (``audio_emb`` for an encoder-decoder model)."""
+        :meth:`prefill` (``audio_emb`` for an encoder-decoder model,
+        ``patch_emb`` for a vision one)."""
         B, S = np.shape(prompt)
         logits, cache = self.prefill(prompt, **extras)
         pos = S

@@ -138,6 +138,12 @@ def test_flash_gqa8_prefill_shapes(cuda, S, H, K):
     _flash_case(cuda, 1, S, H, K, 128, torch.bfloat16)
 
 
+# qwen2-vl-2b's prefill: 12 heads over 2 KV heads, a GQA group of 6
+@pytest.mark.parametrize("B,S", [(1, 2048), (2, 2048), (1, 1000)])
+def test_flash_qwen2_vl_prefill_shape(cuda, B, S):
+    _flash_case(cuda, B, S, 12, 2, 128, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq", [(1, 1500), (4, 1500), (4, 32)])
 def test_flash_whisper_noncausal(cuda, B, Sq, dtype):
@@ -659,3 +665,46 @@ def test_stream_order_holds_when_a_restack_frees_the_old_state(
         out, _ = restore(str(tmp_path / "step_00000001"), want)
     _equal_trees(out, want)
     assert state.params["w"].shape[0] == 3 and len(junk) == 8
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_training_step_grads_bit_equal_to_none(cuda, remat):
+    """One training step of qwen2-vl's smoke decoder in bf16 on the card
+    (M-RoPE, patch embeddings, the codec's leaves): the gradients and the
+    updated parameters under ``remat`` equal those under ``"none"`` bit
+    for bit, since recompute runs the same kernels on the same inputs."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    base = get_arch("qwen2-vl-2b").smoke.replace(param_dtype="bfloat16",
+                                                 compute_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, base.vocab_size, (2, 2, 65), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "patch_emb": 0.02 * torch.randn(
+                 2, 2, base.vision_patches, base.d_model, generator=gen,
+                 device=cuda)}
+    out = {}
+    for r in ("none", remat):
+        cfg = base.replace(remat=r)
+        tr = Trainer(lambda p, b, cfg=cfg: transformer.loss_fn(p, cfg, b),
+                     lambda g, cfg=cfg: transformer.init_params(g, cfg,
+                                                                cuda),
+                     TrainerConfig(n_pods=2, optimizer="sgd", lr=0.1),
+                     device=cuda)
+        state = tr.init_state(0)
+        pp = T.tree_map(lambda x: x[0].detach().requires_grad_(True),
+                        state.params)
+        loss, _ = transformer.loss_fn(pp, cfg, {k: v[0]
+                                                for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, T.leaves(pp))
+        state, metrics = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        out[r] = (grads, T.leaves(state.params), metrics["loss_per_pod"])
+    (g0, p0, l0), (g1, p1, l1) = out["none"], out[remat]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(x, y) for x, y in zip(g0, g1))
+    assert all(torch.equal(x, y) for x, y in zip(p0, p1))

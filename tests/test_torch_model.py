@@ -20,7 +20,6 @@ from repro.models import transformer as jtransformer
 from repro_torch import convert
 from repro_torch import tree as T
 from repro_torch.configs import ARCH_IDS as TARCH_IDS
-from repro_torch.configs import REFERENCE_ARCH_IDS
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
@@ -142,18 +141,6 @@ def test_layers_match():
     np.testing.assert_array_equal(np.asarray(bias_j), bias_t.numpy())
 
 
-@pytest.mark.parametrize("name", sorted(
-    set(JARCH_IDS) - set(TARCH_IDS)))
-def test_unported_families_raise(name):
-    # the reference builds it; the port names the ROADMAP item instead
-    # (qwen2-vl-2b: M-RoPE and the vision placeholders, item 9b)
-    assert jget_arch(name).name == name
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
-        tget_arch(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9b"):
-        ttransformer.check_supported(TCFG.replace(vision_patches=8))
-
-
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
                                   "jamba-1.5-large-398b", "whisper-tiny"])
 def test_moe_hybrid_and_encdec_families_resolve(name):
@@ -171,8 +158,8 @@ def test_moe_hybrid_and_encdec_families_resolve(name):
 
 
 def test_arch_registry_matches_the_reference():
-    assert REFERENCE_ARCH_IDS == tuple(JARCH_IDS)
-    assert set(TARCH_IDS) < set(JARCH_IDS)
+    # every arch of the reference's registry, in its order
+    assert TARCH_IDS == tuple(JARCH_IDS)
 
 
 @pytest.mark.parametrize("name", ["no-such-arch", "granite-9b", ""])
