@@ -174,6 +174,19 @@ Phases (any failure raises and the script exits non-zero):
    others, no codec, flash or SSD launch; then sparse ``asgd_ga`` once
    more without the check, whose round times are unfenced (the check
    synchronizes the device after each launch).
+3i. The mesh path: a one-rank NCCL group (``HashStore``; a failure to
+   start it fails the run), ``make_debug_mesh(1, 1, 1)``, and phase 3's
+   run built by ``launch.context.make_train_setup`` with its state and
+   batches placed through ``TrainSetup`` (every parameter a DTensor):
+   (a) the codec, (b) sparse ``ama`` (phase 3b's); each bit-equal to the
+   unsharded trainer on the same seed and batches (losses, digests of
+   every parameter leaf and of the EF residual), each codec round and
+   top-k launch held to its plain version; prints each arm's step and
+   round times beside the unsharded run's and phase 3's and 3b's, its peak
+   memory and launches.  Then granite-8b x2's forward at B 8, S 512 with
+   ``embed_impl="onehot"`` against ``"gather"``, and every arch's input
+   specs at the four assigned shapes on the meta device, allocating
+   nothing; the NCCL version and the card's name and power limit.
 3c. The paper's models (LeNet, ResNet, DeepFM) at their own sizes, 2 pods,
    Fig 11's ``asgd@1``, ``asgd_ga@8``, ``ama@8``, ``sma@8`` and ``ama@8``
    at top-k 0.01, 16 steps each; at 2 pods ``ama@8`` and ``sma@8`` must
@@ -361,6 +374,11 @@ GEMMA_NEW_TOKENS = 8
 GEMMA_CHECKED_LAYERS = (0, 5)       # a windowed layer and a global one
 STRATEGIES_3B = (("asgd_ga", TOPK), ("ama", TOPK), ("asp", TOPK),
                  ("sma", 0.0), ("asgd", 0.0))
+# phase 3i: the one-hot forward against the gather's (bit-equal expected:
+# a one-hot row selects the row exactly), else within two bf16 steps of
+# max|logit|; phases 3's and 3b's step and round times, for 3i to print
+ONEHOT_TOL = 2.0 ** -7
+PHASE_TIMES: dict = {}
 
 
 def require(cond: bool, what: str) -> None:
@@ -771,6 +789,7 @@ def phase_main_path(torch) -> dict:
         require(bool(torch.isfinite(leaf).all()), "finite params")
     print(f"[main] {cfg.name} x2 layers, {n_params:,} params/pod, {PODS} "
           f"pods, batch 8, seq 512: losses {losses}")
+    PHASE_TIMES["3"] = (trainer.step_seconds, trainer.sync_seconds)
     print(f"[main] step s {[round(t, 4) for t in trainer.step_seconds]}, "
           f"sync-round s {[round(t, 4) for t in trainer.sync_seconds]}, "
           f"EF residual norms {rounds}, peak memory {peak_gb:.2f} GB, "
@@ -2786,7 +2805,7 @@ def phase_strategies(torch) -> int:
     from repro_torch.core.control_plane import (TrainingRequest,
                                                 build_training_plan)
     from repro_torch.core.scheduler import CloudResources
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import make_batches
     from repro_torch.models import transformer
     from repro_torch.training.trainer import Trainer, TrainerConfig
@@ -2807,23 +2826,10 @@ def phase_strategies(torch) -> int:
                           TrainerConfig(n_pods=PODS, optimizer="sgd",
                                         lr=0.02, sync=sync),
                           device="cuda")
-        checked, check_s = [], {}
-
-        def check_hook(x, vals, idx, *, chunk, k, block):
-            """Hold each launch of the round to the plain version on the
-            same input, outside the counts and the round's time (the
-            round's queued work finishes before the clock starts)."""
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            counts = dict(ops.LAUNCHES)
-            want = ref.topk_block_chunks(x, chunk, k, block)
-            topk_equal(torch, (vals, idx), want, chunk,
-                       f"{strategy} launch {len(checked)}")
-            checked.append(tuple(x.shape))
-            ops.LAUNCHES.update(counts)
-            torch.cuda.synchronize()
-            r = len(trainer.sync_seconds)
-            check_s[r] = check_s.get(r, 0.0) + time.perf_counter() - t0
+        # each launch held to the plain version outside the round's time
+        checked, check_s = [], [0.0] * 3
+        check_hook = clocked(torch, topk_check_hook(torch, checked, strategy),
+                             check_s, lambda: len(trainer.sync_seconds))
 
         state = trainer.init_state(SEED)
         leaves = T.leaves(state.params)
@@ -2852,16 +2858,17 @@ def phase_strategies(torch) -> int:
             require(bool(torch.isfinite(leaf).all()),
                     f"{strategy}: finite params")
         rounds = trainer.sync_seconds
-        net = [t - check_s.get(i, 0.0) for i, t in enumerate(rounds)]
+        net = [t - check_s[i] for i, t in enumerate(rounds)]
         require(len(rounds) == (0 if strategy == "asgd" else 2),
                 f"{strategy}: {len(rounds)} sync rounds")
         frac = float(state.sync_state.significant_frac)
         steps = [round(t, 4) for t in trainer.step_seconds]
         if fenced:
+            PHASE_TIMES[f"3b {strategy}"] = (trainer.step_seconds, net)
             fenced_net[strategy] = [round(t, 4) for t in net]
             print(f"[strategies] {strategy}@2 top-k {topk}: losses {losses}; "
                   f"step s {steps}, sync-round s {fenced_net[strategy]} (net "
-                  f"of the check's {[round(v, 4) for v in check_s.values()]}"
+                  f"of the check's {[round(v, 4) for v in check_s[:len(net)]]}"
                   f"), peak memory {peak_gb:.2f} GB, launches {launches}"
                   + (f", significant_frac {frac:.4g}" if strategy == "asp"
                      else ""))
@@ -2874,6 +2881,240 @@ def phase_strategies(torch) -> int:
         del trainer, state, leaves, batches
         torch.cuda.empty_cache()
     return total
+
+
+def bits_digest(torch, x) -> tuple:
+    """Two int64 sums of a tensor's bit patterns, plain and weighted by
+    position (mod 65521), taken 2**26 elements at a time on its device:
+    equal bits give equal digests, and a changed or moved value changes
+    them."""
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
+    flat = x.detach().contiguous().view(view).reshape(-1)
+    plain = weighted = 0
+    for lo in range(0, flat.numel(), 1 << 26):
+        b = flat[lo:lo + (1 << 26)].to(torch.int64)
+        w = torch.arange(lo, lo + b.numel(), device=b.device) % 65521 + 1
+        plain += int(b.sum())
+        weighted += int((b * w).sum())
+    return plain, weighted
+
+
+def state_digest(torch, state) -> dict:
+    """Digests of every parameter leaf and of the EF residual."""
+    from repro_torch import tree as T
+    from repro_torch.sharding.rules import whole_local
+
+    out = {path: bits_digest(torch, whole_local(x))
+           for path, x in T.leaves_with_path(state.params)}
+    out["ef_residual"] = bits_digest(
+        torch, whole_local(state.sync_state.ef_residual))
+    return out
+
+
+def median_after_first(times) -> float:
+    return statistics.median(times[1:]) if len(times) > 1 else float("nan")
+
+
+def topk_check_hook(torch, checked: list, what: str):
+    """``ops.TOPK_CHECK_HOOK``: each top-k launch held bit-equal to the
+    plain version on the same input, outside the launch counts
+    (:func:`clocked` keeps it out of the round's time)."""
+    from repro_torch.kernels import ops, ref
+
+    def hook(x, vals, idx, *, chunk, k, block):
+        counts = dict(ops.LAUNCHES)
+        want = ref.topk_block_chunks(x, chunk, k, block)
+        topk_equal(torch, (vals, idx), want, chunk,
+                   f"{what} launch {len(checked)}")
+        checked.append(tuple(x.shape))
+        ops.LAUNCHES.update(counts)
+    return hook
+
+
+def phase_mesh(torch) -> dict:
+    """Phase 3i: the mesh path.  A one-rank NCCL group (a ``HashStore``:
+    no network, no fallback), ``make_debug_mesh(1, 1, 1)``; phase 3's run
+    built through ``make_train_setup`` and placed through ``TrainSetup``
+    (arm a: the codec; arm b: sparse ``ama``, the top-k kernel), each held
+    bit for bit against the unsharded trainer on the same seed and batches
+    (losses, every parameter leaf's digest and the EF residual's), every
+    codec round and top-k launch held to its plain version; the one-hot
+    embedding's forward against the gather's; every arch's input specs on
+    the meta device.  Returns the sharded arms' launches."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.configs import all_archs, get_arch
+    from repro_torch.core import sync as S
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.kernels import ops
+    from repro_torch.launch import context as C
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import transformer
+    from repro_torch.sharding.rules import is_dtensor
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    arch = get_arch("granite-8b")
+    overrides, seq = {"n_layers": 2}, 512
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    launches = {name: 0 for name in ops.LAUNCHES}
+    try:
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        mesh = M.make_debug_mesh(1, 1, 1, device_type="cuda")
+        clouds = tuple(CloudResources(region=f"pod{i}",
+                                      devices=(("v5e", 4),), data_size=1.0)
+                       for i in range(PODS))
+        arms = {"a": (S.SyncConfig("asgd_ga", 2, compress_topk=TOPK,
+                                   quantize_int8=True, error_feedback=True),
+                      {"wan_encode": 2, "wan_decode": 4}),
+                "b": (S.SyncConfig("ama", 2, compress_topk=TOPK),
+                      {"topk_compress": 24})}
+        for name, (sync, want) in arms.items():
+            setup = C.make_train_setup(arch, mesh, sync=sync, lr=0.02,
+                                       n_pods=PODS,
+                                       config_overrides=overrides)
+            cfg = setup.cfg
+            plan = build_training_plan(TrainingRequest(
+                model=cfg.name, clouds=clouds, sync=sync, n_iters=4,
+                global_batch=8))
+            batches = make_batches(plan, cfg.vocab_size, seq, "cuda")
+            # the unsharded trainer first, then freed: two states at once
+            # would not fit the card
+            plain = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                            lambda g: transformer.init_params(g, cfg,
+                                                              "cuda"),
+                            TrainerConfig(n_pods=PODS, optimizer="sgd",
+                                          lr=0.02, sync=sync),
+                            device="cuda")
+            state = plain.init_state(SEED)
+            state, hist = plain.fit(state, batches, 4)
+            want_losses, want_digest = hist["loss_per_pod"], \
+                state_digest(torch, state)
+            plain_times = (plain.step_seconds, plain.sync_seconds)
+            del plain, state
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # the sharded arm
+            rounds, checked = [], []
+            tr = setup.trainer
+            tr.round_hook = codec_round_check(torch, rounds) \
+                if sync.uses_codec else None
+            state = setup.place_state(tr.init_state(SEED))
+            require(all(is_dtensor(x) for x in T.leaves(state.params)),
+                    f"arm {name}: every parameter leaf is a DTensor")
+            # a top-k check runs inside its round, fenced and timed apart
+            spent = [0.0] * 3
+            ops.TOPK_CHECK_HOOK = None if sync.uses_codec else clocked(
+                torch, topk_check_hook(torch, checked, "mesh"), spent,
+                lambda: len(tr.sync_seconds))
+            ops.reset_launches()
+            state, hist = tr.fit(state, lambda s: setup.place_batch(
+                batches(s)), 4)
+            torch.cuda.synchronize()
+            got = dict(ops.LAUNCHES)
+            ops.TOPK_CHECK_HOOK = None
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            expect = {k: want.get(k, 0) for k in got}
+            require(got == expect, f"arm {name} launches {got} == {expect}")
+            require(len(rounds) == (2 if sync.uses_codec else 0)
+                    and len(checked) == want.get("topk_compress", 0),
+                    f"arm {name}: {len(rounds)} codec rounds and "
+                    f"{len(checked)} top-k launches held to plain")
+            require(hist["loss_per_pod"] == want_losses,
+                    f"arm {name}: losses {hist['loss_per_pod']} == "
+                    f"unsharded {want_losses}")
+            digest = state_digest(torch, state)
+            require(digest == want_digest,
+                    f"arm {name}: parameters and EF residual bit-equal to "
+                    f"the unsharded run, differing "
+                    f"{[k for k in digest if digest[k] != want_digest.get(k)]}")
+            for k, v in got.items():
+                launches[k] += v
+            ref3 = PHASE_TIMES.get("3" if name == "a" else "3b ama")
+            print(f"[mesh] arm {name} ({sync.strategy}, "
+                  f"{'int8 top-k ' + str(TOPK) + ' + EF' if sync.uses_codec else 'sparse top-k ' + str(TOPK)}"
+                  f"), {cfg.name} x{cfg.n_layers} layers, {PODS} pods on a "
+                  f"(1, 1, 1) mesh: losses {hist['loss_per_pod']} bit-equal "
+                  f"to the unsharded trainer, {len(digest)} digests equal; "
+                  f"launches {got}; peak memory {peak:.2f} GB")
+            net = [t - spent[i] for i, t in enumerate(tr.sync_seconds)]
+            print(f"[mesh] arm {name} step s {[round(t, 4) for t in tr.step_seconds]}"
+                  f", round s {[round(t, 4) for t in net]} (net of the "
+                  f"top-k check's {[round(t, 4) for t in spent[:len(net)]]})"
+                  f"; median after the first: step "
+                  f"{median_after_first(tr.step_seconds):.4f} s, round "
+                  f"{median_after_first(net):.4f} s; unsharded "
+                  f"here: step {median_after_first(plain_times[0]):.4f} s, "
+                  f"round {median_after_first(plain_times[1]):.4f} s; phase "
+                  f"{'3' if name == 'a' else '3b ama'}: "
+                  + (f"step {median_after_first(ref3[0]):.4f} s, round "
+                     f"{median_after_first(ref3[1]):.4f} s" if ref3
+                     else "not run"))
+            del setup, tr, state, batches
+            torch.cuda.empty_cache()
+
+        # the one-hot embedding: a full-width forward against the gather
+        cfg = arch.config.replace(**overrides)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = transformer.init_params(gen, cfg, "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (8, seq), generator=gen,
+                             device="cuda")
+        with torch.no_grad():
+            a, _ = transformer.forward(params, cfg.replace(
+                embed_impl="onehot"), toks)
+            b, _ = transformer.forward(params, cfg, toks)
+        gap = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        require(gap <= ONEHOT_TOL * scale,
+                f"one-hot logits within {ONEHOT_TOL} of max|logit| of the "
+                f"gather's: gap {gap}")
+        print(f"[mesh] one-hot embed forward, {cfg.name} x{cfg.n_layers} "
+              f"layers, B 8, S {seq}: "
+              + ("bit-equal to the gather's" if torch.equal(a, b) else
+                 f"max|gap| {gap} (max|logit| {scale}), within "
+                 f"{ONEHOT_TOL} of max|logit|"))
+        del params, a, b
+
+        # every arch x the four assigned shapes, on the meta device
+        before = torch.cuda.memory_allocated()
+        n_specs, skipped = 0, []
+        for ar in all_archs():
+            for shape_name, shape in SH.INPUT_SHAPES.items():
+                ok, why = SH.shape_supported(ar, shape_name)
+                if not ok:
+                    skipped.append(f"{ar.name}/{shape_name}")
+                    continue
+                specs = (SH.train_batch_specs(ar, shape, 2)
+                         if shape.kind == "train" else
+                         SH.prefill_specs(ar, shape) if shape.kind ==
+                         "prefill" else SH.decode_specs(ar, shape))
+                require(all(v.device.type == "meta"
+                            for v in specs.values()), "meta specs")
+                n_specs += len(specs)
+        after = torch.cuda.memory_allocated()
+        require(after == before, f"input specs allocate nothing: "
+                f"{before} -> {after} bytes")
+        print(f"[mesh] input specs: {n_specs} meta tensors for "
+              f"{len(all_archs())} archs x {len(SH.INPUT_SHAPES)} shapes, "
+              f"{len(skipped)} skipped ({', '.join(skipped)}); device "
+              f"memory {before} -> {after} bytes")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        print(f"[mesh] NCCL {nccl}; {smi.stdout.strip().splitlines()[0]}; "
+              f"phase {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        ops.TOPK_CHECK_HOOK = None
+        dist.destroy_process_group()
+    return launches
 
 
 def phase_paper_models(torch) -> None:
@@ -4677,6 +4918,9 @@ def main() -> int:
     snap_launches = phase_snapshots(torch)
     torch.cuda.empty_cache()
     topk_launches = phase_strategies(torch)
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(torch)
+    torch.cuda.empty_cache()
     phase_paper_models(torch)
     phase_entry_point(torch)
     phase_entry_point_ama(torch)
@@ -4706,7 +4950,8 @@ def main() -> int:
                                      + stream_launches[name]
                                      + snap_launches[name]
                                      + moe_train_launches[name]
-                                     + vl_launches[name])
+                                     + vl_launches[name]
+                                     + mesh_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]
         + gemma_launches["flash_attention"]
@@ -4715,7 +4960,8 @@ def main() -> int:
     kernels["ssd_scan"]["launches"] = (
         mamba_launches["ssd_scan"]
         + sum(f["ssd_scan"] for f in family_launches))
-    kernels["topk_compress"]["launches"] = topk_launches
+    kernels["topk_compress"]["launches"] = (topk_launches
+                                            + mesh_launches["topk_compress"])
     print(f"[chip_smoke] whole run {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": device}))

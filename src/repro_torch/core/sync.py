@@ -2,6 +2,12 @@
 
 Counterpart of ``repro/core/sync.py``.  Every training-state leaf carries a
 leading ``pod`` dimension; the one-peer ring send is ``torch.roll(dim=0)``.
+On a mesh whose ``"pod"`` axis spans processes each rank holds its own
+pods' rows, and every operation across the pod dimension goes through one
+seam, :class:`PodAxis` (its ``roll`` and ``mean``): with the
+dimension whole on the rank it is ``torch.roll`` and ``mean(dim=0)`` as
+before; split, the ring is point-to-point over the pod group (the
+reference's ``collective-permute``) and the means an all-reduce.
 The strategies (paper §III.C) are those of the reference:
 
 - ``asgd``: the per-step cross-pod gradient mean (the baseline);
@@ -67,6 +73,150 @@ BUCKET_POLICIES = ("single", "layer-class")
 # keep per-selection index spaces below int32: the legacy sparse path
 # ships each leaf in chunks of this many values
 CHUNK = 1 << 26
+
+
+class PodAxis:
+    """The pod dimension of every stacked tensor, whole on this rank
+    (``group=None`` or a group of one rank: :data:`WHOLE_PODS`) or split
+    over the ranks of a process group, the mesh's ``"pod"`` axis: rank
+    ``index`` of the group then holds the ``n_local`` pods from global pod
+    ``first`` on, as the leading rows.  The seam of the sync layer: its
+    ring (:meth:`roll`), its sums and means (:meth:`sum`, :meth:`mean`)
+    and the per-pod metrics (:meth:`gather`) are the only operations that
+    cross it; split, they count what they post.  Host-side vectors over
+    all pods (a degraded round's ``alive``) stay whole on every rank."""
+
+    def __init__(self, n_pods: Optional[int] = None, group=None):
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group) if group is not None else 1
+        self.index = dist.get_rank(group) if group is not None else 0
+        self.n_pods = n_pods
+        if self.split and (n_pods is None or n_pods % self.size):
+            raise ValueError(f"{n_pods} pods do not split over a pod axis "
+                             f"of {self.size}")
+        self.n_local = n_pods // self.size if self.split else None
+        self.first = self.index * self.n_local if self.split else 0
+        self.sends = self.all_reduces = self.all_gathers = 0
+        # the inline ring over this axis: the transport of ``None``
+        self.ring = InlineRingShip(self)
+
+    @property
+    def split(self) -> bool:
+        return self.size > 1
+
+    def count(self, tree: Pytree) -> int:
+        """The global pod count: the leading dimension of the tree's
+        leaves when whole."""
+        return self.n_pods if self.split else T.leaves(tree)[0].shape[0]
+
+    def _peer(self, r: int) -> int:
+        import torch.distributed as dist
+        return dist.get_global_rank(self.group, r)
+
+    def roll(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """``torch.roll(dims=0)`` of the global pod dimension.  Split, on
+        this rank's rows: each row is sent to the rank that holds its
+        destination, as bytes, point to point.  Between two ranks, sends
+        and receives are posted in ascending source row, so they pair up
+        in order."""
+        if not self.split:
+            return torch.roll(x, shift, dims=0)
+        import torch.distributed as dist
+
+        n, n_loc = self.n_pods, self.n_local
+        rows = x.contiguous().reshape(n_loc, -1).view(torch.uint8)
+        out = torch.empty_like(rows)
+        ops = []
+        for j in range(n_loc):
+            dst = (self.first + j + shift) % n
+            if dst // n_loc == self.index:
+                out[dst - self.first].copy_(rows[j])
+            else:
+                ops.append(dist.P2POp(dist.isend, rows[j],
+                                      self._peer(dst // n_loc), self.group))
+                self.sends += 1
+        for src, i in sorted(((self.first + i - shift) % n, i)
+                             for i in range(n_loc)):
+            if src // n_loc != self.index:
+                ops.append(dist.P2POp(dist.irecv, out[i],
+                                      self._peer(src // n_loc), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out.view(x.dtype).reshape(x.shape)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over all pods, ``(1, ...)``.  Split: this rank's rows
+        summed, then an all-reduce of the sums over the pod group.  A
+        DTensor (the in-pod placements of a gradient) reduces its local
+        shard, which every rank of the pod group holds for the same
+        slice."""
+        if not self.split:
+            return x.sum(dim=0, keepdim=True)
+        import torch.distributed as dist
+
+        from repro_torch.sharding.rules import is_dtensor
+        if is_dtensor(x):
+            from torch.distributed.tensor import DTensor
+            local = self.sum(x.to_local())
+            return DTensor.from_local(local, x.device_mesh, x.placements,
+                                      run_check=False)
+        total = x.sum(dim=0, keepdim=True)
+        dist.all_reduce(total, group=self.group)
+        self.all_reduces += 1
+        return total
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x.mean(dim=0, keepdim=True)`` over all pods."""
+        if not self.split:
+            return x.mean(dim=0, keepdim=True)
+        return self.sum(x).div_(self.n_pods)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every pod's rows of a small per-pod tensor (the losses for the
+        step's metrics), on every rank."""
+        if not self.split:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        self.all_gathers += 1
+        return torch.cat(parts)
+
+    def rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor over all pods."""
+        if not self.split:
+            return v
+        return v[self.first:self.first + self.n_local]
+
+
+class InlineRingShip:
+    """The in-process transport: ring-permute each wire part over the pod
+    axis ``pods`` (:meth:`PodAxis.roll`): ``torch.roll(dim=0)`` when the
+    dimension is whole, point to point when it is split.  The transports of
+    ``repro_torch.core.transport`` implement the same ``ship_bucket``
+    contract; this one is why ``transport=None`` ships what it always
+    shipped."""
+
+    in_graph = True
+
+    def __init__(self, pods: Optional[PodAxis] = None):
+        self.pods = WHOLE_PODS if pods is None else pods
+
+    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
+                    shift: int, payload_mb: float = 0.0
+                    ) -> Tuple[ChunkPayload, ...]:
+        del name, payload_mb
+        return tuple(ChunkPayload(*(_roll_rows(p, shift, self.pods)
+                                    for p in c))
+                     for c in chunks)
+
+
+WHOLE_PODS = PodAxis()
+_INLINE_RING = WHOLE_PODS.ring
 
 
 @dataclass(frozen=True)
@@ -471,17 +621,17 @@ def init_sync_state(cfg: SyncConfig, stacked_params: Pytree) -> SyncState:
         resid_norm=torch.zeros(n_pods, nb, device=dev))
 
 
-def on_step_gradients(cfg: SyncConfig, grads: Pytree, state: SyncState
+def on_step_gradients(cfg: SyncConfig, grads: Pytree, state: SyncState,
+                      pods: PodAxis = WHOLE_PODS
                       ) -> Tuple[Pytree, SyncState]:
     """Fresh per-pod gradients (leading pod dim) -> (gradients for the local
     optimizer update, new sync state).  ASGD-GA accumulates into the fp32
     buffer in place."""
-    n_pods = T.leaves(grads)[0].shape[0]
+    n_pods = pods.count(grads)
     bump = state._replace(steps_since_sync=state.steps_since_sync + 1)
     if cfg.strategy == "asgd" and n_pods > 1:
         grads = T.tree_map(
-            lambda g: g.mean(dim=0, keepdim=True).expand_as(g).contiguous(),
-            grads)
+            lambda g: pods.mean(g).expand_as(g).contiguous(), grads)
         return grads, bump
     if cfg.strategy == "asgd_ga":
         T.tree_map(lambda b, g: b.add_(g.float()), state.ga_buffer, grads)
@@ -617,9 +767,10 @@ def _wire_bits(p: torch.Tensor) -> torch.Tensor:
     return p.view(torch.int16) if p.dtype == torch.uint16 else p
 
 
-def _roll_rows(p: torch.Tensor, shift: int) -> torch.Tensor:
-    """``torch.roll`` over the pod dimension, of the part's bytes."""
-    return torch.roll(_wire_bits(p), shift, dims=0).view(p.dtype)
+def _roll_rows(p: torch.Tensor, shift: int,
+               pods: PodAxis = WHOLE_PODS) -> torch.Tensor:
+    """The ring over the pod dimension, of the part's bytes."""
+    return pods.roll(_wire_bits(p), shift).view(p.dtype)
 
 
 class TransferFailed(RuntimeError):
@@ -692,26 +843,6 @@ def verify_shipment(name: str, sent_crc: Sequence[int],
         if got[p] != sent_crc[(p - shift) % n]:
             raise CorruptPayloadError(
                 name, 0, f"checksum mismatch on receiver row {p}", pod=p)
-
-
-class InlineRingShip:
-    """The in-process transport: ring-permute each wire part over the pod
-    dimension with ``torch.roll(dim=0)``.  The transports of
-    ``repro_torch.core.transport`` implement the same ``ship_bucket``
-    contract; this one is why ``transport=None`` ships what it always
-    shipped."""
-
-    in_graph = True
-
-    def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
-                    shift: int, payload_mb: float = 0.0
-                    ) -> Tuple[ChunkPayload, ...]:
-        del name, payload_mb
-        return tuple(ChunkPayload(*(_roll_rows(p, shift) for p in c))
-                     for c in chunks)
-
-
-_INLINE_RING = InlineRingShip()
 
 
 def bucket_wire_mb(cfg: SyncConfig, layout: BucketLayout
@@ -985,13 +1116,14 @@ def bucket_chunk_mb(cfg: SyncConfig, layout: BucketLayout
     return out
 
 
-def _ship_leaf(cfg: SyncConfig, x: torch.Tensor) -> torch.Tensor:
+def _ship_leaf(cfg: SyncConfig, x: torch.Tensor,
+               pods: PodAxis = WHOLE_PODS) -> torch.Tensor:
     """One leaf's one-peer ring send; sparse when ``0 < compress_topk < 1``:
     per pod, chunks of ``CHUNK`` values (the last zero-padded), each
     compressed to its block top-k (one kernel launch for the leaf on the
     card), rolled, decompressed and cropped back to the leaf."""
     if not 0.0 < cfg.compress_topk < 1.0:
-        return torch.roll(x, cfg.peer_shift, dims=0)
+        return pods.roll(x, cfg.peer_shift)
     from repro_torch.kernels import ops as kops
 
     n_pods = x.shape[0]
@@ -1000,22 +1132,24 @@ def _ship_leaf(cfg: SyncConfig, x: torch.Tensor) -> torch.Tensor:
     k = max(1, int(chunk * cfg.compress_topk))
     vals, idx = kops.topk_compress_chunked(x.reshape(n_pods, numel), chunk,
                                            k)
-    vals = torch.roll(vals, cfg.peer_shift, dims=0)
-    idx = torch.roll(idx, cfg.peer_shift, dims=0)
+    vals = pods.roll(vals, cfg.peer_shift)
+    idx = pods.roll(idx, cfg.peer_shift)
     dense = kops.topk_decompress(vals, idx, chunk).reshape(n_pods, -1)
     if dense.shape[1] != numel:
         dense = dense[:, :numel]
     return dense.reshape(x.shape)
 
 
-def _ship_ring(cfg: SyncConfig, tree: Pytree) -> Pytree:
+def _ship_ring(cfg: SyncConfig, tree: Pytree,
+               pods: PodAxis = WHOLE_PODS) -> Pytree:
     """One-peer ring send of a stacked tree: roll along the pod dim, or the
     sparse top-k send of :func:`_ship_leaf`."""
-    return T.tree_map(lambda x: _ship_leaf(cfg, x), tree)
+    return T.tree_map(lambda x: _ship_leaf(cfg, x, pods), tree)
 
 
 def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
-               lr: float = 1.0, transport=None
+               lr: float = 1.0, transport=None,
+               pods: PodAxis = WHOLE_PODS
                ) -> Tuple[Pytree, SyncState]:
     """One inter-pod synchronization round (paper §III.C steps 3-5).
 
@@ -1023,8 +1157,10 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
     ``lr`` drives the receiver-side SGD update of ASGD-GA.  On the codec
     path the round is the three stages of the reference, shipped through
     ``transport`` (``None``: the inline ring); the other strategies ship
-    over the ring in place and ignore it, as the reference's do."""
-    n_pods = T.leaves(params)[0].shape[0]
+    over the ring in place and ignore it, as the reference's do.  ``pods``
+    is the pod axis: whole on the rank, or split over processes (this
+    rank's rows in ``params``)."""
+    n_pods = pods.count(params)
     dev = T.leaves(params)[0].device
     zero = state._replace(
         steps_since_sync=torch.zeros((), dtype=torch.int32, device=dev))
@@ -1036,15 +1172,16 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
         if cfg.uses_codec:
             payloads = prepare_codec_sync(cfg, state)
             wire = bucket_wire_mb(cfg, bucket_layout(cfg, state.ga_buffer))
-            shipped = ship_sync_payloads(cfg, payloads.chunks, transport,
-                                         wire)
+            shipped = ship_sync_payloads(
+                cfg, payloads.chunks,
+                pods.ring if transport is None else transport, wire)
             return finish_codec_sync(cfg, params, state, payloads, shipped,
                                      lr)
         denom = torch.clamp(state.steps_since_sync, min=1).float()
         scale = torch.tensor(lr, dtype=f32, device=dev) * cfg.ga_lr_scale
 
         def ga_update(p, b):
-            g = _ship_leaf(cfg, b / denom)
+            g = _ship_leaf(cfg, b / denom, pods)
             p.copy_(p.float() - scale * g)
             b.zero_()
         T.tree_map(ga_update, params, state.ga_buffer)
@@ -1067,34 +1204,48 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
             sig = delta.abs() > cfg.asp_threshold * (r.abs() + eps)
             n_sig = n_sig + sig.sum()
             n_tot += sig.numel()
-            q = _ship_leaf(cfg, torch.where(sig, delta, 0.0))
+            q = _ship_leaf(cfg, torch.where(sig, delta, 0.0), pods)
             p.copy_(p.float() + 0.5 * q)
             r.copy_(p)
         T.tree_map(asp_update, params, state.ga_buffer)
+        if pods.split:
+            # the counts of every pod, exact in f64
+            n_sig, n_tot = pods.sum(torch.stack(
+                [n_sig.to(torch.float64),
+                 torch.tensor(float(n_tot), dtype=torch.float64,
+                              device=dev)])[None])[0]
+            n_tot = float(n_tot)
         frac = n_sig.to(f32) / n_tot
         return params, zero._replace(significant_frac=frac)
 
     if cfg.strategy == "ama":
         # each leaf's peer copy is taken before that leaf is averaged; the
         # leaves are independent, so leaf by leaf equals the whole tree
-        T.tree_map(lambda p: p.copy_((p.float() + _ship_leaf(cfg, p).float())
-                                     * 0.5), params)
+        T.tree_map(lambda p: p.copy_(
+            (p.float() + _ship_leaf(cfg, p, pods).float()) * 0.5), params)
         return params, zero
 
     # sma: barrier global average
-    T.tree_map(lambda p: p.copy_(p.float().mean(dim=0, keepdim=True)
-                                 .expand(p.shape)), params)
+    T.tree_map(lambda p: p.copy_(pods.mean(p.float()).expand(p.shape)),
+               params)
     return params, zero
 
 
 def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],
-                         inter: str = "ama", shift: int = 1) -> Pytree:
+                         inter: str = "ama", shift: int = 1,
+                         pods: PodAxis = WHOLE_PODS) -> Pytree:
     """Two-level averaging (paper §III.C's inter-PS model averaging across
     regions): a barrier mean within each group of pods, then the group
     means either gossip one ring step (``inter="ama"``) or take their
     global mean (``"sma"``), broadcast back to every member.  All-singleton
     groups in pod order recover flat ``ama`` and one group flat ``sma``.
-    Returns a new tree."""
+    Returns a new tree.  It needs the whole pod dimension on the rank:
+    a split pod axis (``pods``) raises."""
+    if pods.split:
+        raise NotImplementedError(
+            "hierarchical_average needs every pod's rows on the rank; the "
+            "topology path over a split pod axis is ROADMAP.md Queue 1 "
+            "item 15c")
     groups = tuple(tuple(int(i) for i in g) for g in groups)
     if not groups or any(not g for g in groups):
         raise ValueError("groups must be non-empty and cover every pod")

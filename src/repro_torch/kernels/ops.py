@@ -23,6 +23,12 @@ init_state=)``, and ``TOPK_CHECK_HOOK`` after every top-k launch with
 ``(x, vals, idx, chunk=, k=, block=)`` (the batched form's arguments); a
 caller that holds a kernel to its plain version on a live path sets them
 (``chip_smoke.py``).
+
+No DTensor reaches a kernel: every entry point raises ``TypeError`` on one.
+The codec's blocks are blocks of the whole flattened leaf, so a shard's
+blocks would not be the reference's, and on the card a DTensor would reach
+the extension as a tensor without storage.  The mesh path gathers its
+leaves whole before a round (``repro_torch.training.trainer``).
 """
 from __future__ import annotations
 
@@ -51,6 +57,13 @@ TOPK_CHECK_HOOK: Optional[Callable] = None
 _MAX_ROWS = 65535                  # gridDim.y
 
 
+def _refuse_dtensor(what: str, *tensors) -> None:
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what} takes plain tensors, not a DTensor: gather "
+                        f"the leaf whole first (full_tensor)")
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -76,6 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor runs the plain ``ref.sdpa``; both refuse what the kernel does not
     take.  The kernel is forward-only, as the TPU kernel is: inputs that
     need a gradient raise rather than run the plain version."""
+    _refuse_dtensor("flash_attention", q, k, v)
     del bias
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
@@ -111,6 +125,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     ``ref.ssd``; both refuse what the kernel does not take.  The kernel is
     forward-only, as the TPU kernel is: inputs that need a gradient raise
     rather than run the plain version."""
+    _refuse_dtensor("ssd_scan", x, a, Bm, Cm, init_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, a, Bm, Cm, init_state)):
@@ -143,6 +158,7 @@ def topk_compress(x: torch.Tensor, k: int, *, block: int = 1024,
     kernel: kernel and plain version are bit-identical, so the choice is
     pure dispatch, and a CUDA tensor launches the kernel by default.
     ``use_kernel=False`` runs the plain version (for the checks)."""
+    _refuse_dtensor("topk_compress", x)
     if x.dim() not in (1, 2):
         raise ValueError(f"topk_compress takes (n,) or (rows, n), got "
                          f"{tuple(x.shape)}")
@@ -162,6 +178,7 @@ def topk_compress_chunked(x: torch.Tensor, chunk: int, k: int, *,
     ``chunk`` values (the last zero-padded), and each piece compressed as
     ``topk_compress(piece, k, block=block)`` would -> (vals, idx), each
     ``(rows, n_chunks, ..)``.  On the card one launch covers the leaf."""
+    _refuse_dtensor("topk_compress_chunked", x)
     if x.dim() != 2:
         raise ValueError(f"topk_compress_chunked takes (rows, numel), got "
                          f"{tuple(x.shape)}")
@@ -179,6 +196,7 @@ def topk_decompress(vals: torch.Tensor, idx: torch.Tensor, n: int
     """Inverse of :func:`topk_compress`: ``(.., kk)`` -> dense ``(.., n)``
     in ``vals.dtype``; a repeated index keeps its last entry.  Plain
     PyTorch on every device: the reference's is a scatter, not a kernel."""
+    _refuse_dtensor("topk_decompress", vals, idx)
     return _ref.topk_decompress(vals, idx, n)
 
 
@@ -280,6 +298,7 @@ def wan_encode(x: torch.Tensor, k_block: int, *, block: int = 4096,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused WAN codec encode: block-local top-k + value quantization on the
     int8/fp8/int4 tier ladder.  Kernel and plain version are bit-identical."""
+    _refuse_dtensor("wan_encode", x)
     check_value_dtype(value_dtype)
     if _on_kernel(x, use_kernel):
         return _encode_cuda(x, k_block, block, value_dtype)
@@ -289,6 +308,7 @@ def wan_encode(x: torch.Tensor, k_block: int, *, block: int = 4096,
 def wan_decode(q: torch.Tensor, idx: torch.Tensor, scales: torch.Tensor,
                n: int, *, block: int = 4096, value_dtype: str = "int8",
                use_kernel: bool = True) -> torch.Tensor:
+    _refuse_dtensor("wan_decode", q, idx, scales)
     check_value_dtype(value_dtype)
     if _on_kernel(scales, use_kernel):
         return _decode_cuda(q, idx, scales, n, block, value_dtype)

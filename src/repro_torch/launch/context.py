@@ -1,0 +1,233 @@
+"""Shared launch context: rule sets, abstract state, placement trees.
+
+Counterpart of ``repro/launch/context.py``.  Rule sets (logical axis ->
+mesh axes) per step kind, the reference's, kept in
+``repro_torch.sharding.rules`` (the trainer on a mesh reads them there) and
+named here as in the reference:
+
+- **train**: the training state is *stacked* over pods (leading
+  ``pod_stack`` dim -> ``"pod"``); the in-pod batch shards over ``"data"``;
+  parameters are FSDP-sharded over ``"data"`` and tensor-parallel over
+  ``"model"``.
+- **decode/prefill**: serving is per-pod replica, so the request batch
+  shards over ``("pod", "data")`` and full KV caches shard their sequence
+  over ``"model"``.
+
+:func:`make_train_setup` builds the trainer on a mesh, the state's shapes
+on the ``meta`` device (``abstract_state``) and its placement tree
+(``state_sharding``, a :class:`~repro_torch.sharding.rules.NamedSharding`
+per leaf); :meth:`TrainSetup.place_state` and :meth:`TrainSetup.place_batch`
+put a whole state or batch on the mesh by those trees.  The ``"pod"`` entry
+of a spec is carried out across processes (each rank keeps its pods' rows),
+the in-pod entries as DTensor placements.
+
+The reference pins JAX's partitionable threefry before it builds a sharded
+setup (``ensure_partitionable_threefry``), so that a sharded init draws
+the numbers an unsharded one does.  The port has no counterpart: torch
+draws the parameters once, from one generator, and places them after.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.configs import Arch
+from repro_torch.core.sync import SyncConfig, SyncState
+from repro_torch.models.registry import ModelFns, get_model_fns
+from repro_torch.optim.optimizers import AdamState
+from repro_torch.sharding.rules import (LA, NamedSharding, map_la,
+                                        mesh_sizes, serve_rules,
+                                        sharding_tree_for_params,
+                                        train_rules)
+from repro_torch.training.trainer import Trainer, TrainerConfig, TrainState
+
+Pytree = Any
+
+
+# ---------------------------------------------------------------------------
+# logical axes of the composite state
+# ---------------------------------------------------------------------------
+
+
+def stacked_param_axes(fns: ModelFns, cfg) -> Pytree:
+    return map_la(lambda la: LA(("pod_stack",) + la.names),
+                  fns.param_logical_axes(cfg))
+
+
+def opt_state_axes(optimizer: str, param_axes: Pytree) -> Pytree:
+    if optimizer == "sgd":
+        return ()
+    if optimizer == "momentum":
+        return param_axes
+    if optimizer == "adamw":
+        return AdamState(mu=param_axes, nu=param_axes, count=LA(()))
+    raise KeyError(optimizer)
+
+
+def sync_state_axes(sync: SyncConfig, param_axes: Pytree) -> SyncState:
+    if sync.strategy in ("asgd_ga", "asp"):
+        buf = param_axes
+    else:
+        buf = map_la(lambda la: LA((None,)), param_axes)
+    return SyncState(ga_buffer=buf, steps_since_sync=LA(()),
+                     significant_frac=LA(()),
+                     ef_residual=LA(("pod_stack", None)),
+                     tier=LA((None,)),              # (n_buckets,) vector
+                     msg_norm=LA(("pod_stack", None)),
+                     resid_norm=LA(("pod_stack", None)))
+
+
+def train_state_axes(fns: ModelFns, cfg, tcfg: TrainerConfig) -> TrainState:
+    p = stacked_param_axes(fns, cfg)
+    return TrainState(params=p, opt_state=opt_state_axes(tcfg.optimizer, p),
+                      sync_state=sync_state_axes(tcfg.sync, p), step=LA(()))
+
+
+def batch_axes(batch: Dict, *, stacked: bool) -> Dict:
+    """Logical axes for a flat batch dict (dims: [pod_stack,] batch, ...).
+
+    ``positions`` leads with the M-RoPE component dim (3, B, S); scalars
+    (``cache_pos``) are unsharded."""
+    out = {}
+    for k, v in batch.items():
+        inner_rank = len(v.shape) - (1 if stacked else 0)
+        if inner_rank == 0:
+            base: Tuple = ()
+        elif k == "positions":
+            base = (None, "batch") + (None,) * (inner_rank - 2)
+        else:
+            base = ("batch",) + (None,) * (inner_rank - 1)
+        out[k] = LA((("pod_stack",) if stacked else ()) + base)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# setup constructors
+# ---------------------------------------------------------------------------
+
+
+def _place(x: torch.Tensor, sharding: NamedSharding, pods, inpod,
+           stacked: bool) -> torch.Tensor:
+    """One whole leaf -> this rank's part: its pods' rows (``stacked``
+    leaves, on a split pod axis), a DTensor on the in-pod mesh placed by
+    the spec."""
+    if stacked:
+        x = pods.rows(x)
+    if inpod is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = DTensor.from_local(x, inpod, [Replicate()] * inpod.ndim,
+                             run_check=False)
+    return rep.redistribute(inpod, sharding.placements(inpod))
+
+
+@dataclass
+class TrainSetup:
+    arch: Arch
+    cfg: Any
+    fns: ModelFns
+    trainer: Trainer
+    abstract_state: Pytree
+    state_sharding: Pytree
+    rules: Dict
+    mesh: Any = None
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """A whole train state (every pod's rows, plain tensors; from
+        ``trainer.init_state(seed)``, or ``trainer.state_from_params`` of
+        converted parameters) -> this rank's part on the mesh: its pods'
+        rows of the pod-stacked leaves (every parameter and optimizer leaf,
+        and the sync leaves whose axes lead with ``pod_stack``), each a
+        DTensor placed by :attr:`state_sharding`.  ``step`` stays an int.
+        The state is consumed: a replicated leaf shares its storage."""
+        tr = self.trainer
+        sh = self.state_sharding
+
+        def put(tree, shard_tree, stacked: bool):
+            return T.tree_map(lambda x, s: _place(
+                x, s, tr.pods, tr.inpod, stacked), tree, shard_tree)
+
+        sync_axes = sync_state_axes(tr.cfg.sync, {})
+        sync_stacked = {f for f in SyncState._fields if f != "ga_buffer"
+                        and getattr(sync_axes, f)[:1] == ("pod_stack",)}
+        buf_stacked = tr.cfg.sync.strategy in ("asgd_ga", "asp")
+        sync_state = SyncState(*(
+            put(getattr(state.sync_state, f), getattr(sh.sync_state, f),
+                buf_stacked if f == "ga_buffer" else f in sync_stacked)
+            for f in SyncState._fields))
+        return TrainState(
+            params=put(state.params, sh.params, True),
+            opt_state=put(state.opt_state, sh.opt_state, True),
+            sync_state=sync_state, step=int(state.step))
+
+    def place_batch(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A whole stacked batch (leading pod dim) -> this rank's part:
+        its pods' rows, each leaf placed by :func:`batch_sharding`."""
+        tr = self.trainer
+        sh = batch_sharding(batch, self.mesh, self.rules, stacked=True)
+        return {k: _place(v, sh[k], tr.pods, tr.inpod, True)
+                for k, v in batch.items()}
+
+
+def wrap_loss(fns: ModelFns, cfg) -> Callable:
+    def loss(params, batch):
+        return fns.loss_fn(params, cfg, batch)
+    return loss
+
+
+def _abstract_state(trainer: Trainer, fns: ModelFns, cfg,
+                    n_pods: int) -> TrainState:
+    """The trainer's state on the ``meta`` device: nothing allocated."""
+    one = fns.abstract_params(cfg)
+    stacked = T.tree_map(lambda x: x[None].expand((n_pods,) + tuple(x.shape)),
+                         one)
+    return trainer.state_from_params(stacked)
+
+
+def make_train_setup(arch: Arch, mesh, *,
+                     sync: SyncConfig = SyncConfig(),
+                     optimizer: str = "sgd", lr: float = 0.01,
+                     smoke: bool = False,
+                     config_overrides: Optional[dict] = None,
+                     n_pods: Optional[int] = None) -> TrainSetup:
+    """The trainer of ``arch`` on ``mesh`` with its abstract state and
+    placement tree.  ``n_pods`` (default: the mesh's ``"pod"`` size) is
+    the number of stacked pods, a multiple of that size: each rank of the
+    pod axis holds ``n_pods / size`` of them (all of them on a mesh without
+    a pod axis, whose one rank stacks every pod)."""
+    cfg = arch.smoke if smoke else arch.config
+    if config_overrides:
+        cfg = cfg.replace(**config_overrides)
+    fns = get_model_fns(arch.module)
+    pod_size = mesh_sizes(mesh).get("pod", 1)
+    n_pods = pod_size if n_pods is None else int(n_pods)
+    if n_pods % pod_size:
+        raise ValueError(f"{n_pods} pods do not split over a pod axis of "
+                         f"{pod_size}")
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(mesh.device_type)
+    tcfg = TrainerConfig(n_pods=n_pods, optimizer=optimizer, lr=lr,
+                         sync=sync)
+    rules = train_rules()
+    trainer = Trainer(wrap_loss(fns, cfg),
+                      lambda g: fns.init_params(g, cfg, device), tcfg,
+                      device=device, mesh=mesh)
+    abstract_state = _abstract_state(trainer, fns, cfg, n_pods)
+    axes = train_state_axes(fns, cfg, tcfg)
+    sharding = sharding_tree_for_params(axes, abstract_state, mesh, rules)
+    return TrainSetup(arch=arch, cfg=cfg, fns=fns, trainer=trainer,
+                      abstract_state=abstract_state,
+                      state_sharding=sharding, rules=rules, mesh=mesh)
+
+
+def batch_sharding(batch_specs: Dict, mesh, rules: Dict, *,
+                   stacked: bool) -> Dict:
+    axes = batch_axes(batch_specs, stacked=stacked)
+    return sharding_tree_for_params(axes, batch_specs, mesh, rules)

@@ -11,8 +11,11 @@ card) at the frame count, 1500 for whisper-tiny.  Each decoder block runs
 causal self-attention, cross-attention over the encoder output's K/V
 (projected once per block: ``_cross_kv``) and the MLP.  Decode keeps a
 full self-attention KV cache per block and the precomputed cross K/V; the
-cache is updated in place.  The reference's ``shard`` calls are left out
-(ROADMAP.md Queue 1 item 15b).
+cache is updated in place.  The reference's ``shard`` calls stand at its
+places (each block's output, the decoder's embeddings and its logits):
+placements on a DTensor under ``repro_torch.sharding.rules.axis_rules``,
+no-ops on plain tensors.  ``abstract_params``, ``param_logical_axes`` and
+``cache_logical_axes`` give the trees the mesh path places.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.transformer import (_select_group,
                                             softmax_cross_entropy,
                                             stack_groups)
+from repro_torch.sharding.rules import LA, shard
 
 Params = Dict[str, Any]
 _SPEC = LayerSpec()  # plain global attention
@@ -75,6 +79,40 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree on the ``meta`` device, nothing allocated."""
+    return init_params(torch.Generator(device="cpu"), cfg, device="meta")
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """``LA`` leaves in the parameter tree's structure, the reference's."""
+    def g(*names):
+        return LA(("layers",) + names)
+
+    attn = {"wq": g("fsdp", "heads"), "wk": g("fsdp", "kv_heads"),
+            "wv": g("fsdp", "kv_heads"), "wo": g("heads", "fsdp")}
+    mlp = {"wg": g("fsdp", "d_ff"), "wu": g("fsdp", "d_ff"),
+           "wd": g("d_ff", "fsdp")}
+    block = {"ln1": {"scale": g(None)}, "attn": dict(attn),
+             "ln2": {"scale": g(None)}, "mlp": dict(mlp)}
+    dec_block = dict(block, lnx={"scale": g(None)}, xattn=dict(attn))
+    embed: Params = {"tokens": LA(("vocab", "fsdp"))}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = LA(("fsdp", "vocab"))
+    return {"embed": embed,
+            "encoder": {"blocks": block, "final_norm": {"scale": LA((None,))}},
+            "decoder": {"blocks": dec_block,
+                        "final_norm": {"scale": LA((None,))}}}
+
+
+def cache_logical_axes(cfg: ModelConfig, seq_len: int) -> EncDecCache:
+    del cfg, seq_len
+    kv = LA(("layers", "batch", "cache_seq", "kv_heads", None))
+    cross = LA(("layers", "batch", None, "kv_heads", None))
+    return EncDecCache(self_kv=L.KVCache(k=kv, v=kv), cross_k=cross,
+                       cross_v=cross)
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of :func:`init_params`'s tree (``ModelConfig.
     param_count`` counts the decoder-only stack)."""
@@ -107,7 +145,7 @@ def encode(params: Params, cfg: ModelConfig,
                                    causal=False)
         h = h + out
         hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-        h = h + L.mlp_apply(p["mlp"], hn)
+        h = shard(h + L.mlp_apply(p["mlp"], hn), "batch", "seq", "d_model")
     return L.rmsnorm(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 
@@ -127,7 +165,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     enc = encode(params, cfg, audio_emb)
     B, Sq = tokens.shape
     pos = _positions(B, Sq, tokens.device)
-    h = L.embed_apply(params["embed"], cfg, tokens)
+    h = shard(L.embed_apply(params["embed"], cfg, tokens),
+              "batch", "seq", "d_model")
     blocks = params["decoder"]["blocks"]
     for g in range(cfg.n_layers):
         p = _select_group(blocks, g)
@@ -140,9 +179,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                    kv_override=_cross_kv(p, cfg, enc))
         h = h + out
         hn = L.rmsnorm(p["ln2"], h, cfg.norm_eps)
-        h = h + L.mlp_apply(p["mlp"], hn)
+        h = shard(h + L.mlp_apply(p["mlp"], hn), "batch", "seq", "d_model")
     h = L.rmsnorm(params["decoder"]["final_norm"], h, cfg.norm_eps)
-    return L.unembed_apply(params["embed"], cfg, h), {}
+    logits = L.unembed_apply(params["embed"], cfg, h)
+    return shard(logits, "batch", "seq", "vocab"), {}
 
 
 def loss_fn(params: Params, cfg: ModelConfig,

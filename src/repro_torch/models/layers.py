@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.sharding.rules import shard
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -364,12 +365,21 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 def embed_apply(params: dict, cfg: ModelConfig,
                 tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.embed_impl != "gather":
-        raise NotImplementedError(
-            f"embed_impl {cfg.embed_impl!r} is not ported yet: see "
-            f"ROADMAP.md Queue 1 item 15 (sharding)")
+    """Token embeddings in the compute dtype.  ``embed_impl="onehot"`` is
+    the reference's one-hot product over ``cfg.padded_vocab``, which
+    distributes over a vocab-sharded table (a partial sum per shard, then
+    one reduction) where the gather would gather the table whole; a one-hot
+    row times the table selects the row exactly, so both give the same
+    bits.  Any other value but ``"gather"`` raises."""
     cdt = cfg.dtype("compute")
-    emb = params["tokens"].to(cdt)[tokens]
+    if cfg.embed_impl == "onehot":
+        oh = F.one_hot(tokens.long(), cfg.padded_vocab).to(cdt)
+        oh = shard(oh, "batch", "seq", "vocab")
+        emb = oh @ params["tokens"].to(cdt)
+    elif cfg.embed_impl == "gather":
+        emb = params["tokens"].to(cdt)[tokens]
+    else:
+        raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
     if cfg.tie_embeddings:
         emb = emb * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt,
                                  device=emb.device)

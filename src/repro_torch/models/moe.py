@@ -10,8 +10,17 @@ Dispatch sorts the (token, choice) slots by expert id (a stable sort), ranks
 each slot within its expert and drops the ranks at or above the capacity
 ``C`` into an overflow row; the expert products are plain batched matrix
 products (``torch.bmm``), as the reference's are ``einsum``s outside any
-Pallas kernel.  The reference's ``shard`` calls are left out (ROADMAP.md
-Queue 1 item 15b).
+Pallas kernel.
+
+On a mesh (DTensor activations and parameters, under
+``repro_torch.sharding.rules.axis_rules``) the reference's ``shard`` calls
+place the expert buffer and the experts' output over ``"experts"`` (and the
+rows over ``"batch"`` in the grouped dispatch), so that the expert products
+run expert-parallel on the placed weights.  The routing, the capacity
+slots and the scatter and gather around the experts run on the tokens
+gathered whole on each rank (``whole_local``): DTensor has no sharding rule
+for ``searchsorted``, and this index math is a few integers per token.  On
+plain tensors every ``shard`` is a no-op and nothing is gathered.
 
 Two rules the reference gets from JAX and the port spells out:
 
@@ -40,6 +49,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import (is_dtensor, replicated_like, shard,
+                                        whole_local)
 
 # f32 values drawn at once for an expert leaf before the cast to the
 # parameter dtype (1 GiB): the draw of a full-width leaf never holds a
@@ -129,21 +140,25 @@ def _experts(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     reference's."""
     G, E, C, D = hidden.shape
     cdt = hidden.dtype
+    hidden = shard(hidden, "batch", "experts", "capacity", "d_model")
     h = hidden.transpose(0, 1).reshape(E, G * C, D)
     g = torch.bmm(h, params["wg"].to(cdt))
     u = torch.bmm(h, params["wu"].to(cdt))
     act = F.silu(g.float()).to(cdt) * u
     out = torch.bmm(act, params["wd"].to(cdt))               # (E, G*C, D)
-    return out.reshape(E, G, C, D).transpose(0, 1)
+    out = out.reshape(E, G, C, D).transpose(0, 1)
+    return shard(out, "batch", "experts", "capacity", "d_model")
 
 
 def _dispatch_combine(params: dict, cfg: ModelConfig, x: torch.Tensor,
                       top_p: torch.Tensor, top_e: torch.Tensor, C: int,
-                      expert_order: bool) -> torch.Tensor:
+                      expert_order: bool, placed=None) -> torch.Tensor:
     """Scatter ``x`` ``(G, T, D)`` into each group's ``(E * C + 1, D)``
     buffer, run the experts and gather each token's K outputs back,
     weighted by its probabilities; the K contributions are summed in
-    ascending expert id (``expert_order``) or in choice order."""
+    ascending expert id (``expert_order``) or in choice order.  ``x`` is
+    plain; with ``placed`` (the DTensor input of the layer) the experts run
+    on the buffer replicated on its mesh and placed by ``shard``."""
     G, T, D = x.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     cdt = x.dtype
@@ -154,7 +169,8 @@ def _dispatch_combine(params: dict, cfg: ModelConfig, x: torch.Tensor,
     # ones all land in the overflow row
     buf[rows, slot.reshape(G, T * K)] = x[:, :, None].expand(
         G, T, K, D).reshape(G, T * K, D)
-    out = _experts(params, buf[:, :E * C].reshape(G, E, C, D))
+    hidden = replicated_like(buf[:, :E * C].reshape(G, E, C, D), placed)
+    out = whole_local(_experts(params, hidden))
     out_flat = torch.cat([out.reshape(G, E * C, D),
                           x.new_zeros(G, 1, D)], dim=1)
     w = top_p.to(cdt)
@@ -173,34 +189,52 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
               per_row: bool = False) -> Tuple[torch.Tensor, dict]:
     """x ``(B, S, D)`` -> (y, aux) with aux = {lb_loss, z_loss,
     router_entropy}.  ``per_row`` routes each row alone (capacity of S
-    tokens), with ``cfg.moe_dispatch``'s combine order."""
-    if per_row:
-        B, S, D = x.shape
-        top_p, top_e, aux = _route(params, cfg, x)
-        y = _dispatch_combine(params, cfg, x, top_p, top_e,
-                              expert_capacity(S, cfg),
-                              expert_order=cfg.moe_dispatch != "grouped")
-        return y, aux
-    if cfg.moe_dispatch == "grouped":
-        return moe_apply_grouped(params, cfg, x)
+    tokens), with ``cfg.moe_dispatch``'s combine order.  A DTensor ``x``
+    is routed and dispatched whole on each rank and its experts run
+    placed (the module's docstring)."""
+    if per_row or cfg.moe_dispatch == "grouped":
+        return moe_apply_grouped(params, cfg, x, per_row=per_row)
+    placed, x, router = _whole(x, params)
     B, S, D = x.shape
     xt = x.reshape(1, B * S, D)
-    top_p, top_e, aux = _route(params, cfg, xt)
+    top_p, top_e, aux = _route(router, cfg, xt)
     y = _dispatch_combine(params, cfg, xt, top_p, top_e,
-                          expert_capacity(B * S, cfg), expert_order=True)
-    return y.reshape(B, S, D), aux
+                          expert_capacity(B * S, cfg), expert_order=True,
+                          placed=placed)
+    return _placed_out(y.reshape(B, S, D), aux, placed)
 
 
-def moe_apply_grouped(params: dict, cfg: ModelConfig, x: torch.Tensor
-                      ) -> Tuple[torch.Tensor, dict]:
+def _whole(x: torch.Tensor, params: dict):
+    """(the DTensor input or None, ``x`` whole, ``{"router": whole}``)."""
+    if not is_dtensor(x):
+        return None, x, params
+    return x, whole_local(x), {"router": whole_local(params["router"])}
+
+
+def _placed_out(y: torch.Tensor, aux: dict, placed):
+    """``y`` and the aux losses back on the input's mesh, replicated, and
+    ``y`` placed by rows."""
+    if placed is None:
+        return y, aux
+    y = shard(replicated_like(y, placed), "batch", None, "d_model")
+    return y, {k: replicated_like(v, placed) for k, v in aux.items()}
+
+
+def moe_apply_grouped(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                      per_row: bool = False) -> Tuple[torch.Tensor, dict]:
     """Group-local dispatch: sort, scatter and combine stay within each
     batch row, with capacity provisioned per S-token row; the K
-    contributions are summed in choice order, as in the reference."""
+    contributions are summed in choice order, as in the reference
+    (``per_row``: in ``cfg.moe_dispatch``'s order)."""
+    placed, x, router = _whole(x, params)
     B, S, D = x.shape
-    top_p, top_e, aux = _route(params, cfg, x)
+    top_p, top_e, aux = _route(router, cfg, x)
     y = _dispatch_combine(params, cfg, x, top_p, top_e,
-                          expert_capacity(S, cfg), expert_order=False)
-    return y, aux
+                          expert_capacity(S, cfg),
+                          expert_order=per_row
+                          and cfg.moe_dispatch != "grouped",
+                          placed=placed)
+    return _placed_out(y, aux, placed)
 
 
 def moe_loss(aux: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -47,6 +47,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SS
 from repro_torch.models.config import ATTN, LayerSpec, ModelConfig
+from repro_torch.sharding.rules import LA, shard
 
 Params = Dict[str, Any]
 
@@ -110,6 +111,80 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree's shapes and dtypes on the ``meta`` device,
+    nothing allocated (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return init_params(torch.Generator(device="cpu"), cfg, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# logical sharding axes of every parameter and cache leaf
+# ---------------------------------------------------------------------------
+
+
+def _position_axes(cfg: ModelConfig, spec: LayerSpec) -> Params:
+    def g(*names):      # the stacked leading group dim
+        return LA(("layers",) + names)
+
+    p: Params = {"ln1": {"scale": g(None)}}
+    if spec.kind == ATTN:
+        p["attn"] = {"wq": g("fsdp", "heads"), "wk": g("fsdp", "kv_heads"),
+                     "wv": g("fsdp", "kv_heads"), "wo": g("heads", "fsdp")}
+    else:
+        p["ssm"] = {"in_proj": g("fsdp", None), "conv_w": g(None, "conv_ch"),
+                    "A_log": g(None), "dt_bias": g(None), "D_skip": g(None),
+                    "gate_norm": {"scale": g(None)},
+                    "out_proj": g(None, "fsdp")}
+    if spec.mlp:
+        p["ln2"] = {"scale": g(None)}
+        if spec.moe and cfg.moe_param_shard == "ff":
+            # the expert FFN's hidden dim over the data axis: the weights
+            # never gather; the F-contraction reduces activations
+            p["moe"] = {"router": g("fsdp", "experts"),
+                        "wg": g("experts", None, "expert_ff"),
+                        "wu": g("experts", None, "expert_ff"),
+                        "wd": g("experts", "expert_ff", None)}
+        elif spec.moe:
+            p["moe"] = {"router": g("fsdp", "experts"),
+                        "wg": g("experts", "fsdp", None),
+                        "wu": g("experts", "fsdp", None),
+                        "wd": g("experts", None, "fsdp")}
+        else:
+            p["mlp"] = {"wg": g("fsdp", "d_ff"), "wu": g("fsdp", "d_ff"),
+                        "wd": g("d_ff", "fsdp")}
+    return p
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """``LA`` leaves in the parameter tree's structure, the reference's."""
+    embed: Params = {"tokens": LA(("vocab", "fsdp"))}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = LA(("fsdp", "vocab"))
+    return {"embed": embed,
+            "blocks": {f"pos{i}": _position_axes(cfg, spec)
+                       for i, spec in enumerate(cfg.pattern)},
+            "final_norm": {"scale": LA((None,))}}
+
+
+def cache_logical_axes(cfg: ModelConfig, seq_len: int) -> Params:
+    """``LA`` leaves of the decode cache: a full (global-attention) cache's
+    sequence is ``cache_seq``, which the serving rules map onto
+    ``"model"``; a ring-buffer (windowed) cache keeps its sequence whole."""
+    del seq_len
+    axes: Params = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.kind == ATTN:
+            seq = "cache_seq" if spec.window is None else None
+            kv = LA(("layers", "batch", seq, "kv_heads", None))
+            axes[f"pos{i}"] = L.KVCache(k=kv, v=kv)
+        else:
+            axes[f"pos{i}"] = SS.SSMCache(
+                state=LA(("layers", "batch", "ssm_heads", None, None)),
+                conv=LA(("layers", "batch", None, "conv_ch")))
+    return axes
+
+
 def _zero_aux(device) -> dict:
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return {"lb_loss": zero, "z_loss": zero, "router_entropy": zero}
@@ -127,7 +202,7 @@ def _ffn(p: Params, cfg: ModelConfig, spec: LayerSpec, h: torch.Tensor,
         else:
             out = L.mlp_apply(p["mlp"], hn)
         h = h + out
-    return h, aux
+    return shard(h, "batch", "seq", "d_model"), aux
 
 
 def _apply_position(p: Params, cfg: ModelConfig, spec: LayerSpec,
@@ -181,13 +256,13 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     placeholders, as the reference's ``dynamic_update_slice``: out of
     place, so the replaced rows take no gradient."""
     h = L.embed_apply(params["embed"], cfg, tokens)
-    if patch_emb is None or not cfg.vision_patches:
-        return h
-    n = patch_emb.shape[1]
-    if n > h.shape[1]:
-        raise ValueError(f"patch_emb holds {n} patches, more than the "
-                         f"{h.shape[1]} positions of the sequence")
-    return torch.cat([patch_emb.to(h.dtype), h[:, n:]], dim=1)
+    if patch_emb is not None and cfg.vision_patches:
+        n = patch_emb.shape[1]
+        if n > h.shape[1]:
+            raise ValueError(f"patch_emb holds {n} patches, more than the "
+                             f"{h.shape[1]} positions of the sequence")
+        h = torch.cat([patch_emb.to(h.dtype), h[:, n:]], dim=1)
+    return shard(h, "batch", "seq", "d_model")
 
 
 # the PyTorch form of jax's ``dots_with_no_batch_dims_saveable``: ``x @ W``
@@ -241,7 +316,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
            for k in per_group[0]}
     if return_hidden:
         return h, aux
-    return L.unembed_apply(params["embed"], cfg, h), aux
+    logits = L.unembed_apply(params["embed"], cfg, h)
+    return shard(logits, "batch", "seq", "vocab"), aux
 
 
 def _select_group(tree: Any, g: int) -> Any:
@@ -255,7 +331,11 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ) -> torch.Tensor:
     """Token-mean CE. logits (B,S,V) f32, labels (B,S) int."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # the gold logit is read with the vocab whole on each rank: DTensor's
+    # gather along a sharded dimension leaves a masked partial sum that it
+    # fails to reduce at this rank
+    gold = torch.gather(shard(logits, "batch", "seq", None), -1,
+                        labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

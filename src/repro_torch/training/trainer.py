@@ -26,6 +26,20 @@ The step updates the stacked parameters and optimizer state in place
 parameters are gigabytes, and nothing reads a train state after the step
 that replaced it.
 
+On a mesh (``mesh=``; ``repro_torch.launch.context.make_train_setup``
+builds the trainer on one) the ``"pod"`` axis runs across processes:
+each rank holds its own pods' rows and loops over them, and the sync layer
+crosses the pod axis through its seam (``sync.PodAxis``), over the inline
+ring only.  On the in-pod axes (``"data"``, ``"model"``) every state leaf
+is a DTensor placed by ``TrainSetup.state_sharding``: the forward runs on
+the placed parameters under ``axis_rules(train_rules())`` and
+``implicit_replication``,
+each gradient is redistributed to its parameter's placements, and the
+in-place updates keep them.  A sync round gathers each in-pod leaf whole
+(``full_tensor``), runs on plain tensors (no DTensor reaches a kernel: the
+codec's blocks are blocks of the whole flattened leaf) and writes the
+result back into the placed leaves.
+
 :class:`LiveMigrator` stages a pod grow or shrink from the async snapshot
 engine's last durable snapshot on a background thread (restored to the
 host: the card already holds the live state) and reconciles it at the
@@ -44,7 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.core.sync import (ChunkPayload, SyncConfig, SyncState,
+from repro_torch.core.sync import (WHOLE_PODS, ChunkPayload, PodAxis,
+                                   SyncConfig, SyncState,
                                    _chunk_widths, _sent_width, apply_sync,
                                    bucket_chunk_mb, bucket_layout,
                                    bucket_weights_of, bucket_wire_mb,
@@ -58,6 +73,8 @@ from repro_torch.core.sync import (ChunkPayload, SyncConfig, SyncState,
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           constant_schedule, get_optimizer,
                                           global_norm)
+from repro_torch.sharding.rules import (axis_rules, is_dtensor,
+                                        train_rules, whole_local)
 
 Pytree = Any
 
@@ -111,11 +128,47 @@ def _wait(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _mesh_axes(mesh, n_pods: int):
+    """(the pod axis, the in-pod mesh or None) of a ``DeviceMesh``."""
+    if mesh is None:
+        return WHOLE_PODS, None
+    names = tuple(mesh.mesh_dim_names)
+    pods = WHOLE_PODS
+    if "pod" in names and mesh.size(names.index("pod")) > 1:
+        pods = PodAxis(n_pods, mesh.get_group("pod"))
+    inner = tuple(n for n in names if n != "pod")
+    if not inner:
+        return pods, None
+    return pods, (mesh[inner] if "pod" in names else mesh)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient redistributed to its parameter's placements."""
+    if tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _write_back(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the whole plain ``src`` into the placed leaf ``dst``: each rank
+    writes its own shard (a local slice, no communication)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    local = dst.to_local()
+    if local.data_ptr() == src.data_ptr() and local.shape == src.shape:
+        return      # the round ran in place on the leaf itself
+    mesh = dst.device_mesh
+    part = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(
+                                  mesh, dst.placements).to_local()
+    local.copy_(part)
+
+
 class Trainer:
     def __init__(self, loss_fn: Callable, init_fn: Callable,
                  cfg: TrainerConfig, device="cuda",
                  round_hook: Optional[Callable] = None, transport=None,
-                 stream=None):
+                 stream=None, mesh=None):
         """loss_fn(params, batch) -> (loss, metrics dict);
         init_fn(generator) -> params (single pod, on ``device``).
 
@@ -139,7 +192,21 @@ class Trainer:
         round's unsent segments re-encode once at a cheaper rung
         (``sync.reencode_unsent`` / ``finish_codec_sync_split``; the EF
         residual carries the fidelity dropped).  A round with no retune is
-        bit-identical to the classic round."""
+        bit-identical to the classic round.
+
+        ``mesh`` (a ``DeviceMesh`` over ``"pod"``, ``"data"``, ``"model"``)
+        runs the step on a mesh under ``sharding.rules.train_rules()``: the
+        module's docstring.  With the pod axis split over processes,
+        transports and streaming raise: that path ships over the inline
+        ring only (ROADMAP.md Queue 1 item 15c)."""
+        self.mesh = mesh
+        self.pods, self.inpod = _mesh_axes(mesh, cfg.n_pods)
+        if self.pods.split and (transport is not None or stream is not None):
+            raise NotImplementedError(
+                "a pod axis split over processes ships over the inline ring "
+                "only; transports and streaming rounds over it are "
+                "ROADMAP.md Queue 1 item 15c")
+        self._whole: Optional[TrainState] = None
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.cfg = cfg
@@ -156,6 +223,21 @@ class Trainer:
         self.stream_retunes = 0
         self.step_seconds: List[float] = []
         self.sync_seconds: List[float] = []
+
+    def _placed(self):
+        """The scope of a step on the mesh: the sharding rules installed
+        and plain tensors meeting DTensors taken as replicated."""
+        import contextlib
+
+        if self.inpod is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(axis_rules(train_rules(), self.mesh))
+        stack.enter_context(implicit_replication())
+        return stack
 
     @staticmethod
     def _sync_key(sync: SyncConfig) -> SyncConfig:
@@ -213,6 +295,11 @@ class Trainer:
     # -------------------------------------------------------------- steps
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
+        with self._placed():
+            return self._train_step(state, batch)
+
+    def _train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[TrainState, Dict[str, Any]]:
         lr = self.schedule(state.step)
         n = T.leaves(state.params)[0].shape[0]
         losses, grads, extra = [], [], []
@@ -221,41 +308,60 @@ class Trainer:
                             state.params)
             loss, metrics = self.loss_fn(pp, {k: v[p]
                                               for k, v in batch.items()})
-            g = torch.autograd.grad(loss, T.leaves(pp))
-            grads.append(T.unflatten(pp, list(g)))
-            losses.append(loss.detach())
-            extra.append({k: v.detach() for k, v in metrics.items()
-                          if k != "loss"})
+            g = list(torch.autograd.grad(loss, T.leaves(pp)))
+            if self.inpod is not None:
+                g = [_placed_like(gi, xi) for gi, xi in zip(g, T.leaves(pp))]
+            grads.append(T.unflatten(pp, g))
+            losses.append(whole_local(loss.detach()))
+            extra.append({k: whole_local(v.detach())
+                          for k, v in metrics.items() if k != "loss"})
         grads = _stack(grads)
         if self.cfg.clip_norm > 0:
             grads = _stack([clip_by_global_norm(_pod(grads, p),
                                                 self.cfg.clip_norm)
                             for p in range(n)])
         grads, sync_state = on_step_gradients(self.cfg.sync, grads,
-                                              state.sync_state)
+                                              state.sync_state, self.pods)
         for p in range(n):
             params_p, opt_p = _pod(state.params, p), _pod(state.opt_state, p)
             new_p, new_opt = self.optimizer.update(_pod(grads, p), opt_p,
                                                    params_p, lr)
             T.tree_map(lambda dst, src: dst.copy_(src), params_p, new_p)
             T.tree_map(lambda dst, src: dst.copy_(src), opt_p, new_opt)
-        loss_per_pod = torch.stack(losses)
-        out = {"loss": loss_per_pod.mean(), "loss_per_pod": loss_per_pod,
-               "grad_norm": torch.stack([global_norm(_pod(grads, p))
-                                         for p in range(n)]),
-               "lr": lr}
+        per_pod = {"loss_per_pod": torch.stack(losses),
+                   "grad_norm": torch.stack([whole_local(global_norm(
+                       _pod(grads, p))) for p in range(n)])}
+        per_pod.update({k: torch.stack([e[k] for e in extra])
+                        for k in extra[0]})
+        per_pod = {k: self.pods.gather(v) for k, v in per_pod.items()}
+        out = {"loss": per_pod["loss_per_pod"].mean(),
+               "loss_per_pod": per_pod["loss_per_pod"],
+               "grad_norm": per_pod["grad_norm"], "lr": lr}
         for k in extra[0]:
-            out[k] = torch.stack([e[k] for e in extra]).mean()
+            out[k] = per_pod[k].mean()
         return TrainState(state.params, state.opt_state, sync_state,
                           state.step + 1), out
 
     def _sync_round(self, state: TrainState):
-        """One sync round -> (state, (payloads, shipped) or None)."""
+        """One sync round -> (state, (payloads, shipped) or None).  On the
+        in-pod mesh the round runs on the state gathered whole and is
+        written back into the placed leaves."""
+        if self.inpod is None:
+            return self._plain_round(state)
+        # the round hook sees the whole state the round ran on
+        whole, rnd = self._plain_round(T.tree_map(whole_local, state))
+        T.tree_map(lambda d, w: _write_back(d, w) if is_dtensor(d) else None,
+                   state, whole)
+        self._whole = whole
+        return state, rnd
+
+    def _plain_round(self, state: TrainState):
         lr = self.schedule(state.step)
         cfg = self.cfg.sync
         if not cfg.uses_codec:
             params, sync_state = apply_sync(cfg, state.params,
-                                            state.sync_state, lr)
+                                            state.sync_state, lr,
+                                            pods=self.pods)
             return state._replace(params=params,
                                   sync_state=sync_state), None
         payloads = prepare_codec_sync(cfg, state.sync_state)
@@ -266,8 +372,10 @@ class Trainer:
             # in name order, so a fault keyed to ship calls (the first
             # failed attempt of a round) bites the same bucket here
             chunks = dict(sorted(chunks.items()))
-        shipped = ship_sync_payloads(cfg, chunks, self.transport,
-                                     self.wire_mb(state))
+        shipped = ship_sync_payloads(
+            cfg, chunks,
+            self.transport if self.transport is not None else self.pods.ring,
+            self.wire_mb(state))
         # a fault-aware transport reports the pods that missed the round:
         # finish degraded over the survivors
         failed = tuple(getattr(self.transport, "round_failed_pods", ())
@@ -415,10 +523,17 @@ class Trainer:
                 # transfers into the records and the measured probe
                 self.transport.on_sync(self.wire_mb(state), step=host_step)
             if self.round_hook is not None and rnd is not None:
-                self.round_hook(state, *rnd, self.cfg.sync)
+                seen = self._whole if self.inpod is not None else state
+                self.round_hook(seen, *rnd, self.cfg.sync)
         return state
 
     # ------------------------------------------------------ elasticity
+    def _unplaced(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} of a trainer on a mesh is ROADMAP.md Queue 1 item "
+                f"15c")
+
     def _successor(self, cfg: TrainerConfig) -> "Trainer":
         nxt = Trainer(self.loss_fn, self.init_fn, cfg, device=self.device,
                       round_hook=self.round_hook, transport=self.transport,
@@ -437,6 +552,7 @@ class Trainer:
         dimension of the whole train state (:func:`resize_train_state`)
         and return a new ``Trainer`` for the new pod count and sync config,
         with the WAN-traffic account carried over."""
+        self._unplaced("a reconfiguration")
         new_cfg = dataclasses.replace(self.cfg, n_pods=n_pods,
                                       sync=sync or self.cfg.sync)
         new_state = resize_train_state(new_cfg.sync, state, n_pods,
@@ -452,6 +568,7 @@ class Trainer:
         interval-only retune (the same :meth:`_sync_key`) also keeps the
         cached wire and chunk accounting; one of the same bucket policy keeps the
         bucket weights."""
+        self._unplaced("a retune")
         new_cfg = dataclasses.replace(self.cfg, sync=sync)
         sync_state = retune_sync_state(sync, self.cfg.sync, state.sync_state,
                                        state.params)

@@ -21,7 +21,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro."))
              or m == "repro")
-print(len(names))
+print(",".join(names))
 print(",".join(bad))
 """
 
@@ -32,6 +32,10 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    n_modules, bad = int(lines[0]), (lines[1] if len(lines) > 1 else "")
-    assert n_modules >= 20
+    names, bad = lines[0].split(","), (lines[1] if len(lines) > 1 else "")
+    assert len(names) >= 20
+    # the mesh and sharding modules are among those imported
+    assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
+            "repro_torch.launch.shapes",
+            "repro_torch.launch.context"} <= set(names)
     assert bad == "", f"repro_torch pulled in: {bad}"

@@ -708,3 +708,96 @@ def test_remat_training_step_grads_bit_equal_to_none(cuda, remat):
     assert torch.equal(l0, l1)
     assert all(torch.equal(x, y) for x, y in zip(g0, g1))
     assert all(torch.equal(x, y) for x, y in zip(p0, p1))
+
+
+# ------------------------------------------------------- the mesh path
+
+
+@pytest.fixture
+def nccl_one_rank(cuda):
+    """A one-rank NCCL group (a ``HashStore``, no network) and a (1, 1)
+    in-pod mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_debug_mesh(1, 1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ops_refuse_a_dtensor_on_the_card(cuda, nccl_one_rank):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    rep = [Replicate(), Replicate()]
+    x = distribute_tensor(torch.randn(2, 8192, device=cuda), nccl_one_rank,
+                          rep)
+    q = distribute_tensor(torch.randn(1, 128, 2, 64, device=cuda,
+                                      dtype=torch.bfloat16),
+                          nccl_one_rank, rep)
+    encode, decode = ops.wan_codec_fns(block=4096)
+    before = dict(ops.LAUNCHES)
+    for call in (lambda: encode(x, 41), lambda: decode(x, x, x, 8192),
+                 lambda: ops.wan_encode(x, 41),
+                 lambda: ops.wan_decode(x, x, x, 8192),
+                 lambda: ops.topk_compress(x, 10),
+                 lambda: ops.topk_compress_chunked(x, 4096, 10),
+                 lambda: ops.topk_decompress(x, x, 8192),
+                 lambda: ops.flash_attention(q, q, q),
+                 lambda: ops.ssd_scan(q, q[..., 0], q, q)):
+        with pytest.raises(TypeError, match="DTensor"):
+            call()
+    assert ops.LAUNCHES == before
+
+
+def _pod_ring_rank(rank: int, store_file: str, out_file: str) -> None:
+    """One rank of the two-card pod ring: 4 pods, 2 per card."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core.sync import PodAxis
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_file, 2),
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=60))
+    try:
+        gen = torch.Generator().manual_seed(0)
+        whole = torch.randn(4, 3, 5, generator=gen).cuda()
+        pods = PodAxis(4, dist.group.WORLD)
+        mine = pods.rows(whole)
+        ok = all(torch.equal(pods.roll(mine, s),
+                             pods.rows(torch.roll(whole, s, dims=0)))
+                 for s in (1, 2, 3))
+        ok = ok and torch.allclose(pods.mean(mine),
+                                   whole.mean(dim=0, keepdim=True))
+        if rank == 0:
+            torch.save({"ok": ok, "sends": pods.sends}, out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_card_pod_ring(cuda, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("the pod ring across cards needs two cards")
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("spawn")
+    out = str(tmp_path / "out.pt")
+    procs = [ctx.Process(target=_pod_ring_rank,
+                         args=(r, str(tmp_path / "store"), out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    res = torch.load(out)
+    assert res["ok"] and res["sends"] > 0

@@ -150,6 +150,110 @@ def test_moe_apply_matches_reference(dispatch, cf):
                                    rtol=AUX_RTOL)
 
 
+# bf16, the dtype qwen3-moe is served in, at its own routing (128 experts,
+# top-8) and smoke widths.  On a natural router (``moe_init``'s) the
+# reference runs op by op: under ``jax.jit`` XLA on the CPU computes the
+# router product with an f32 result instead of rounding it to bf16 as the
+# code writes it (logits up to 7.8e-3 apart; on seed 1 one token of 64
+# takes another eighth expert, a gap of 0.25 on max|y| 1.05), which the
+# port, rounding as written, does not follow.  Op by op the routing is
+# equal, and over seeds 0-5 and both dispatches the outputs differ by at
+# most half a bf16 step of max|y| (at most 26 of 16384 elements differ):
+# the experts' products round their f32 accumulations to bf16.  They are
+# held to one step.
+QWEN3_MOE = dict(num_experts=128, top_k=8)
+BF16_AUX_RTOL = 1e-6      # measured at most 2.1e-7
+
+
+def _bf16_step(y: np.ndarray) -> float:
+    """One bf16 step (8 significant bits) at max|y|."""
+    return float(2.0 ** (np.floor(np.log2(np.abs(y).max())) - 7))
+
+
+def _qwen3_bf16_cfgs(dispatch):
+    kw = dict(moe_dispatch=dispatch, param_dtype="bfloat16",
+              compute_dtype="bfloat16")
+    jcfg, tcfg = _cfgs(moe=JMoEConfig(**QWEN3_MOE), **kw)
+    assert (tget_arch("qwen3-moe-30b-a3b").config.moe.top_k
+            == QWEN3_MOE["top_k"])
+    return jcfg, tcfg.replace(moe=TMoEConfig(**QWEN3_MOE))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dispatch", DISPATCH)
+def test_moe_apply_matches_reference_in_bf16(dispatch, seed):
+    jcfg, tcfg = _qwen3_bf16_cfgs(dispatch)
+    p = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                     _np_moe(jcfg, seed=seed))
+    x = np.random.default_rng(seed + 10).normal(
+        size=(B, S, jcfg.d_model)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    jy, jaux = jmoe.moe_apply(p, jcfg, xb)
+    tp = _t(jax.tree.map(np.asarray, p))
+    tx = convert.to_tensor(np.asarray(xb), "cpu")
+    ty, taux = tmoe.moe_apply(tp, tcfg, tx)
+    assert ty.dtype == torch.bfloat16
+    # the same eight experts for every token
+    logits = (xb.reshape(B * S, -1) @ p["router"]).astype(jnp.float32)
+    _, je = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), 8)
+    _, te, _ = tmoe._route(tp, tcfg, tx.reshape(1, B * S, -1))
+    np.testing.assert_array_equal(te[0].numpy(), np.asarray(je))
+    jy = np.asarray(jy).astype(np.float32)
+    np.testing.assert_allclose(ty.float().numpy(), jy, rtol=0,
+                               atol=_bf16_step(jy))
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
+                                   rtol=BF16_AUX_RTOL)
+
+
+def _exact_bf16_inputs(jcfg, case, seed=0):
+    """:func:`_exact_inputs` at top-8 in bf16: each token's router input
+    is eight-hot, so its eight experts get probability 1/8 exactly (the
+    rest exp(-200), 0 in f32) and weight 0.125; every expert output is an
+    integer that bf16 holds, and weighted by 0.125 it stays exact.  The
+    combine then adds eight bf16 terms of up to ~2600 with one rounding per
+    add, so its order decides the last bits.  ``case`` "drops" routes every
+    token among 12 experts, over their capacity of 8."""
+    rng = np.random.default_rng(seed)
+    E, K, D, F = (jcfg.moe.num_experts, jcfg.moe.top_k, jcfg.d_model,
+                  jcfg.d_ff)
+    pool = 12 if case == "drops" else E
+    x = np.zeros((B, S, D), np.float32)
+    for b in range(B):
+        for s in range(S):
+            x[b, s, rng.choice(pool, K, replace=False)] = 1.0
+    x[..., E] = 1.0
+    x[..., E + 1:] = rng.integers(0, 2, size=(B, S, D - E - 1))
+    router = np.zeros((D, E), np.float32)
+    router[np.arange(E), np.arange(E)] = 200.0
+    wg = rng.integers(0, 2, size=(E, D, F)).astype(np.float32)
+    wg[:, :E + 1] = 0.0
+    wg[:, E] = 20.0
+    wu = rng.integers(-1, 2, size=(E, D, F)).astype(np.float32)
+    wu[:, :E + 1] = 0.0
+    wd = (rng.random(size=(E, F, D)) < 1 / 16).astype(np.float32)
+    return x, {"router": router, "wg": wg, "wu": wu, "wd": wd}
+
+
+@pytest.mark.parametrize("case", ["routed", "drops"])
+@pytest.mark.parametrize("dispatch", DISPATCH)
+def test_moe_combine_order_bit_equal_in_bf16(dispatch, case):
+    """The combine's order at top-8 in bf16, bit for bit: a sum of the
+    same eight contributions in another order rounds differently."""
+    jcfg, tcfg = _qwen3_bf16_cfgs(dispatch)
+    x, p = _exact_bf16_inputs(jcfg, case)
+    p = {k: jnp.asarray(v, jnp.bfloat16) for k, v in p.items()}
+    xb = jnp.asarray(x, jnp.bfloat16)
+    jy, _ = jmoe.moe_apply(p, jcfg, xb)
+    ty, _ = tmoe.moe_apply(_t(jax.tree.map(np.asarray, p)), tcfg,
+                           convert.to_tensor(np.asarray(xb), "cpu"))
+    jy = np.asarray(jy).astype(np.float32)
+    assert np.abs(jy).max() > 256     # above bf16's exact integers
+    np.testing.assert_array_equal(ty.float().numpy(), jy)
+    dropped = (jy == 0).all(-1).mean()
+    assert (dropped > 0.3) if case == "drops" else dropped == 0
+
+
 def test_zero_router_ties_pick_the_lowest_experts():
     # a zero router ties every expert: the reference's top_k keeps the
     # lower ids, so every token goes to experts 0..K-1 with equal weights
