@@ -178,15 +178,24 @@ Phases (any failure raises and the script exits non-zero):
    start it fails the run), ``make_debug_mesh(1, 1, 1)``, and phase 3's
    run built by ``launch.context.make_train_setup`` with its state and
    batches placed through ``TrainSetup`` (every parameter a DTensor):
-   (a) the codec, (b) sparse ``ama`` (phase 3b's); each bit-equal to the
-   unsharded trainer on the same seed and batches (losses, digests of
-   every parameter leaf and of the EF residual), each codec round and
+   (a) the codec, (b) sparse ``ama`` (phase 3b's), (c) dense ``ama``
+   (``compress_topk=0``: the round runs on the placed leaves, each rank
+   shipping its own shard, and must post no all-gather); each bit-equal
+   to the unsharded trainer on the same seed and batches (losses, digests
+   of every parameter leaf and of the EF residual), each codec round and
    top-k launch held to its plain version; prints each arm's step and
    round times beside the unsharded run's and phase 3's and 3b's, its peak
-   memory and launches.  Then granite-8b x2's forward at B 8, S 512 with
+   memory and launches, and (c)'s round times beside (b)'s with the
+   card's name and power limit.  Then granite-8b x2's forward at B 8, S 512 with
    ``embed_impl="onehot"`` against ``"gather"``, and every arch's input
    specs at the four assigned shapes on the meta device, allocating
    nothing; the NCCL version and the card's name and power limit.
+3j. The dry run (``repro_torch.launch.dryrun``, in a process of its own:
+   its fake process group is global to the process): granite-8b at
+   ``train_4k`` on the multi-pod mesh of 512 fake ranks at all 36 layers,
+   on the host, no card; the record must say ``"ok"`` and its sync step
+   must cross pods.  Prints its per-rank argument and temp bytes beside
+   the card's memory, and the phase's seconds.
 3c. The paper's models (LeNet, ResNet, DeepFM) at their own sizes, 2 pods,
    Fig 11's ``asgd@1``, ``asgd_ga@8``, ``ama@8``, ``sma@8`` and ``ama@8``
    at top-k 0.01, 16 steps each; at 2 pods ``ama@8`` and ``sma@8`` must
@@ -2942,6 +2951,7 @@ def phase_mesh(torch) -> dict:
     embedding's forward against the gather's; every arch's input specs on
     the meta device.  Returns the sharded arms' launches."""
     import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch import tree as T
     from repro_torch.configs import all_archs, get_arch
@@ -2974,7 +2984,9 @@ def phase_mesh(torch) -> dict:
                                    quantize_int8=True, error_feedback=True),
                       {"wan_encode": 2, "wan_decode": 4}),
                 "b": (S.SyncConfig("ama", 2, compress_topk=TOPK),
-                      {"topk_compress": 24})}
+                      {"topk_compress": 24}),
+                "c": (S.SyncConfig("ama", 2), {})}
+        round_s = {}
         for name, (sync, want) in arms.items():
             setup = C.make_train_setup(arch, mesh, sync=sync, lr=0.02,
                                        n_pods=PODS,
@@ -3014,11 +3026,28 @@ def phase_mesh(torch) -> dict:
             ops.TOPK_CHECK_HOOK = None if sync.uses_codec else clocked(
                 torch, topk_check_hook(torch, checked, "mesh"), spent,
                 lambda: len(tr.sync_seconds))
+            # the collectives of each round: a dense round on the placed
+            # leaves gathers nothing
+            round_comm = []
+            whole_round = tr._sync_round
+
+            def counted_round(st):
+                with CommDebugMode() as comm:
+                    out = whole_round(st)
+                round_comm.append(sum(
+                    v for k, v in comm.get_comm_counts().items()
+                    if "all_gather" in str(k) or "allgather" in str(k)))
+                return out
+            tr._sync_round = counted_round
             ops.reset_launches()
             state, hist = tr.fit(state, lambda s: setup.place_batch(
                 batches(s)), 4)
             torch.cuda.synchronize()
             got = dict(ops.LAUNCHES)
+            require(len(round_comm) == 2, f"arm {name}: 2 rounds")
+            if name == "c":
+                require(round_comm == [0, 0], f"arm c's rounds post no "
+                        f"all-gather: {round_comm}")
             ops.TOPK_CHECK_HOOK = None
             peak = torch.cuda.max_memory_allocated() / 1e9
             expect = {k: want.get(k, 0) for k in got}
@@ -3037,14 +3066,19 @@ def phase_mesh(torch) -> dict:
                     f"{[k for k in digest if digest[k] != want_digest.get(k)]}")
             for k, v in got.items():
                 launches[k] += v
-            ref3 = PHASE_TIMES.get("3" if name == "a" else "3b ama")
-            print(f"[mesh] arm {name} ({sync.strategy}, "
-                  f"{'int8 top-k ' + str(TOPK) + ' + EF' if sync.uses_codec else 'sparse top-k ' + str(TOPK)}"
+            # the unsharded run of the same config in an earlier phase
+            ref_phase = {"a": "3", "b": "3b ama"}.get(name)
+            ref3 = PHASE_TIMES.get(ref_phase)
+            ship = ("int8 top-k " + str(TOPK) + " + EF" if sync.uses_codec
+                    else "sparse top-k " + str(TOPK)
+                    if sync.compress_topk else "dense")
+            print(f"[mesh] arm {name} ({sync.strategy}, {ship}"
                   f"), {cfg.name} x{cfg.n_layers} layers, {PODS} pods on a "
                   f"(1, 1, 1) mesh: losses {hist['loss_per_pod']} bit-equal "
                   f"to the unsharded trainer, {len(digest)} digests equal; "
                   f"launches {got}; peak memory {peak:.2f} GB")
             net = [t - spent[i] for i, t in enumerate(tr.sync_seconds)]
+            round_s[name] = net
             print(f"[mesh] arm {name} step s {[round(t, 4) for t in tr.step_seconds]}"
                   f", round s {[round(t, 4) for t in net]} (net of the "
                   f"top-k check's {[round(t, 4) for t in spent[:len(net)]]})"
@@ -3052,11 +3086,11 @@ def phase_mesh(torch) -> dict:
                   f"{median_after_first(tr.step_seconds):.4f} s, round "
                   f"{median_after_first(net):.4f} s; unsharded "
                   f"here: step {median_after_first(plain_times[0]):.4f} s, "
-                  f"round {median_after_first(plain_times[1]):.4f} s; phase "
-                  f"{'3' if name == 'a' else '3b ama'}: "
-                  + (f"step {median_after_first(ref3[0]):.4f} s, round "
-                     f"{median_after_first(ref3[1]):.4f} s" if ref3
-                     else "not run"))
+                  f"round {median_after_first(plain_times[1]):.4f} s"
+                  + ("" if ref_phase is None else f"; phase {ref_phase}: "
+                     + (f"step {median_after_first(ref3[0]):.4f} s, round "
+                        f"{median_after_first(ref3[1]):.4f} s" if ref3
+                        else "not run")))
             del setup, tr, state, batches
             torch.cuda.empty_cache()
 
@@ -3105,16 +3139,73 @@ def phase_mesh(torch) -> dict:
               f"{len(all_archs())} archs x {len(SH.INPUT_SHAPES)} shapes, "
               f"{len(skipped)} skipped ({', '.join(skipped)}); device "
               f"memory {before} -> {after} bytes")
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-        print(f"[mesh] NCCL {nccl}; {smi.stdout.strip().splitlines()[0]}; "
+        smi = card_line()
+        print(f"[mesh] round s on the placed leaves, arm c (dense ama) "
+              f"{[round(t, 4) for t in round_s['c']]} (median after the "
+              f"first {median_after_first(round_s['c']):.4f} s), beside "
+              f"arm b (sparse ama, gathered whole) "
+              f"{[round(t, 4) for t in round_s['b']]} "
+              f"({median_after_first(round_s['b']):.4f} s); {smi}")
+        print(f"[mesh] NCCL {nccl}; {smi}; "
               f"phase {time.perf_counter() - t_phase:.1f} s")
     finally:
         ops.TOPK_CHECK_HOOK = None
         dist.destroy_process_group()
     return launches
+
+
+DRYRUN_TIMEOUT = 900          # seconds for the full-depth dry run
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    require(smi.returncode == 0, "nvidia-smi runs")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_dryrun(torch) -> dict:
+    """Phase 3j: the dry run of granite-8b ``train_4k`` on the multi-pod
+    mesh of 512 fake ranks at full depth, through its command line in a
+    process of its own, on the host.  Returns its record."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "granite-8b", "--shape", "train_4k", "--mesh", "multi_pod",
+             "--out-dir", out_dir], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT)
+        require(run.returncode == 0,
+                f"the dry run exits 0: {run.stderr[-3000:]}")
+        with open(os.path.join(out_dir,
+                               "granite-8b__train_4k__multi_pod.json")) as f:
+            rec = json.load(f)
+    require(rec["status"] == "ok",
+            f"dry run status {rec['status']}: {rec.get('traceback')}")
+    cross = rec["sync_step"]["collectives"]["cross_pod_bytes"]
+    require(cross > 0, "the dry run's sync step crosses pods")
+    mem, cost = rec["memory"], rec["cost"]
+    need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] granite-8b train_4k multi_pod (512 fake ranks, "
+          f"{rec['mesh_info']}), {rec['extrapolated']['n_groups']} layer "
+          f"groups, "
+          f"host counts a rank: argument {mem['argument_size_in_bytes']} B "
+          f"+ temp {mem['temp_size_in_bytes']} B = {need / 1e9:.2f} GB "
+          f"beside the card's {total / 1e9:.2f} GB "
+          f"({torch.cuda.get_device_name(0)}); flops {cost['flops']:.6g}, "
+          f"in-pod collective bytes "
+          f"{rec['collectives']['total_bytes'] - rec['collectives']['cross_pod_bytes']}"
+          f", sync-step cross-pod bytes {cross}; traced in "
+          f"{rec['lower_s']} s, record {rec['total_s']} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return rec
 
 
 def phase_paper_models(torch) -> None:
@@ -4921,6 +5012,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch)
     torch.cuda.empty_cache()
+    phase_dryrun(torch)
     phase_paper_models(torch)
     phase_entry_point(torch)
     phase_entry_point_ama(torch)

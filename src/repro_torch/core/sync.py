@@ -99,6 +99,8 @@ class PodAxis:
         self.n_local = n_pods // self.size if self.split else None
         self.first = self.index * self.n_local if self.split else 0
         self.sends = self.all_reduces = self.all_gathers = 0
+        # bytes shipped point to point, by the peer's global rank
+        self.sent: Dict[int, int] = {}
         # the inline ring over this axis: the transport of ``None``
         self.ring = InlineRingShip(self)
 
@@ -120,7 +122,17 @@ class PodAxis:
         this rank's rows: each row is sent to the rank that holds its
         destination, as bytes, point to point.  Between two ranks, sends
         and receives are posted in ascending source row, so they pair up
-        in order."""
+        in order.  A DTensor (a leaf placed on the in-pod mesh) rolls its
+        local shard: the pod group joins the ranks with the same in-pod
+        coordinates, so each shard reaches the rank that holds the same
+        shard of its destination pod."""
+        from repro_torch.sharding.rules import is_dtensor
+        if is_dtensor(x):
+            from torch.distributed.tensor import DTensor
+            return DTensor.from_local(self.roll(x.to_local(), shift),
+                                      x.device_mesh, x.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
         if not self.split:
             return torch.roll(x, shift, dims=0)
         import torch.distributed as dist
@@ -134,9 +146,10 @@ class PodAxis:
             if dst // n_loc == self.index:
                 out[dst - self.first].copy_(rows[j])
             else:
-                ops.append(dist.P2POp(dist.isend, rows[j],
-                                      self._peer(dst // n_loc), self.group))
+                peer = self._peer(dst // n_loc)
+                ops.append(dist.P2POp(dist.isend, rows[j], peer, self.group))
                 self.sends += 1
+                self.sent[peer] = self.sent.get(peer, 0) + rows[j].numel()
         for src, i in sorted(((self.first + i - shift) % n, i)
                              for i in range(n_loc)):
             if src // n_loc != self.index:

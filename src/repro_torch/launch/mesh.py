@@ -33,13 +33,15 @@ def _mesh(device_type: str, shape, names):
                             mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The production mesh on CUDA: ``(2, 16, 16)`` over ``("pod", "data",
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh: ``(2, 16, 16)`` over ``("pod", "data",
     "model")`` with ``multi_pod``, else ``(16, 16)`` over ``("data",
-    "model")``."""
+    "model")``; on CUDA, or over ``"cpu"`` for the dry run's fake group
+    (``launch/dryrun.py``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh("cuda", shape, names)
+    return _mesh(device_type, shape, names)
 
 
 def make_debug_mesh(n_pods: int = 2, data: int = 2, model: int = 2,

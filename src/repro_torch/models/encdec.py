@@ -28,7 +28,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.transformer import (_select_group,
                                             softmax_cross_entropy,
                                             stack_groups)
-from repro_torch.sharding.rules import LA, shard
+from repro_torch.sharding.rules import LA, shard, split_dim
 
 Params = Dict[str, Any]
 _SPEC = LayerSpec()  # plain global attention
@@ -153,8 +153,8 @@ def _cross_kv(p: Params, cfg: ModelConfig, enc: torch.Tensor):
     B, Senc, _ = enc.shape
     K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     cdt = cfg.dtype("compute")
-    k = (enc @ p["xattn"]["wk"].to(cdt)).reshape(B, Senc, K, Dh)
-    v = (enc @ p["xattn"]["wv"].to(cdt)).reshape(B, Senc, K, Dh)
+    k = split_dim(enc @ p["xattn"]["wk"].to(cdt), 2, (K, Dh))
+    v = split_dim(enc @ p["xattn"]["wv"].to(cdt), 2, (K, Dh))
     return k, v
 
 

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.sharding.rules import shard
+from repro_torch.sharding.rules import (merge_dims, replicate, shard,
+                                        split_dim)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -125,14 +126,16 @@ def attn_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
               k_valid: Optional[torch.Tensor], causal: bool,
               window: Optional[int]) -> torch.Tensor:
     """Additive f32 bias of shape (B, 1, Sq, Sk)."""
+    # out of place: on a mesh the positions may be placed (qwen2-vl's come
+    # with the batch) while ``ok`` starts plain
     ok = torch.ones(q_pos.shape[0], q_pos.shape[1], k_pos.shape[1],
                     dtype=torch.bool, device=q_pos.device)
     if causal:
-        ok &= k_pos[:, None, :] <= q_pos[:, :, None]
+        ok = ok & (k_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
-        ok &= k_pos[:, None, :] > (q_pos[:, :, None] - window)
+        ok = ok & (k_pos[:, None, :] > (q_pos[:, :, None] - window))
     if k_valid is not None:
-        ok &= k_valid[:, None, :]
+        ok = ok & k_valid[:, None, :]
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     neg = torch.full((), -1e30, dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, neg)[:, None, :, :]
@@ -145,14 +148,14 @@ def sdpa_reference(q, k, v, bias, softcap: float = 0.0) -> torch.Tensor:
     B, Sq, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
-    qh = q.reshape(B, Sq, K, G, Dh)
+    qh = split_dim(q, 2, (K, G))
     logits = torch.einsum("bqkgd,bskd->bkgqs", qh.float(),
                           k.float()) / math.sqrt(Dh)
     logits = _softcap(logits, softcap)
     logits = logits + bias[:, :, None, :, :]
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    return merge_dims(out, 2, 2).to(q.dtype)
 
 
 class KVCache(NamedTuple):
@@ -271,7 +274,7 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     cdt = cfg.dtype("compute")
     x = x.to(cdt)
-    q = (x @ params["wq"].to(cdt)).reshape(B, S, H, Dh)
+    q = split_dim(x @ params["wq"].to(cdt), 2, (H, Dh))
     tok_pos = positions if positions.dim() == 2 else positions[0]  # (B, S)
 
     if kv_override is not None:
@@ -281,10 +284,10 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
                              device=x.device)[None].expand(B, k.shape[1])
         bias = attn_bias(tok_pos, k_pos, None, causal=False, window=None)
         out = _sdpa(cfg, q, k, v, bias, causal=False, window=None)
-        return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), None
+        return merge_dims(out, 2, 2) @ params["wo"].to(cdt), None
 
-    k = (x @ params["wk"].to(cdt)).reshape(B, S, K, Dh)
-    v = (x @ params["wv"].to(cdt)).reshape(B, S, K, Dh)
+    k = split_dim(x @ params["wk"].to(cdt), 2, (K, Dh))
+    v = split_dim(x @ params["wv"].to(cdt), 2, (K, Dh))
     q = position_embed(cfg, q, positions)
     k = position_embed(cfg, k, positions)
 
@@ -296,7 +299,7 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
                              window=spec.window)
         out = _sdpa(cfg, q, k, v, bias, causal=causal, window=spec.window,
                     positions=tok_pos)
-        return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), None
+        return merge_dims(out, 2, 2) @ params["wo"].to(cdt), None
 
     # ------------------------------------------------------------- decode
     if S != 1:
@@ -377,7 +380,12 @@ def embed_apply(params: dict, cfg: ModelConfig,
         oh = shard(oh, "batch", "seq", "vocab")
         emb = oh @ params["tokens"].to(cdt)
     elif cfg.embed_impl == "gather":
-        emb = params["tokens"].to(cdt)[tokens]
+        # on a mesh the lookup reads the table gathered (indexing gathers
+        # it too), through ``F.embedding``: torch 2.11's DTensor rules
+        # raise in the backward of indexing (``index_put``) and of a
+        # lookup in a vocab-sharded table (a masked partial sum); the rows
+        # are the same
+        emb = F.embedding(tokens, replicate(params["tokens"].to(cdt)))
     else:
         raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
     if cfg.tie_embeddings:

@@ -229,6 +229,72 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def split_dim(x: torch.Tensor, dim: int, sizes: Sequence[int]
+              ) -> torch.Tensor:
+    """``x`` with dimension ``dim`` reshaped to ``sizes``.  DTensor refuses to split a dimension
+    sharded over mesh axes whose size does not divide the leading factor
+    (granite-8b's 8 kv heads on a 16-way ``"model"`` axis), where XLA
+    reshards by itself: such a dimension is first gathered on those
+    axes."""
+    d = dim % x.dim()
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        split = [i for i, p in enumerate(x.placements)
+                 if p.is_shard() and p.dim == d]
+        ways = 1
+        for i in split:
+            ways *= mesh.size(i)
+        if sizes[0] % ways:
+            want = [Replicate() if i in split else p
+                    for i, p in enumerate(x.placements)]
+            x = x.redistribute(mesh, want)
+    return x.reshape(tuple(x.shape[:d]) + tuple(sizes)
+                     + tuple(x.shape[d + 1:]))
+
+
+class _GradAsForward(torch.autograd.Function):
+    """Identity; the gradient is redistributed to the forward output's
+    placements, so that the backward of a merge (a split) gets the layout
+    the merge produced and not whatever a later product left."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def merge_dims(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with dimensions ``dim .. dim + n - 1`` reshaped into one.  On
+    a DTensor the gradient is brought back to the merged layout before the
+    backward splits it (:func:`split_dim`'s case, met in the backward)."""
+    d = dim % x.dim()
+    shape = tuple(x.shape)
+    size = 1
+    for s in shape[d:d + n]:
+        size *= s
+    y = x.reshape(shape[:d] + (size,) + shape[d + n:])
+    return _GradAsForward.apply(y) if is_dtensor(y) else y
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered to ``Replicate`` on every axis of its mesh, still
+    a DTensor (differentiable: the gradient goes back to its placements),
+    a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
 def whole_local(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's whole value as a plain tensor on this rank (gathered
     over its mesh; differentiable), a plain tensor as it is.  Where a

@@ -35,7 +35,9 @@ is a DTensor placed by ``TrainSetup.state_sharding``: the forward runs on
 the placed parameters under ``axis_rules(train_rules())`` and
 ``implicit_replication``,
 each gradient is redistributed to its parameter's placements, and the
-in-place updates keep them.  A sync round gathers each in-pod leaf whole
+in-place updates keep them.  A dense ``ama``, ``sma`` or ``asgd_ga`` round
+is elementwise across pods and runs on the placed leaves: each rank ships
+its own shard.  Any other round gathers each in-pod leaf whole
 (``full_tensor``), runs on plain tensors (no DTensor reaches a kernel: the
 codec's blocks are blocks of the whole flattened leaf) and writes the
 result back into the placed leaves.
@@ -162,6 +164,17 @@ def _write_back(dst: torch.Tensor, src: torch.Tensor) -> None:
                               run_check=False).redistribute(
                                   mesh, dst.placements).to_local()
     local.copy_(part)
+
+
+def _ships_shards(sync: SyncConfig) -> bool:
+    """Whether a round is elementwise across pods, so that on the mesh it
+    can run on each rank's own shard: ``sma`` (its mean ignores the
+    top-k), and ``ama`` and ``asgd_ga`` when they ship dense (no top-k,
+    so no codec either)."""
+    if sync.strategy == "sma":
+        return True
+    return (sync.strategy in ("ama", "asgd_ga")
+            and not 0.0 < sync.compress_topk < 1.0)
 
 
 class Trainer:
@@ -295,11 +308,25 @@ class Trainer:
     # -------------------------------------------------------------- steps
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
+        lr = self.schedule(state.step)
         with self._placed():
-            return self._train_step(state, batch)
+            state, per_pod = self._train_step(state, batch)
+        # every pod's metrics on every rank: the host's view, outside the
+        # step (which crosses the pod axis only for ``asgd``'s mean)
+        per_pod = {k: self.pods.gather(v) for k, v in per_pod.items()}
+        out = {"loss": per_pod["loss_per_pod"].mean(),
+               "loss_per_pod": per_pod["loss_per_pod"],
+               "grad_norm": per_pod["grad_norm"], "lr": lr}
+        for k in per_pod:
+            if k not in out:
+                out[k] = per_pod[k].mean()
+        return state, out
 
     def _train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
-                    ) -> Tuple[TrainState, Dict[str, Any]]:
+                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step of this rank's pods -> (state, their per-pod metrics:
+        ``loss_per_pod``, ``grad_norm`` and the loss function's others,
+        one row per local pod)."""
         lr = self.schedule(state.step)
         n = T.leaves(state.params)[0].shape[0]
         losses, grads, extra = [], [], []
@@ -333,21 +360,34 @@ class Trainer:
                        _pod(grads, p))) for p in range(n)])}
         per_pod.update({k: torch.stack([e[k] for e in extra])
                         for k in extra[0]})
-        per_pod = {k: self.pods.gather(v) for k, v in per_pod.items()}
-        out = {"loss": per_pod["loss_per_pod"].mean(),
-               "loss_per_pod": per_pod["loss_per_pod"],
-               "grad_norm": per_pod["grad_norm"], "lr": lr}
-        for k in extra[0]:
-            out[k] = per_pod[k].mean()
         return TrainState(state.params, state.opt_state, sync_state,
-                          state.step + 1), out
+                          state.step + 1), per_pod
 
     def _sync_round(self, state: TrainState):
         """One sync round -> (state, (payloads, shipped) or None).  On the
-        in-pod mesh the round runs on the state gathered whole and is
-        written back into the placed leaves."""
+        in-pod mesh a round that is elementwise across pods
+        (:func:`_ships_shards`) runs on the placed leaves, so each rank
+        ships only its own shard of every leaf to the rank that holds the
+        same shard in the peer pod; the others run on the state gathered
+        whole (:meth:`_gathered_round`)."""
         if self.inpod is None:
             return self._plain_round(state)
+        if not _ships_shards(self.cfg.sync):
+            return self._gathered_round(state)
+        with self._placed():
+            new, rnd = self._plain_round(state)
+        # the round's fresh counters are plain tensors: into the placed
+        # leaves (the leaves it updated in place are the placed ones)
+        T.tree_map(lambda d, w: _write_back(d, w)
+                   if is_dtensor(d) and not is_dtensor(w) else None,
+                   state, new)
+        return state, rnd
+
+    def _gathered_round(self, state: TrainState):
+        """The round on the state gathered whole (``asp``'s counts are per
+        leaf, a sparse ship's blocks and the codec's buckets span whole
+        leaves), written back into the placed leaves: each rank ships the
+        pod's whole rows."""
         # the round hook sees the whole state the round ran on
         whole, rnd = self._plain_round(T.tree_map(whole_local, state))
         T.tree_map(lambda d, w: _write_back(d, w) if is_dtensor(d) else None,

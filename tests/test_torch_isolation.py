@@ -34,8 +34,9 @@ def test_port_imports_no_jax_and_no_reference():
     lines = out.stdout.splitlines()
     names, bad = lines[0].split(","), (lines[1] if len(lines) > 1 else "")
     assert len(names) >= 20
-    # the mesh and sharding modules are among those imported
+    # the mesh and sharding modules and the dry run are among those
+    # imported
     assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
-            "repro_torch.launch.shapes",
-            "repro_torch.launch.context"} <= set(names)
+            "repro_torch.launch.shapes", "repro_torch.launch.context",
+            "repro_torch.launch.dryrun"} <= set(names)
     assert bad == "", f"repro_torch pulled in: {bad}"

@@ -199,3 +199,57 @@ def test_debug_mesh_matches_one_process(arch, strategy, tmp_path):
             assert sends == 0 and all_reduces > 0 and all_gathers == 0, r
     else:
         _ring_rounds(out, strategy, nothing_in_pod=False)
+
+
+# a dense ``ama``, ``sma`` or ``asgd_ga`` round is elementwise across pods:
+# on (2, 2, 2) each rank ships (or all-reduces) its own shard of every leaf;
+# ``asp`` and the codec keep the round on leaves gathered whole
+SHARD_SYNCS = {
+    "ama": SyncConfig("ama", 2),
+    "sma": SyncConfig("sma", 2),
+    "asgd_ga": SyncConfig("asgd_ga", 2),
+    "asp": SyncConfig("asp", 2),
+    "codec": SYNCS["asgd_ga"],
+}
+ROUND_STEPS = 2             # one step, then a step and a round
+
+
+@pytest.fixture(scope="module")
+def shard_rounds(tmp_path_factory):
+    """One 8-process launch: every config of ``SHARD_SYNCS`` run twice
+    from the same state, through the trainer's own rounds and through
+    ``_gathered_round`` (``tests/torch_mesh_worker.py``'s ``_rounds``)."""
+    job = _job("granite-8b", "ama", (2, 2, 2))
+    job["syncs"] = SHARD_SYNCS
+    job["batches"] = job["batches"][:ROUND_STEPS]
+    return _launch(job, tmp_path_factory.mktemp("rounds"))
+
+
+@pytest.mark.parametrize("name", list(SHARD_SYNCS))
+def test_split_pod_rounds_ship_own_shard(name, shard_rounds):
+    own, gathered = shard_rounds[name]["own"], shard_rounds[name]["gathered"]
+    rounds = ROUND_STEPS // 2
+    # the losses, the step counters and every parameter leaf are bit-equal
+    # to the whole-gather round on the same state
+    assert own["losses"] == gathered["losses"]
+    assert own["counters"] == gathered["counters"]
+    for (path, got), want in zip(T.leaves_with_path(own["params"]),
+                                 T.leaves(gathered["params"])):
+        assert torch.equal(got, want), path
+    for (sent, red, local, row), (g_sent, g_red, _, _) in zip(
+            own["ranks"], gathered["ranks"]):
+        # FSDP over "data" and tensor parallelism over "model": a rank
+        # holds about a quarter of a pod's row (the norms are replicated)
+        assert 3.9 < row / local <= 4.0, (row, local)
+        if name in ("ama", "asgd_ga"):
+            assert sent == [local] * rounds and g_sent == [row] * rounds
+            assert red == g_red == [0] * rounds
+        elif name == "sma":
+            assert red == [local] * rounds and g_red == [row] * rounds
+            assert sent == g_sent == [0] * rounds
+        else:
+            # unchanged: the round gathers whole leaves either way
+            assert sent == g_sent and red == g_red
+            assert all(s > 0 for s in sent)
+            if name == "asp":
+                assert sent == [row] * rounds

@@ -29,9 +29,100 @@ def run(rank: int, world: int, job_file: str, out_file: str) -> None:
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
                             timeout=timedelta(seconds=60))
     try:
-        _run(rank, job, out_file)
+        if "syncs" in job:
+            _rounds(rank, job, out_file)
+        else:
+            _run(rank, job, out_file)
     finally:
         dist.destroy_process_group()
+
+
+class _AllReduceBytes:
+    """The bytes of every ``c10d.allreduce_`` posted in its scope (below
+    DTensor: the local tensors)."""
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                if str(func.overloadpacket) == "c10d.allreduce_":
+                    outer.nbytes += sum(t.numel() * t.element_size()
+                                        for t in args[0])
+                return func(*args, **(kwargs or {}))
+
+        self.nbytes = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def _rounds(rank: int, job: dict, out_file: str) -> None:
+    """Each sync config of ``job["syncs"]`` twice from the same placed
+    state: the trainer's own rounds (``maybe_sync``), then every round
+    through ``_gathered_round``, the path that gathers each leaf whole.
+    Per run: the losses, the step counters, every parameter leaf whole,
+    and each rank's bytes shipped point to point and all-reduced
+    (``c10d.allreduce_``) in each round beside its local shard bytes and a
+    pod's whole row bytes of the parameters."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sync import is_sync_step
+    from repro_torch.launch import context as C
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.rules import whole_local
+
+    mesh = make_debug_mesh(*job["mesh"])
+    out = {}
+    for name, sync in job["syncs"].items():
+        runs = {}
+        for how in ("own", "gathered"):
+            setup = C.make_train_setup(get_arch(job["arch"]), mesh,
+                                       sync=sync, optimizer="sgd",
+                                       lr=job["lr"], smoke=True,
+                                       n_pods=job["n_pods"])
+            tr = setup.trainer
+            state = setup.place_state(tr.state_from_params(
+                T.tree_map(lambda x: x.clone(), job["params"])))
+            local = sum(x.to_local().numel() * x.element_size()
+                        for x in T.leaves(state.params))
+            row = sum(x[0].numel() * x.element_size()
+                      for x in T.leaves(job["params"]))
+            losses, sent, reduced, counters = [], [], [], []
+            for step, batch in enumerate(job["batches"]):
+                state, metrics = tr.train_step(state,
+                                               setup.place_batch(batch))
+                losses.append(metrics["loss_per_pod"].tolist())
+                before = sum(tr.pods.sent.values())
+                with _AllReduceBytes() as red:
+                    if how == "own":
+                        state = tr.maybe_sync(state, step)
+                    elif is_sync_step(sync, step):
+                        state, _ = tr._gathered_round(state)
+                if is_sync_step(sync, step):
+                    sent.append(sum(tr.pods.sent.values()) - before)
+                    reduced.append(red.nbytes)
+                counters.append((state.step, int(whole_local(
+                    state.sync_state.steps_since_sync))))
+            per_rank = [None] * dist.get_world_size()
+            dist.all_gather_object(per_rank, (sent, reduced, local, row))
+            runs[how] = {
+                "losses": losses, "counters": counters, "ranks": per_rank,
+                "params": T.tree_map(lambda x: _whole_rows(x, tr.pods),
+                                     state.params)}
+        out[name] = runs
+    if rank == 0:
+        tmp = out_file + ".tmp"
+        torch.save(out, tmp)
+        os.replace(tmp, out_file)
 
 
 def _run(rank: int, job: dict, out_file: str) -> None:
