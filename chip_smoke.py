@@ -186,16 +186,31 @@ Phases (any failure raises and the script exits non-zero):
    top-k launch held to its plain version; prints each arm's step and
    round times beside the unsharded run's and phase 3's and 3b's, its peak
    memory and launches, and (c)'s round times beside (b)'s with the
-   card's name and power limit.  Then granite-8b x2's forward at B 8, S 512 with
+   card's name and power limit.  (d) Serving under ``serve_rules``:
+   granite-8b at full width, ``MESH_SERVE_LAYERS`` layers, ``"xla"``
+   attention, its parameters placed by ``make_serve_setup`` and its cache
+   by ``cache_logical_axes``: ``dryrun.lower_prefill``'s and
+   ``lower_decode``'s step functions (``transformer.prefill``,
+   ``decode_step``) run for real on a 2-row prompt of 1024 tokens and 8
+   greedy decode steps, placed and unplaced on the same parameters: equal
+   tokens, bit-equal logits (one rank combines no softmax across ranks),
+   no kernel launched; prints prefill s and the median decode
+   step s of both.  Then granite-8b x2's forward at B 8, S 512 with
    ``embed_impl="onehot"`` against ``"gather"``, and every arch's input
    specs at the four assigned shapes on the meta device, allocating
    nothing; the NCCL version and the card's name and power limit.
-3j. The dry run (``repro_torch.launch.dryrun``, in a process of its own:
-   its fake process group is global to the process): granite-8b at
-   ``train_4k`` on the multi-pod mesh of 512 fake ranks at all 36 layers,
-   on the host, no card; the record must say ``"ok"`` and its sync step
-   must cross pods.  Prints its per-rank argument and temp bytes beside
-   the card's memory, and the phase's seconds.
+3j. The dry run (``repro_torch.launch.dryrun``'s command line, each run
+   in a process of its own: its fake process group is global to the
+   process), on the host, no card, at all layers, on the multi-pod mesh of
+   512 fake ranks: granite-8b ``train_4k`` (the record must say ``"ok"``
+   and its sync step must cross pods), granite-8b ``prefill_32k`` and
+   ``decode_32k`` and mamba2-1.3b ``long_500k`` (each ``"ok"`` and
+   crossing no pod).  The four start at once after the last phase on the
+   card (6f), so that no timed phase shares the host with them; a
+   non-zero exit fails the phase.
+   Prints each record's per-rank argument and temp bytes beside the card's
+   memory, its in-pod collective bytes and cross-pod bytes, and the
+   phase's seconds.
 3c. The paper's models (LeNet, ResNet, DeepFM) at their own sizes, 2 pods,
    Fig 11's ``asgd@1``, ``asgd_ga@8``, ``ama@8``, ``sma@8`` and ``ama@8``
    at top-k 0.01, 16 steps each; at 2 pods ``ama@8`` and ``sma@8`` must
@@ -388,6 +403,10 @@ STRATEGIES_3B = (("asgd_ga", TOPK), ("ama", TOPK), ("asp", TOPK),
 # max|logit|; phases 3's and 3b's step and round times, for 3i to print
 ONEHOT_TOL = 2.0 ** -7
 PHASE_TIMES: dict = {}
+# phase 3i arm (d): serving on the (1, 1, 1) mesh.  The placed step runs
+# the same local ops as the unplaced one (every placement ``Replicate``,
+# no softmax combined across ranks), so its logits must be bit-equal
+MESH_SERVE_LAYERS, MESH_SERVE_PROMPT, MESH_SERVE_NEW = 8, 1024, 8
 
 
 def require(cond: bool, what: str) -> None:
@@ -2940,6 +2959,96 @@ def topk_check_hook(torch, checked: list, what: str):
     return hook
 
 
+def greedy_serve(torch, cfg, params, prompt, new: int, setup=None):
+    """``transformer.prefill`` of ``prompt`` into a cache of ``prompt +
+    new`` positions, then ``new`` greedy ``decode_step``s: placed by
+    ``setup`` (a ``ServeSetup``; the step functions of
+    ``dryrun.lower_prefill`` and ``lower_decode``) or unplaced.  Returns
+    (every step's logits whole, the tokens, prefill s, decode-step s)."""
+    import contextlib
+
+    from repro_torch.models import transformer
+    from repro_torch.sharding.rules import whole_local
+
+    B, S = prompt.shape
+    logits_seq, tokens, decode_s = [], [], []
+    scope = setup.scope() if setup is not None else contextlib.nullcontext()
+    with torch.no_grad(), scope:
+        toks = (setup.place_batch({"tokens": prompt})["tokens"]
+                if setup is not None else prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(params, cfg, toks, S + new)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for i in range(new):
+            whole = whole_local(logits).reshape(B, -1)
+            logits_seq.append(whole)
+            tok = torch.argmax(whole, dim=-1).to(torch.int32)
+            tokens.append(tok.tolist())
+            step = {"token": tok[:, None],
+                    "cache_pos": torch.tensor(S + i, dtype=torch.int32,
+                                              device=prompt.device)}
+            if setup is not None:
+                step = setup.place_batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(
+                params, cfg, step["token"], cache, step["cache_pos"])
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+        logits_seq.append(whole_local(logits).reshape(B, -1))
+    return logits_seq, tokens, prefill_s, decode_s
+
+
+def mesh_serving_arm(torch, mesh) -> None:
+    """Phase 3i arm (d): granite-8b at full width served under
+    ``serve_rules`` on the one-rank mesh against the same parameters
+    unplaced."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import context as C
+    from repro_torch.models import transformer
+    from repro_torch.sharding.rules import is_dtensor
+
+    setup = C.make_serve_setup(get_arch("granite-8b"), mesh,
+                               config_overrides={"n_layers":
+                                                 MESH_SERVE_LAYERS})
+    cfg = setup.cfg
+    require(cfg.attention_impl == "xla", "arm d serves under 'xla'")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = transformer.init_params(gen, cfg, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (2, MESH_SERVE_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    ops.reset_launches()
+    want, want_tokens, want_prefill, want_decode = greedy_serve(
+        torch, cfg, params, prompt, MESH_SERVE_NEW)
+    placed = setup.place_params(params)
+    require(all(is_dtensor(x) for x in T.leaves(placed)),
+            "arm d: every parameter leaf is a DTensor")
+    got, tokens, prefill_s, decode_s = greedy_serve(
+        torch, cfg, placed, prompt, MESH_SERVE_NEW, setup)
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    require(not launched, f"arm d launches no kernel: {launched}")
+    require(tokens == want_tokens, f"arm d: placed tokens {tokens} == "
+            f"unplaced {want_tokens}")
+    gap = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"arm d: placed logits bit-equal to the unplaced run's on one "
+            f"rank: max|gap| {gap}")
+    print(f"[mesh] arm d (serving under serve_rules), {cfg.name} "
+          f"x{cfg.n_layers} layers, \"xla\" attention, B 2 x "
+          f"{MESH_SERVE_PROMPT} prompt, {MESH_SERVE_NEW} greedy steps on a "
+          f"(1, 1, 1) mesh: tokens {tokens} equal to the unplaced run's, "
+          f"logits bit-equal; prefill s {prefill_s:.4f} placed, {want_prefill:.4f} "
+          f"unplaced; decode step s (median) "
+          f"{statistics.median(decode_s):.4f} placed, "
+          f"{statistics.median(want_decode):.4f} unplaced; {card_line()}")
+    del params, placed, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_mesh(torch) -> dict:
     """Phase 3i: the mesh path.  A one-rank NCCL group (a ``HashStore``:
     no network, no fallback), ``make_debug_mesh(1, 1, 1)``; phase 3's run
@@ -3094,6 +3203,8 @@ def phase_mesh(torch) -> dict:
             del setup, tr, state, batches
             torch.cuda.empty_cache()
 
+        mesh_serving_arm(torch, mesh)
+
         # the one-hot embedding: a full-width forward against the gather
         cfg = arch.config.replace(**overrides)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3154,7 +3265,10 @@ def phase_mesh(torch) -> dict:
     return launches
 
 
-DRYRUN_TIMEOUT = 900          # seconds for the full-depth dry run
+DRYRUN_TIMEOUT = 300          # seconds for the full-depth dry runs
+# phase 3j's runs: (arch, shape), each on the multi-pod mesh
+DRYRUN_JOBS = (("granite-8b", "train_4k"), ("granite-8b", "prefill_32k"),
+               ("granite-8b", "decode_32k"), ("mamba2-1.3b", "long_500k"))
 
 
 def card_line() -> str:
@@ -3168,44 +3282,77 @@ def card_line() -> str:
 
 
 def phase_dryrun(torch) -> dict:
-    """Phase 3j: the dry run of granite-8b ``train_4k`` on the multi-pod
-    mesh of 512 fake ranks at full depth, through its command line in a
-    process of its own, on the host.  Returns its record."""
+    """Phase 3j: the dry run's command lines, started at once after the
+    last timed phase on the card, each in a process of its own, their
+    records into a temporary directory; every process is ended on the way
+    out.  Returns the records by (arch, shape)."""
+    import shutil
     import tempfile
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "granite-8b", "--shape", "train_4k", "--mesh", "multi_pod",
-             "--out-dir", out_dir], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=DRYRUN_TIMEOUT)
-        require(run.returncode == 0,
-                f"the dry run exits 0: {run.stderr[-3000:]}")
-        with open(os.path.join(out_dir,
-                               "granite-8b__train_4k__multi_pod.json")) as f:
-            rec = json.load(f)
-    require(rec["status"] == "ok",
-            f"dry run status {rec['status']}: {rec.get('traceback')}")
-    cross = rec["sync_step"]["collectives"]["cross_pod_bytes"]
-    require(cross > 0, "the dry run's sync step crosses pods")
-    mem, cost = rec["memory"], rec["cost"]
-    need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     total = torch.cuda.get_device_properties(0).total_memory
-    print(f"[dryrun] granite-8b train_4k multi_pod (512 fake ranks, "
-          f"{rec['mesh_info']}), {rec['extrapolated']['n_groups']} layer "
-          f"groups, "
-          f"host counts a rank: argument {mem['argument_size_in_bytes']} B "
-          f"+ temp {mem['temp_size_in_bytes']} B = {need / 1e9:.2f} GB "
-          f"beside the card's {total / 1e9:.2f} GB "
-          f"({torch.cuda.get_device_name(0)}); flops {cost['flops']:.6g}, "
-          f"in-pod collective bytes "
-          f"{rec['collectives']['total_bytes'] - rec['collectives']['cross_pod_bytes']}"
-          f", sync-step cross-pod bytes {cross}; traced in "
-          f"{rec['lower_s']} s, record {rec['total_s']} s, phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return rec
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, recs = {}, {}
+    try:
+        for arch, shape in DRYRUN_JOBS:
+            # output to a file: a pipe left unread could fill and stop it
+            with open(os.path.join(out_dir, f"{arch}__{shape}.log"),
+                      "w") as log:
+                procs[(arch, shape)] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh",
+                     "multi_pod", "--out-dir", out_dir], cwd=ROOT, env=env,
+                    stdout=log, stderr=subprocess.STDOUT)
+        for (arch, shape), proc in procs.items():
+            left = DRYRUN_TIMEOUT - (time.perf_counter() - t_phase)
+            try:
+                proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"chip_smoke check failed: the dry run "
+                                   f"of {arch} {shape} ends within "
+                                   f"{DRYRUN_TIMEOUT} s")
+            with open(os.path.join(out_dir, f"{arch}__{shape}.log")) as f:
+                log = f.read()
+            require(proc.returncode == 0, f"the dry run of {arch} {shape} "
+                    f"exits 0: {log[-3000:]}")
+            with open(os.path.join(out_dir,
+                                   f"{arch}__{shape}__multi_pod.json")) as f:
+                rec = json.load(f)
+            require(rec["status"] == "ok", f"dry run {arch} {shape} status "
+                    f"{rec['status']}: {rec.get('traceback')}")
+            coll = rec["collectives"]
+            require(coll["cross_pod_bytes"] == 0,
+                    f"the {arch} {shape} step crosses no pod: "
+                    f"{coll['cross_pod_bytes']} B")
+            line = ""
+            if shape == "train_4k":
+                cross = rec["sync_step"]["collectives"]["cross_pod_bytes"]
+                require(cross > 0, "the dry run's sync step crosses pods")
+                line = f", sync-step cross-pod bytes {cross}"
+            mem, cost = rec["memory"], rec["cost"]
+            need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            print(f"[dryrun] {arch} {shape} multi_pod (512 fake ranks, "
+                  f"{rec['mesh_info']}), {rec['extrapolated']['n_groups']} "
+                  f"layer groups, host counts a rank: argument "
+                  f"{mem['argument_size_in_bytes']} B + temp "
+                  f"{mem['temp_size_in_bytes']} B = {need / 1e9:.2f} GB "
+                  f"beside the card's {total / 1e9:.2f} GB "
+                  f"({torch.cuda.get_device_name(0)}); flops "
+                  f"{cost['flops']:.6g}, in-pod collective bytes "
+                  f"{coll['total_bytes'] - coll['cross_pod_bytes']}, "
+                  f"cross-pod bytes {coll['cross_pod_bytes']}{line}; "
+                  f"traced in {rec['lower_s']} s, record {rec['total_s']} s")
+            recs[(arch, shape)] = rec
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[dryrun] {len(recs)} records ok; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card_line()}")
+    return recs
 
 
 def phase_paper_models(torch) -> None:
@@ -4988,7 +5135,6 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside the repository)
 
     t_run = time.perf_counter()
-
     device = phase_device(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_flash(torch))
@@ -5012,7 +5158,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch)
     torch.cuda.empty_cache()
-    phase_dryrun(torch)
     phase_paper_models(torch)
     phase_entry_point(torch)
     phase_entry_point_ama(torch)
@@ -5034,6 +5179,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     vl_launches = phase_qwen2_vl(torch)
     torch.cuda.empty_cache()
+    phase_dryrun(torch)
     for name in ("wan_encode", "wan_decode"):
         kernels[name]["launches"] = (train_launches[name]
                                      + control_launches[name]

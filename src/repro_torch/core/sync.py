@@ -1160,6 +1160,35 @@ def _ship_ring(cfg: SyncConfig, tree: Pytree,
     return T.tree_map(lambda x: _ship_leaf(cfg, x, pods), tree)
 
 
+def _owned_count(sig: torch.Tensor) -> torch.Tensor:
+    """The true entries of a bool leaf that this rank counts: all of a
+    plain tensor's; of a placed leaf, its local shard's where this rank is
+    the first along every mesh axis that replicates the leaf, else none,
+    so that a sum over the in-pod ranks counts each entry once."""
+    from repro_torch.sharding.rules import is_dtensor
+    if not is_dtensor(sig):
+        return sig.sum()
+    mesh = sig.device_mesh
+    owner = all(mesh.get_coordinate()[i] == 0
+                for i, p in enumerate(sig.placements) if not p.is_shard())
+    return sig.to_local().sum() * int(owner)
+
+
+def _in_pod_sum(n: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``n`` summed over the in-pod mesh of the placed leaf ``like``, one
+    all-reduce per mesh axis; ``n`` itself for a plain leaf."""
+    from repro_torch.sharding.rules import is_dtensor
+    if not is_dtensor(like):
+        return n
+    import torch.distributed as dist
+
+    mesh = like.device_mesh
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(n, group=mesh.get_group(i))
+    return n
+
+
 def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
                lr: float = 1.0, transport=None,
                pods: PodAxis = WHOLE_PODS
@@ -1215,19 +1244,18 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
             nonlocal n_sig, n_tot
             delta = p.float() - r
             sig = delta.abs() > cfg.asp_threshold * (r.abs() + eps)
-            n_sig = n_sig + sig.sum()
+            n_sig = n_sig + _owned_count(sig)
             n_tot += sig.numel()
             q = _ship_leaf(cfg, torch.where(sig, delta, 0.0), pods)
             p.copy_(p.float() + 0.5 * q)
             r.copy_(p)
         T.tree_map(asp_update, params, state.ga_buffer)
+        n_sig = _in_pod_sum(n_sig, T.leaves(params)[0])
         if pods.split:
-            # the counts of every pod, exact in f64
-            n_sig, n_tot = pods.sum(torch.stack(
-                [n_sig.to(torch.float64),
-                 torch.tensor(float(n_tot), dtype=torch.float64,
-                              device=dev)])[None])[0]
-            n_tot = float(n_tot)
+            # every pod's count, exact in f64; each rank of the pod axis
+            # holds as many pods' rows, so the total is known on the host
+            n_sig = pods.sum(n_sig.to(torch.float64)[None])[0]
+            n_tot *= pods.size
         frac = n_sig.to(f32) / n_tot
         return params, zero._replace(significant_frac=frac)
 

@@ -19,7 +19,10 @@ on the ``meta`` device (``abstract_state``) and its placement tree
 per leaf); :meth:`TrainSetup.place_state` and :meth:`TrainSetup.place_batch`
 put a whole state or batch on the mesh by those trees.  The ``"pod"`` entry
 of a spec is carried out across processes (each rank keeps its pods' rows),
-the in-pod entries as DTensor placements.
+the in-pod entries as DTensor placements.  :func:`make_serve_setup` is the
+serving counterpart: one model's parameters, a request batch and a decode
+cache placed under :func:`serve_rules` as DTensors on the whole mesh, whose
+``"pod"`` axis only the batch names (``ServeSetup``).
 
 The reference pins JAX's partitionable threefry before it builds a sharded
 setup (``ensure_partitionable_threefry``), so that a sharded init draws
@@ -225,6 +228,83 @@ def make_train_setup(arch: Arch, mesh, *,
     return TrainSetup(arch=arch, cfg=cfg, fns=fns, trainer=trainer,
                       abstract_state=abstract_state,
                       state_sharding=sharding, rules=rules, mesh=mesh)
+
+
+@dataclass
+class ServeSetup:
+    """Serving on a mesh under :func:`serve_rules`: the model's parameters
+    unstacked (one replica per pod), FSDP over ``"data"`` and tensor
+    parallel over ``"model"``; the request batch over ``("pod", "data")``;
+    a decode cache's full sequence over ``"model"``.  The DTensors live on
+    the whole mesh, ``"pod"`` included, which only the batch names: a
+    serving step of a dense or SSM model crosses no pod (an MoE layer
+    routes on its tokens gathered over the whole mesh)."""
+    arch: Arch
+    cfg: Any
+    fns: ModelFns
+    abstract_params: Pytree
+    param_sharding: Pytree
+    rules: Dict
+    mesh: Any
+
+    def scope(self):
+        """A step on the mesh: the serving rules installed, and plain
+        tensors meeting DTensors taken as replicated."""
+        import contextlib
+
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        from repro_torch.sharding.rules import axis_rules
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(axis_rules(self.rules, self.mesh))
+        stack.enter_context(implicit_replication())
+        return stack
+
+    def _put(self, tree, shardings):
+        return T.tree_map(lambda x, s: _place(x, s, None, self.mesh, False),
+                          tree, shardings)
+
+    def place_params(self, params: Pytree) -> Pytree:
+        """Whole parameters (one model) -> this rank's parts."""
+        return self._put(params, self.param_sharding)
+
+    def place_batch(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """A whole request batch (a prefill's ``tokens`` and extras, or a
+        decode step's ``token`` and ``cache_pos``) -> this rank's parts."""
+        return self._put(batch, batch_sharding(batch, self.mesh, self.rules,
+                                               stacked=False))
+
+    def cache_sharding(self, cache: Pytree, seq_len: int) -> Pytree:
+        """The placement tree of a decode cache of ``seq_len`` positions
+        (the reference's ``spec_tree_for_params`` of
+        ``cache_logical_axes``)."""
+        return sharding_tree_for_params(
+            self.fns.cache_logical_axes(self.cfg, seq_len), cache, self.mesh,
+            self.rules)
+
+    def place_cache(self, cache: Pytree, seq_len: int) -> Pytree:
+        """A whole decode cache -> this rank's parts."""
+        return self._put(cache, self.cache_sharding(cache, seq_len))
+
+
+def make_serve_setup(arch: Arch, mesh, *, smoke: bool = False,
+                     config_overrides: Optional[dict] = None) -> ServeSetup:
+    """The serving counterpart of :func:`make_train_setup`: ``arch``'s
+    parameters' shapes on the ``meta`` device and their placement tree on
+    ``mesh`` under :func:`serve_rules`."""
+    cfg = arch.smoke if smoke else arch.config
+    if config_overrides:
+        cfg = cfg.replace(**config_overrides)
+    fns = get_model_fns(arch.module)
+    rules = serve_rules()
+    abstract = fns.abstract_params(cfg)
+    sharding = sharding_tree_for_params(fns.param_logical_axes(cfg),
+                                        abstract, mesh, rules)
+    return ServeSetup(arch=arch, cfg=cfg, fns=fns, abstract_params=abstract,
+                      param_sharding=sharding, rules=rules, mesh=mesh)
 
 
 def batch_sharding(batch_specs: Dict, mesh, rules: Dict, *,

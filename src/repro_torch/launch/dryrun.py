@@ -1,25 +1,34 @@
-"""Multi-pod dry run of training: trace the train step and the sync round of
-every (arch x training shape x mesh) on a fake process group, and count what
-one rank does.
+"""Multi-pod dry run: trace every (arch x shape x mesh) step on a fake
+process group, and count what one rank does.
 
-Counterpart of the training half of ``repro/launch/dryrun.py``: the proof
-that the distribution config is coherent without the hardware.  One process
-poses as rank 0 of a fake group (``torch.testing``'s ``FakeProcessGroup``)
-of ``prod(mesh shape)`` ranks, 512 for the multi-pod ``(2, 16, 16)`` mesh
-and 256 for the single-pod ``(16, 16)``, and builds the production mesh
-(``launch/mesh.py``) over device type ``"cpu"``.  Every tensor is a fake
-tensor (``FakeTensorMode``): nothing is allocated and no device is used,
-like the reference's 512 placeholder host devices.  So every op of
+Counterpart of ``repro/launch/dryrun.py``: the proof that the distribution
+config is coherent without the hardware.  One process poses as rank 0 of a
+fake group (``torch.testing``'s ``FakeProcessGroup``) of ``prod(mesh
+shape)`` ranks, 512 for the multi-pod ``(2, 16, 16)`` mesh and 256 for the
+single-pod ``(16, 16)``, and builds the production mesh (``launch/mesh.py``)
+over device type ``"cpu"``.  Every tensor is a fake tensor
+(``FakeTensorMode``): nothing is allocated and no device is used, like the
+reference's 512 placeholder host devices.  So every op of
 ``repro_torch.kernels.ops`` takes its plain path, as the reference's ops do
 when it lowers on host devices: the dry run counts the plain path.  It has
 no device option and no fallback.
 
-``make_train_setup`` builds the trainer on that mesh; ``Trainer._train_step``
-runs once on a fake batch from ``shapes.train_batch_specs`` and
-``Trainer._sync_round`` once after it, the counterparts of the reference's
-``_train_step_impl`` and ``_sync_step_impl``.  (``train_step`` and
-``maybe_sync`` read values on the host, which a fake tensor refuses.)  For
-each, on this rank's local tensors (below DTensor):
+- A **training** shape (``lower_train``): ``make_train_setup`` builds the
+  trainer on the mesh; ``Trainer._train_step`` runs once on a fake batch
+  from ``shapes.train_batch_specs`` and ``Trainer._sync_round`` once after
+  it, the counterparts of the reference's ``_train_step_impl`` and
+  ``_sync_step_impl``.  (``train_step`` and ``maybe_sync`` read values on
+  the host, which a fake tensor refuses.)
+- A **serving** shape (``lower_prefill``, ``lower_decode``):
+  ``make_serve_setup`` places the parameters under ``serve_rules`` (one
+  replica a pod, FSDP over ``"data"``, tensor parallel over ``"model"``),
+  the request batch over ``("pod", "data")`` and a decode cache by
+  ``cache_logical_axes`` (a full cache's sequence over ``"model"``); the
+  step is ``prefill`` of the prompt into a cache of ``seq_len`` positions
+  (``encdec.forward`` for an encoder-decoder), or one ``decode_step``.  No
+  sync step.
+
+For each step, on this rank's local tensors (below DTensor):
 
 - ``collectives``: bytes (each op's result) and counts by the reference's
   five kinds, from the ``c10d`` and functional-collective ops posted, plus
@@ -27,27 +36,28 @@ each, on this rank's local tensors (below DTensor):
   ``collective-permute``.  A collective crosses pods when its group's ranks
   lie in more than one pod (pod = rank // (n_devices / n_pods)), so no byte
   is of unknown pod;
-- ``memory``: the state's (and the batch's) local bytes as
+- ``memory``: the step's arguments' local bytes as
   ``argument_size_in_bytes``, the outputs' as ``output_size_in_bytes`` (of
-  which ``alias_size_in_bytes`` share an argument's storage: the step
-  updates the state in place), and the peak of the bytes of storages
-  created during the step and alive at once as ``temp_size_in_bytes``;
+  which ``alias_size_in_bytes`` share an argument's storage: a train step
+  updates the state, a decode step the cache, in place), and the peak of
+  the bytes of storages created during the step and alive at once as
+  ``temp_size_in_bytes``;
 - ``cost``: ``flops`` of the matrix products (``torch.utils.flop_counter``'s
   registry) and ``bytes accessed``, the input and output bytes of every
   op that is not a view or a collective.
 
 Records go to ``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__tag].json``
-with the reference's keys.  ``lower_prefill`` and ``lower_decode`` (serving
-under ``serve_rules`` on a mesh) are not ported: a ``prefill`` or ``decode``
-shape raises (ROADMAP.md Queue 1 item 15b-4).
-
-The fake group is the process's default group: run a dry run in a process
-of its own (the CLI does).
+with the reference's keys.  The fake group is the process's default group:
+run a dry run in a process of its own (the CLI does).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\
       --shape train_4k --mesh multi_pod
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # every arch
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-1.3b \\
+      --shape long_500k --mesh multi_pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 6 \\
+      --out-dir DIR    # every arch x shape x mesh, each in a process of
+                       # its own, 6 at a time; prints a table row a record
 """
 from __future__ import annotations
 
@@ -55,9 +65,12 @@ import argparse
 import contextlib
 import json
 import os
+import subprocess
+import sys
 import time
 import traceback
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from typing import Any, Dict, Optional
 
@@ -70,7 +83,9 @@ from repro_torch.core.sync import SyncConfig
 from repro_torch.launch import context as C
 from repro_torch.launch.mesh import make_production_mesh, mesh_info
 from repro_torch.launch.shapes import (INPUT_SHAPES, InputShape,
+                                       decode_specs, prefill_specs,
                                        shape_supported, train_batch_specs)
+from repro_torch.models import encdec
 from repro_torch.sharding.rules import is_dtensor
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -184,9 +199,11 @@ class _Tracer(TorchDispatchMode):
         return out
 
     # ------------------------------------------------------------ counting
-    def begin(self, args, pods) -> None:
+    def begin(self, args, pods=None) -> None:
         """Count from here: ``args`` (a tree of placed or plain tensors)
-        are the step's arguments; ``pods`` its pod axis."""
+        are the step's arguments; ``pods`` its pod axis (a training step's
+        ``PodAxis``, whose ring ships are counted; None for a serving
+        step, which has none)."""
         self.coll = _empty_collectives()
         self.flops = 0
         self.bytes_accessed = 0
@@ -200,7 +217,8 @@ class _Tracer(TorchDispatchMode):
         self._live: Dict[int, tuple] = {}
         self.live_bytes = self.peak_bytes = 0
         self._pods = pods
-        self._sends, self._sent = pods.sends, dict(pods.sent)
+        if pods is not None:
+            self._sends, self._sent = pods.sends, dict(pods.sent)
         self.counting = True
 
     def end(self, outputs) -> Dict[str, Any]:
@@ -208,7 +226,7 @@ class _Tracer(TorchDispatchMode):
         ``cost`` records (``outputs``: what the step returned)."""
         self.counting = False
         pods = self._pods
-        n_sends = pods.sends - self._sends
+        n_sends = pods.sends - self._sends if pods is not None else 0
         if n_sends:
             kind = "collective-permute"
             self.coll["counts_by_kind"][kind] += n_sends
@@ -362,10 +380,82 @@ def lower_train(arch: Arch, shape: InputShape, mesh, *, sync: SyncConfig,
     return train, sync_rec, setup
 
 
+def lower_prefill(arch: Arch, shape: InputShape, mesh):
+    """Trace a prefill of ``shape`` on ``mesh`` under ``serve_rules``
+    (``context.make_serve_setup``) -> ``(record, None, setup)``: the
+    decoder stack's ``prefill`` of the prompt into a cache of
+    ``seq_len`` positions, or, for an encoder-decoder, ``encdec.forward``
+    over the tokens and the stub audio embeddings, as the reference
+    lowers them.  No sync step."""
+    setup = C.make_serve_setup(arch, mesh)
+    cfg, fns = setup.cfg, setup.fns
+    info = mesh_info(mesh)
+    tracer = _Tracer(info["n_devices"], info["n_pods"])
+    with tracer, torch.no_grad():
+        params = setup.place_params(T.tree_map(_fake_like,
+                                               setup.abstract_params))
+        batch = setup.place_batch({k: _fake_like(v) for k, v in
+                                   prefill_specs(arch, shape).items()})
+        tracer.begin((params, batch))
+        with setup.scope():
+            if arch.module == "encdec":
+                out, _ = encdec.forward(params, cfg, batch["tokens"],
+                                        batch["audio_emb"])
+            else:
+                out = fns.prefill(params, cfg, batch["tokens"],
+                                  shape.seq_len,
+                                  positions=batch.get("positions"),
+                                  patch_emb=batch.get("patch_emb"))
+        rec = tracer.end(out)
+    return rec, None, setup
+
+
+def lower_decode(arch: Arch, shape: InputShape, mesh):
+    """Trace one decode step of ``shape`` (one token a row over a cache of
+    ``seq_len`` positions) on ``mesh`` under ``serve_rules`` -> ``(record,
+    None, setup)``.  The cache is placed by ``cache_logical_axes``, as the
+    reference's ``spec_tree_for_params``; the step updates it in place."""
+    setup = C.make_serve_setup(arch, mesh)
+    cfg, fns = setup.cfg, setup.fns
+    info = mesh_info(mesh)
+    tracer = _Tracer(info["n_devices"], info["n_pods"])
+    with tracer, torch.no_grad():
+        params = setup.place_params(T.tree_map(_fake_like,
+                                               setup.abstract_params))
+        abstract = fns.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+        cache = setup.place_cache(T.tree_map(_fake_like, abstract),
+                                  shape.seq_len)
+        batch = setup.place_batch({k: _fake_like(v) for k, v in
+                                   decode_specs(arch, shape).items()})
+        tracer.begin((params, batch["token"], cache, batch["cache_pos"]))
+        with setup.scope():
+            logits, cache = fns.decode_step(params, cfg, batch["token"],
+                                            cache, batch["cache_pos"])
+        rec = tracer.end((logits, cache))
+    return rec, None, setup
+
+
+def _lower_for(arch: Arch, shape: InputShape, mesh, *, sync: SyncConfig,
+               optimizer: str, config_overrides: Optional[dict]):
+    """The step records of ``shape``'s kind: ``lower_train``'s, or a
+    serving step's (the overrides on a copy of the arch)."""
+    if shape.kind == "train":
+        return lower_train(arch, shape, mesh, sync=sync, optimizer=optimizer,
+                           config_overrides=config_overrides)
+    if config_overrides:
+        arch = Arch(name=arch.name,
+                    config=arch.config.replace(**config_overrides),
+                    smoke=arch.smoke, module=arch.module)
+    if shape.kind == "prefill":
+        return lower_prefill(arch, shape, mesh)
+    return lower_decode(arch, shape, mesh)
+
+
 def _extrapolate_costs(arch: Arch, shape: InputShape, mesh, *,
                        sync: SyncConfig, optimizer: str,
                        base_overrides: Optional[dict]) -> Dict:
-    """The reference's extrapolation of the train step from one-group and
+    """The reference's extrapolation of the step from one-group and
     two-group variants (``_combine``).  The reference needs it because
     XLA's CPU cost analysis counts a scanned loop's body once; the port
     runs every layer, so the record's own counts are the full-depth ones,
@@ -378,11 +468,11 @@ def _extrapolate_costs(arch: Arch, shape: InputShape, mesh, *,
     def one(n_layers: int) -> Dict:
         ov = dict(base_overrides or {})
         ov.update({"n_layers": n_layers, "scan_layers": False})
-        train, _, _ = lower_train(arch, shape, mesh, sync=sync,
-                                  optimizer=optimizer, config_overrides=ov)
-        coll = train["collectives"]
-        return {"flops": train["cost"]["flops"],
-                "bytes": train["cost"]["bytes accessed"],
+        step, _, _ = _lower_for(arch, shape, mesh, sync=sync,
+                                optimizer=optimizer, config_overrides=ov)
+        coll = step["collectives"]
+        return {"flops": step["cost"]["flops"],
+                "bytes": step["cost"]["bytes accessed"],
                 "collective_bytes": float(coll["total_bytes"]),
                 "cross_pod_bytes": float(coll["cross_pod_bytes"]),
                 "bytes_by_kind": coll["bytes_by_kind"]}
@@ -408,36 +498,33 @@ def _extrapolate_costs(arch: Arch, shape: InputShape, mesh, *,
 
 def run_one(arch_name: str, shape_name: str, mesh_kind: str, *,
             sync_strategy: str = "ama", sync_interval: int = 8,
+            sync_compress: float = 0.0,
             optimizer: str = "sgd", tag: str = "",
             config_overrides: Optional[dict] = None,
-            out_dir: Optional[str] = None) -> Dict:
-    """One record: its static fields, then the traced train step and sync
-    round, their extrapolation from one and two layer groups, and
-    ``status`` (``"ok"``, ``"skipped"``, or ``"error"`` with the
-    traceback); written by :func:`_write` and returned."""
+            out_dir: Optional[str] = None,
+            extrapolate: bool = True) -> Dict:
+    """One record: its static fields, then the traced step (and, for a
+    training shape, the sync round), the extrapolation from one and two
+    layer groups, and ``status`` (``"ok"``, ``"skipped"``, or ``"error"``
+    with the traceback); written by :func:`_write` and returned."""
     arch = get_arch(arch_name)
     shape = INPUT_SHAPES[shape_name]
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"the dry run of a {shape.kind} shape ({shape_name}) is not "
-            f"ported: serving under serve_rules on a mesh is ROADMAP.md "
-            f"Queue 1 item 15b-4")
     multi = mesh_kind == "multi_pod"
     with fake_group(512 if multi else 256):
         mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
         info = mesh_info(mesh)
         ok, reason = shape_supported(arch, shape_name)
-        sync = SyncConfig(sync_strategy, sync_interval)
         rec: Dict = {
             "arch": arch_name, "shape": shape_name, "mesh": mesh_kind,
             "mesh_info": info, "tag": tag,
             "params": arch.config.param_count(),
             "active_params": arch.config.active_param_count(),
-            "sync": {"strategy": sync.strategy, "interval": sync.interval,
-                     "compress_topk": sync.compress_topk},
+            "sync": {"strategy": sync_strategy, "interval": sync_interval,
+                     "compress_topk": sync_compress},
             "optimizer": optimizer,
             "config_overrides": config_overrides or {},
-            "tokens": shape.global_batch * shape.seq_len,
+            "tokens": (shape.global_batch * shape.seq_len
+                       if shape.kind != "decode" else shape.global_batch),
         }
         if not ok:
             rec["status"] = "skipped"
@@ -446,19 +533,23 @@ def run_one(arch_name: str, shape_name: str, mesh_kind: str, *,
             return rec
 
         t0 = time.time()
+        sync = SyncConfig(sync_strategy, sync_interval,
+                          compress_topk=sync_compress)
         try:
-            train, sync_rec, _ = lower_train(
+            step, sync_rec, _ = _lower_for(
                 arch, shape, mesh, sync=sync, optimizer=optimizer,
                 config_overrides=config_overrides)
             rec["lower_s"] = round(time.time() - t0, 2)
-            rec.update(train)
+            rec.update(step)
             rec["status"] = "ok"
-            rec["sync_step"] = sync_rec
-            t2 = time.time()
-            rec["extrapolated"] = _extrapolate_costs(
-                arch, shape, mesh, sync=sync, optimizer=optimizer,
-                base_overrides=config_overrides)
-            rec["extrapolate_s"] = round(time.time() - t2, 2)
+            if sync_rec is not None:
+                rec["sync_step"] = sync_rec
+            if extrapolate:
+                t2 = time.time()
+                rec["extrapolated"] = _extrapolate_costs(
+                    arch, shape, mesh, sync=sync, optimizer=optimizer,
+                    base_overrides=config_overrides)
+                rec["extrapolate_s"] = round(time.time() - t2, 2)
         except Exception as e:
             # a sweep goes on past one failed combination: recorded
             rec["status"] = "error"
@@ -481,14 +572,81 @@ def _write(rec: Dict, out_dir: Optional[str] = None) -> None:
           f"-> {rec['status']} ({rec.get('total_s', 0)}s)", flush=True)
 
 
-def main():
+def _row(rec: Dict) -> str:
+    """One record as a row of the sweep's table: status, per-rank argument
+    + temp GB, flops, in-pod collective GB and cross-pod bytes of the step
+    (and of a training shape's sync round)."""
+    head = f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | "
+    if rec["status"] != "ok":
+        why = rec.get("skip_reason") or rec.get("error", "")
+        return head + f"{rec['status']} ({why[:90]}) | - | - | - | - |"
+    mem, coll = rec["memory"], rec["collectives"]
+    need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    in_pod = coll["total_bytes"] - coll["cross_pod_bytes"]
+    cross = f"{coll['cross_pod_bytes']:,}"
+    if "sync_step" in rec:
+        cross += (f" (round "
+                  f"{rec['sync_step']['collectives']['cross_pod_bytes']:,})")
+    return (head + f"ok, {rec['extrapolated']['n_groups']} groups | "
+            f"{need / 1e9:.2f} | {rec['cost']['flops']:.4g} | "
+            f"{in_pod / 1e9:.2f} | {cross} |")
+
+
+def _sweep(jobs: list, args) -> int:
+    """Each (arch, shape, mesh) of ``jobs`` through this command line in a
+    process of its own (the fake group is the process's default group),
+    ``args.jobs`` at a time, its output in ``<record>.log`` beside the
+    record; then one table row a record.  Returns 1 if a run exits
+    non-zero."""
+    out_dir = os.path.abspath(args.out_dir or OUT_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    tag = f"__{args.tag}" if args.tag else ""
+
+    def one(job):
+        a, s, m = job
+        with open(os.path.join(out_dir, f"{a}__{s}__{m}{tag}.log"),
+                  "w") as log:
+            return subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 a, "--shape", s, "--mesh", m, "--sync", args.sync,
+                 "--interval", str(args.interval), "--optimizer",
+                 args.optimizer, "--tag", args.tag, "--out-dir", out_dir],
+                env=env, stdout=log, stderr=subprocess.STDOUT).returncode
+
+    t0 = time.time()
+    with ThreadPoolExecutor(args.jobs) as pool:
+        rcs = list(pool.map(one, jobs))
+    print(f"[dryrun] {len(jobs)} runs in {time.time() - t0:.1f} s, "
+          f"{args.jobs} at a time, torch {torch.__version__}")
+    print("| arch | shape | mesh | status | argument + temp GB a rank | "
+          "flops a step | in-pod collective GB a step | cross-pod B |")
+    print("|---|---|---|---|---|---|---|---|")
+    for a, s, m in jobs:
+        path = os.path.join(out_dir, f"{a}__{s}__{m}{tag}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                print(_row(json.load(f)))
+    failed = [(job, rc) for job, rc in zip(jobs, rcs) if rc != 0]
+    for (a, s, m), rc in failed:
+        print(f"[dryrun] {a} {s} {m} exited {rc}, see "
+              f"{os.path.join(out_dir, f'{a}__{s}__{m}{tag}.log')}")
+    return 1 if failed else 0
+
+
+def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(INPUT_SHAPES))
     ap.add_argument("--mesh", choices=list(_MESHES), default="single_pod")
     ap.add_argument("--all", action="store_true",
-                    help="sweep: every arch x the training shapes x both "
-                         "meshes")
+                    help="sweep: every arch x shape x both meshes, each in "
+                         "a process of its own")
+    ap.add_argument("--jobs", type=int, default=4,
+                    help="--all: runs at a time")
     ap.add_argument("--sync", default="ama")
     ap.add_argument("--interval", type=int, default=8)
     ap.add_argument("--optimizer", default="sgd")
@@ -499,25 +657,30 @@ def main():
 
     if args.all:
         jobs = [(a, s, m) for a in ARCH_IDS for s in INPUT_SHAPES
-                if INPUT_SHAPES[s].kind == "train" for m in _MESHES]
+                for m in _MESHES]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape, or --all")
         jobs = [(args.arch, args.shape, args.mesh)]
+    if args.skip_existing:
+        tag = f"__{args.tag}" if args.tag else ""
 
-    for a, s, m in jobs:
-        if args.skip_existing:
-            tag = f"__{args.tag}" if args.tag else ""
+        def done(job):
             p = os.path.join(os.path.abspath(args.out_dir or OUT_DIR),
-                             f"{a}__{s}__{m}{tag}.json")
-            if os.path.exists(p):
-                with open(p) as f:
-                    if json.load(f).get("status") in ("ok", "skipped"):
-                        continue
+                             "__".join(job) + f"{tag}.json")
+            if not os.path.exists(p):
+                return False
+            with open(p) as f:
+                return json.load(f).get("status") in ("ok", "skipped")
+        jobs = [j for j in jobs if not done(j)]
+    if args.all:
+        return _sweep(jobs, args)
+    for a, s, m in jobs:
         run_one(a, s, m, sync_strategy=args.sync,
                 sync_interval=args.interval, optimizer=args.optimizer,
                 tag=args.tag, out_dir=args.out_dir)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.sharding.rules import (merge_dims, replicate, shard,
+from repro_torch.sharding.rules import (axis_group, is_dtensor,
+                                        local_region, logical_to_spec,
+                                        merge_dims, replicate, shard,
                                         split_dim)
 
 
@@ -141,21 +143,121 @@ def attn_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return torch.where(ok, zero, neg)[:, None, :, :]
 
 
-def sdpa_reference(q, k, v, bias, softcap: float = 0.0) -> torch.Tensor:
-    """Plain scaled-dot-product attention in f32 with GQA.
-
-    q: (B, Sq, H, Dh); k, v: (B, Sk, K, Dh); bias: (B, 1, Sq, Sk)."""
+def _sdpa_plain(q, k, v, bias, softcap: float) -> torch.Tensor:
     B, Sq, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
-    qh = split_dim(q, 2, (K, G))
+    qh = q.reshape(B, Sq, K, G, Dh)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qh.float(),
                           k.float()) / math.sqrt(Dh)
     logits = _softcap(logits, softcap)
     logits = logits + bias[:, :, None, :, :]
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return merge_dims(out, 2, 2).to(q.dtype)
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _kv_layout(kv: torch.Tensor, seq_axis: Optional[str] = None):
+    """How a placed K/V tensor ``(B, S, K, Dh)`` (a cache leaf, its
+    sequence named ``seq_axis``) lies on its mesh: (the logical name of
+    its heads, sharded as the kv heads are or None, and ``axis_group`` of
+    its sequence: None when whole).  A query's heads take the same name,
+    so that each query head's group is on the rank of its kv head."""
+    if not is_dtensor(kv):
+        return "kv_heads", None
+    spec = logical_to_spec(tuple(kv.shape), ("batch", seq_axis, "kv_heads",
+                                             None), mesh=kv.device_mesh)
+    return ("kv_heads" if spec[2] is not None else None,
+            axis_group(kv.device_mesh, spec[1]))
+
+
+def sdpa_reference(q, k, v, bias, softcap: float = 0.0) -> torch.Tensor:
+    """Plain scaled-dot-product attention in f32 with GQA.
+
+    q: (B, Sq, H, Dh); k, v: (B, Sk, K, Dh); bias: (B, 1, Sq, Sk).  On a
+    mesh it runs on each rank's rows and kv heads
+    (:func:`~repro_torch.sharding.rules.local_region`): attention needs no
+    communication there."""
+    ref = next((t for t in (q, k, v) if is_dtensor(t)), None)
+    if ref is None:
+        return _sdpa_plain(q, k, v, bias, softcap)
+    qh = _kv_layout(k)[0] if is_dtensor(k) else None
+    kv = ("batch", None, qh, None)
+    return local_region(
+        lambda q, k, v, b: _sdpa_plain(q, k, v, b, softcap),
+        (q, k, v, bias), (("batch", None, qh, None), kv, kv,
+                          ("batch", None, None, None)),
+        [(("batch", None, qh, None), tuple(q.shape))])
+
+
+def _decode_attend(q, k_new, v_new, cache, pos, tok_pos, *,
+                   window: Optional[int], softcap: float, cdt,
+                   seq_axis: Optional[str]) -> torch.Tensor:
+    """Write each row's new K/V at its slot and attend over its valid
+    slots (``attention_apply``'s decode mode).  On a mesh, each rank
+    writes and reads its local shard of the cache in place: the rank
+    whose range of the sequence (``seq_axis``, ``"cache_seq"`` for a full
+    cache) holds a row's slot writes it, with no host read of ``pos``;
+    the softmax's max and sum and the output are all-reduced over the
+    sequence's mesh axis, so K and V are never gathered."""
+    B = q.shape[0]
+    C = cache.k.shape[1]
+    ring = window is not None and C == window
+    cache_names = ("batch", seq_axis, "kv_heads", None)
+    qh, split = _kv_layout(cache.k, seq_axis)
+    group, ways, coord = split if split is not None else (None, 1, 0)
+
+    def attend(q, kn, vn, ck, cv, pos, tpos):
+        Bl, Cl = ck.shape[0], ck.shape[1]
+        off = coord * Cl
+        slot = torch.remainder(pos, C) if ring else torch.clamp(pos,
+                                                                max=C - 1)
+        rows = torch.arange(Bl, device=ck.device)
+        if ways == 1:
+            ck.index_put_((rows, slot), kn[:, 0].to(ck.dtype))
+            cv.index_put_((rows, slot), vn[:, 0].to(cv.dtype))
+        else:
+            loc = slot - off
+            own = ((loc >= 0) & (loc < Cl))[:, None, None]
+            idx = torch.clamp(loc, 0, Cl - 1)
+            for c, new in ((ck, kn), (cv, vn)):
+                c.index_put_((rows, idx), torch.where(
+                    own, new[:, 0].to(c.dtype), c[rows, idx]))
+        slots = off + torch.arange(Cl, device=ck.device)[None]
+        if ring:
+            # slot j holds absolute position p = pos - ((pos - j) mod C)
+            k_pos = pos[:, None] - torch.remainder(pos[:, None] - slots, C)
+            k_valid = k_pos >= 0
+        else:
+            k_pos = slots.expand(Bl, Cl)
+            k_valid = slots <= pos[:, None]
+        bias = attn_bias(tpos, k_pos, k_valid, causal=True, window=window)
+        if ways == 1:
+            return _sdpa_plain(q, ck.to(cdt), cv.to(cdt), bias, softcap)
+        from torch.distributed import _functional_collectives as funcol
+
+        Hl, Dh = q.shape[2], q.shape[3]
+        Kl = ck.shape[2]
+        qg = q.reshape(Bl, 1, Kl, Hl // Kl, Dh)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                              ck.to(cdt).float()) / math.sqrt(Dh)
+        logits = _softcap(logits, softcap) + bias[:, :, None, :, :]
+        m = funcol.all_reduce(logits.amax(dim=-1, keepdim=True), "max",
+                              group)
+        p = torch.exp(logits - m)
+        denom = funcol.all_reduce(p.sum(dim=-1, keepdim=True), "sum", group)
+        out = funcol.all_reduce(torch.einsum(
+            "bkgqs,bskd->bqkgd", p / denom, cv.to(cdt).float()), "sum",
+            group)
+        return out.reshape(Bl, 1, Hl, Dh).to(q.dtype)
+
+    pos = pos.expand(B) if pos.dim() == 0 else pos
+    return local_region(
+        attend, (q, k_new, v_new, cache.k, cache.v, pos, tok_pos),
+        (("batch", None, qh, None), ("batch", None, qh, None),
+         ("batch", None, qh, None), cache_names, cache_names, ("batch",),
+         ("batch", None)),
+        [(("batch", None, qh, None), tuple(q.shape))])
 
 
 class KVCache(NamedTuple):
@@ -304,28 +406,35 @@ def attention_apply(params: dict, cfg: ModelConfig, spec: LayerSpec,
     # ------------------------------------------------------------- decode
     if S != 1:
         raise ValueError(f"decode expects one query token, got {S}")
-    C = cache.k.shape[1]
-    ring = spec.window is not None and C == spec.window
     pos = torch.as_tensor(cache_pos, device=x.device).long()
-    pos = pos.expand(B) if pos.dim() == 0 else pos
-    slot = torch.remainder(pos, C) if ring else torch.clamp(pos, max=C - 1)
-    rows = torch.arange(B, device=x.device)
-    cache.k.index_put_((rows, slot), k[:, 0].to(cache.k.dtype))
-    cache.v.index_put_((rows, slot), v[:, 0].to(cache.v.dtype))
+    out = _decode_attend(q, k, v, cache, pos, tok_pos, window=spec.window,
+                         softcap=cfg.attn_softcap, cdt=cdt,
+                         seq_axis="cache_seq" if spec.window is None
+                         else None)
+    return merge_dims(out, 2, 2) @ params["wo"].to(cdt), cache
 
-    slots = torch.arange(C, device=x.device)[None]
-    if ring:
-        # slot j holds absolute position p = pos - ((pos - j) mod C)
-        k_pos = pos[:, None] - torch.remainder(pos[:, None] - slots, C)
-        k_valid = k_pos >= 0
-    else:
-        k_pos = slots.expand(B, C)
-        k_valid = slots <= pos[:, None]
-    bias = attn_bias(tok_pos, k_pos, k_valid, causal=True,
-                     window=spec.window)
-    out = sdpa_reference(q, cache.k.to(cdt), cache.v.to(cdt), bias,
-                         softcap=cfg.attn_softcap)
-    return out.reshape(B, S, H * Dh) @ params["wo"].to(cdt), cache
+
+def fill_kv_cache(dst: torch.Tensor, src: torch.Tensor,
+                  seq_axis: Optional[str]) -> None:
+    """The prompt's K or V ``src`` ``(B, Sq, K, Dh)`` into an empty cache
+    leaf ``dst`` ``(B, C, K, Dh)``, in place: slots ``0..Sq-1`` when the
+    cache holds the prompt, else (a ring buffer shorter than the prompt)
+    the tail, rolled so that slot j holds position p = j (mod C).  On a
+    mesh each rank fills its own shard of the sequence (``seq_axis``)."""
+    C, Sq = dst.shape[1], src.shape[1]
+    heads, split = _kv_layout(dst, seq_axis)
+    coord = split[2] if split is not None else 0
+
+    def fill(d, s):
+        if C >= Sq:
+            part = s[:, coord * d.shape[1]:(coord + 1) * d.shape[1]]
+            d[:, :part.shape[1]] = part
+        else:
+            d.copy_(torch.roll(s[:, -C:], Sq % C, dims=1))
+        return ()
+
+    local_region(fill, (dst, src), (("batch", seq_axis, "kv_heads", None),
+                                    ("batch", None, heads, None)), [])
 
 
 def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -366,6 +475,55 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
+def _sharded_lookup(tokens: torch.Tensor, table: torch.Tensor
+                    ) -> torch.Tensor:
+    """``F.embedding(tokens, table)`` on a table placed by ``("vocab",
+    "fsdp")``, without gathering it: each rank looks up the rows of its
+    vocab shard (zeros for the others' tokens), and the partial rows are
+    all-reduced over the vocab's axis, one of them nonzero, so the sum is
+    exact.  Where the batch and the table's columns share the ``"data"``
+    axis, the tokens of the ranks along it are gathered first and an
+    all-to-all returns each its rows with every column."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = table.device_mesh
+    t_spec = logical_to_spec(tuple(table.shape), ("vocab", "fsdp"),
+                             mesh=mesh)
+    b_spec = logical_to_spec(tuple(tokens.shape), ("batch", None), mesh=mesh)
+    vocab = axis_group(mesh, t_spec[0])
+    cols = axis_group(mesh, t_spec[1])
+    batch_axes = (() if b_spec[0] is None else (b_spec[0],)
+                  if isinstance(b_spec[0], str) else b_spec[0])
+    swap = cols is not None and t_spec[1] in batch_axes
+
+    def lookup(tok, tab):
+        if swap:
+            gather = getattr(funcol, "all_gather_single",
+                             funcol.all_gather_tensor)
+            tok = gather(tok.contiguous(), 0, cols[0])
+        Vl = tab.shape[0]
+        rows = tok.long() - (vocab[2] * Vl if vocab is not None else 0)
+        ok = ((rows >= 0) & (rows < Vl))[..., None]
+        emb = torch.where(ok, F.embedding(torch.clamp(rows, 0, Vl - 1),
+                                          tab), 0.0).to(tab.dtype)
+        if vocab is not None:
+            emb = funcol.all_reduce(emb, "sum", vocab[0])
+        if swap:
+            n = cols[1]
+            emb = funcol.all_to_all_single(emb.contiguous(), None, None,
+                                           cols[0])
+            mid, Dl = tuple(emb.shape[1:-1]), emb.shape[-1]
+            Bl = emb.shape[0] // n
+            emb = torch.movedim(emb.reshape(n, Bl, *mid, Dl), 0, -2)
+            emb = emb.reshape(Bl, *mid, n * Dl)
+        return emb
+
+    return local_region(lookup, (tokens, table),
+                        (("batch", None), ("vocab", "fsdp")),
+                        [(("batch", None, "fsdp"),
+                          tuple(tokens.shape) + (table.shape[1],))])
+
+
 def embed_apply(params: dict, cfg: ModelConfig,
                 tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings in the compute dtype.  ``embed_impl="onehot"`` is
@@ -380,12 +538,17 @@ def embed_apply(params: dict, cfg: ModelConfig,
         oh = shard(oh, "batch", "seq", "vocab")
         emb = oh @ params["tokens"].to(cdt)
     elif cfg.embed_impl == "gather":
-        # on a mesh the lookup reads the table gathered (indexing gathers
-        # it too), through ``F.embedding``: torch 2.11's DTensor rules
-        # raise in the backward of indexing (``index_put``) and of a
-        # lookup in a vocab-sharded table (a masked partial sum); the rows
-        # are the same
-        emb = F.embedding(tokens, replicate(params["tokens"].to(cdt)))
+        # on a mesh, with a gradient to take, the lookup reads the table
+        # gathered (indexing gathers it too), through ``F.embedding``:
+        # torch 2.11's DTensor rules raise in the backward of indexing
+        # (``index_put``) and of a lookup in a vocab-sharded table (a
+        # masked partial sum).  Without one (serving), the table is never
+        # gathered (:func:`_sharded_lookup`).  The rows are the same
+        table = params["tokens"].to(cdt)
+        if torch.is_grad_enabled() or not is_dtensor(table):
+            emb = F.embedding(tokens, replicate(table))
+        else:
+            emb = _sharded_lookup(tokens, table)
     else:
         raise ValueError(f"unknown embed_impl {cfg.embed_impl!r}")
     if cfg.tie_embeddings:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
+from repro_torch.sharding.rules import local_region, shard
 
 
 class SSMCache(NamedTuple):
@@ -157,6 +158,24 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor,
     return F.silu(out.float()).to(seq.dtype)
 
 
+# logical names of the SSD's head-parallel operands, (B, S, H, P|N), and of
+# its state, (B, H, P, N): on a mesh the SSD runs on each rank's rows and
+# heads (``local_region``), where its ops need no rule of DTensor's
+_HEADS = ("batch", None, "ssm_heads", None)
+_STATE = ("batch", "ssm_heads", None, None)
+
+
+def _recurrent_step(state, a, Bm, x_dt, Cm):
+    """One token of the recurrence: state = state * exp(a) + B ⊗ x_dt,
+    y = C · state.  a ``(B, H)``, Bm and Cm ``(B, H, N)``, x_dt
+    ``(B, H, P)`` -> (y ``(B, 1, H, P)``, state f32)."""
+    st = state.float()
+    st = st * torch.exp(a[:, :, None, None]) + torch.einsum(
+        "bhn,bhp->bhpn", Bm.float(), x_dt)
+    y = torch.einsum("bhn,bhpn->bhp", Cm.float(), st)[:, None]
+    return y, st
+
+
 def ssm_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
               cache: Optional[SSMCache] = None, *, use_kernel: bool = False
               ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
@@ -176,7 +195,10 @@ def ssm_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     cdt = cfg.dtype("compute")
     x = x.to(cdt)
 
-    zxbcdt = x @ params["in_proj"].to(cdt)
+    # on a mesh the layer's activations keep one layout, rows over the
+    # batch axes and every channel whole: left to DTensor, its layout
+    # choices here cost minutes of host time in the products
+    zxbcdt = shard(x @ params["in_proj"].to(cdt), "batch", "seq", None)
     z, xs, Bc, Cc, dt = torch.split(zxbcdt, [d_in, d_in, G * N, G * N, H],
                                     dim=-1)
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)           # (B, S, conv_ch)
@@ -215,24 +237,29 @@ def ssm_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     init_state = cache.state if cache is not None else None
 
     if S == 1 and cache is not None:
-        # recurrent decode: state = state*exp(a) + B ⊗ x_dt ; y = C · state
-        st = cache.state.float()
-        st = st * torch.exp(a[:, 0, :, None, None]) + torch.einsum(
-            "bhn,bhp->bhpn", Bh[:, 0].float(), x_dt[:, 0])
-        y = torch.einsum("bhn,bhpn->bhp", Ch[:, 0].float(), st)[:, None]
-        final_state = st
+        y, final_state = local_region(
+            _recurrent_step, (cache.state, a[:, 0], Bh[:, 0], x_dt[:, 0],
+                              Ch[:, 0]),
+            (_STATE, _HEADS[:1] + _HEADS[2:3], _HEADS[:1] + _HEADS[2:],
+             _HEADS[:1] + _HEADS[2:], _HEADS[:1] + _HEADS[2:]),
+            [(_HEADS, (B_, 1, H, P)), (_STATE, tuple(cache.state.shape))])
     elif use_kernel:
         from repro_torch.kernels import ops
 
         y, final_state = ops.ssd_scan(x_dt, a, Bh, Ch, chunk=c.chunk_size,
                                       init_state=init_state)
     else:
-        y, final_state = ssd_chunked(x_dt, a, Bh, Ch,
-                                     chunk=min(c.chunk_size, S),
-                                     init_state=init_state)
+        L = min(c.chunk_size, S)
+        y, final_state = local_region(
+            lambda x, a, b, c, s: ssd_chunked(x, a, b, c, chunk=L,
+                                              init_state=s),
+            (x_dt, a, Bh, Ch, init_state),
+            (_HEADS, _HEADS[:3], _HEADS, _HEADS, _STATE),
+            [(_HEADS, tuple(x_dt.shape)), (_STATE, (B_, H, P, N))])
 
     y = y + xs.float() * params["D_skip"][None, None, :, None]
-    y = y.reshape(B_, S, d_in).to(cdt)
+    # the heads whole again: the gate's norm runs over all of d_in
+    y = shard(y.reshape(B_, S, d_in).to(cdt), "batch", "seq", None)
     y = y * F.silu(z.float()).to(cdt)
     y = rmsnorm(params["gate_norm"], y, cfg.norm_eps)
     out = y @ params["out_proj"].to(cdt)

@@ -47,7 +47,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SS
 from repro_torch.models.config import ATTN, LayerSpec, ModelConfig
-from repro_torch.sharding.rules import LA, shard
+from repro_torch.sharding.rules import (LA, is_dtensor, shard, split_dim,
+                                        zeros)
 
 Params = Dict[str, Any]
 
@@ -362,19 +363,25 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cuda") -> Params:
+               device="cuda", like: Optional[torch.Tensor] = None
+               ) -> Params:
     """Cache tree: per pattern position, one ``KVCache`` (attention) or
     ``SSMCache`` (SSM) whose leaves carry a leading group axis, as the
-    reference's."""
+    reference's.  When ``like`` is a DTensor (a placed prompt), each leaf
+    is a DTensor on its mesh placed by :func:`cache_logical_axes` under
+    the current rules, and each rank allocates only its shard."""
     check_supported(cfg)
+    axes = cache_logical_axes(cfg, seq_len)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
         if spec.kind == ATTN:
-            one = L.init_kv_cache(cfg, spec, batch, seq_len, device=device)
+            one = L.init_kv_cache(cfg, spec, batch, seq_len, device="meta")
         else:
-            one = SS.init_ssm_cache(cfg, batch, device=device)
-        caches[f"pos{i}"] = type(one)(
-            *(x.new_zeros((cfg.n_groups, *x.shape)) for x in one))
+            one = SS.init_ssm_cache(cfg, batch, device="meta")
+        caches[f"pos{i}"] = type(one)(*(
+            zeros((cfg.n_groups, *x.shape), names, dtype=x.dtype,
+                  device=device, like=like)
+            for x, names in zip(one, axes[f"pos{i}"])))
     return caches
 
 
@@ -427,10 +434,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     B, Sq = tokens.shape
     positions = _positions_for(cfg, tokens, positions)
-    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    cache = init_cache(cfg, B, cache_len, device=tokens.device, like=tokens)
     cdt = cfg.dtype("compute")
     K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     h = _embed(params, cfg, tokens, patch_emb)
+    # kernels refuse placed tensors: on a mesh the SSD runs its plain path
+    use_kernel = not is_dtensor(h)
     for g in range(cfg.n_groups):
         caches = _group_cache(cache, g)
         for i, spec in enumerate(cfg.pattern):
@@ -438,21 +447,16 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             c = caches[f"pos{i}"]
             if spec.kind != ATTN:
                 h, _ = _apply_position(p, cfg, spec, h, positions, cache=c,
-                                       use_ssm_kernel=True)
+                                       use_ssm_kernel=use_kernel)
                 continue
             hn = L.rmsnorm(p["ln1"], h, cfg.norm_eps)
             out, _ = L.attention_apply(p["attn"], cfg, spec, hn, positions)
-            k = (hn @ p["attn"]["wk"].to(cdt)).reshape(B, Sq, K, Dh)
-            v = (hn @ p["attn"]["wv"].to(cdt)).reshape(B, Sq, K, Dh)
+            k = split_dim(hn @ p["attn"]["wk"].to(cdt), 2, (K, Dh))
+            v = split_dim(hn @ p["attn"]["wv"].to(cdt), 2, (K, Dh))
             k = L.position_embed(cfg, k, positions)
-            C = c.k.shape[1]
-            if C >= Sq:
-                c.k[:, :Sq] = k
-                c.v[:, :Sq] = v
-            else:
-                shift = Sq % C
-                c.k.copy_(torch.roll(k[:, -C:], shift, dims=1))
-                c.v.copy_(torch.roll(v[:, -C:], shift, dims=1))
+            seq_axis = "cache_seq" if spec.window is None else None
+            L.fill_kv_cache(c.k, k, seq_axis)
+            L.fill_kv_cache(c.v, v, seq_axis)
             h, _ = _ffn(p, cfg, spec, h + out)
     h = L.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return L.unembed_apply(params["embed"], cfg, h)[:, 0], cache

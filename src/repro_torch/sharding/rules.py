@@ -316,6 +316,92 @@ def replicated_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def _contiguous_stride(shape: Sequence[int]) -> tuple:
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= s
+    return tuple(reversed(stride))
+
+
+def local_region(fn: Callable, args: Sequence[Optional[torch.Tensor]],
+                 arg_axes: Sequence[Optional[Sequence[Optional[str]]]],
+                 outs: Sequence[Tuple[Sequence[Optional[str]],
+                                      Sequence[int]]]):
+    """``fn`` on this rank's local parts, where the computation splits
+    along the sharded dimensions with no communication (attention per row
+    and head, the SSD per row and head), or posts its own collectives.
+
+    Without a DTensor among ``args`` this is ``fn(*args)``.  Otherwise each
+    tensor of ``args`` is placed by the spec of its logical names
+    ``arg_axes`` (a plain tensor is taken as replicated; None passes
+    through), ``fn`` runs on the local tensors, and each of its outputs
+    becomes a DTensor placed by ``outs``' (logical names, global shape).
+    DTensor's own rules never see the ops inside, so no reshape there
+    flattens two sharded dimensions and no backward views an uneven
+    shard; gradients come back in the placements given here."""
+    ref = next((a for a in args if is_dtensor(a)), None)
+    if ref is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    local = []
+    for a, names in zip(args, arg_axes):
+        if a is None:
+            local.append(None)
+            continue
+        want = placements_for(logical_to_spec(tuple(a.shape), names,
+                                              mesh=mesh), mesh)
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if tuple(a.placements) != want:
+            a = a.redistribute(mesh, want)
+        local.append(a.to_local())
+    res = fn(*local)
+    single = not isinstance(res, tuple)
+    res = (res,) if single else res
+    placed = tuple(
+        DTensor.from_local(
+            r.contiguous(), mesh, placements_for(logical_to_spec(
+                tuple(shape), names, mesh=mesh), mesh), run_check=False,
+            shape=torch.Size(shape), stride=_contiguous_stride(shape))
+        for r, (names, shape) in zip(res, outs))
+    return placed[0] if single else placed
+
+
+def axis_group(mesh, spec_entry: Axis):
+    """(the process group of a spec entry's one mesh axis, its size, this
+    rank's coordinate on it), or None for an entry that shards nothing.
+    An entry over several axes raises: the callers split one dimension
+    over one axis."""
+    if spec_entry is None:
+        return None
+    names = (spec_entry,) if isinstance(spec_entry, str) else spec_entry
+    if len(names) != 1:
+        raise NotImplementedError(f"a dimension split over {names}")
+    return (mesh.get_group(names[0]), mesh.size(
+        tuple(mesh.mesh_dim_names).index(names[0])),
+        mesh.get_local_rank(names[0]))
+
+
+def zeros(shape: Sequence[int], logical: Sequence[Optional[str]], *,
+          dtype, device, like: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """Zeros of ``shape``: a plain tensor, or, when ``like`` is a DTensor,
+    a DTensor on its mesh placed by the spec of ``logical``, each rank
+    allocating only its own part."""
+    if not is_dtensor(like):
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    from torch.distributed.tensor import zeros as placed_zeros
+
+    mesh = like.device_mesh
+    return placed_zeros(tuple(shape), dtype=dtype, device_mesh=mesh,
+                        placements=placements_for(logical_to_spec(
+                            tuple(shape), logical, mesh=mesh), mesh))
+
+
 class NamedSharding:
     """A mesh and a spec, the reference's ``NamedSharding``: what
     :func:`sharding_for` returns and a placement tree holds."""

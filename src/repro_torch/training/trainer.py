@@ -169,11 +169,12 @@ def _write_back(dst: torch.Tensor, src: torch.Tensor) -> None:
 def _ships_shards(sync: SyncConfig) -> bool:
     """Whether a round is elementwise across pods, so that on the mesh it
     can run on each rank's own shard: ``sma`` (its mean ignores the
-    top-k), and ``ama`` and ``asgd_ga`` when they ship dense (no top-k,
-    so no codec either)."""
+    top-k), and ``ama``, ``asgd_ga`` and ``asp`` when they ship dense (no
+    top-k, so no codec either; ``asp``'s significance count is summed
+    over the in-pod ranks, then across pods)."""
     if sync.strategy == "sma":
         return True
-    return (sync.strategy in ("ama", "asgd_ga")
+    return (sync.strategy in ("ama", "asgd_ga", "asp")
             and not 0.0 < sync.compress_topk < 1.0)
 
 
@@ -384,10 +385,9 @@ class Trainer:
         return state, rnd
 
     def _gathered_round(self, state: TrainState):
-        """The round on the state gathered whole (``asp``'s counts are per
-        leaf, a sparse ship's blocks and the codec's buckets span whole
-        leaves), written back into the placed leaves: each rank ships the
-        pod's whole rows."""
+        """The round on the state gathered whole (a sparse ship's blocks
+        and the codec's buckets span whole leaves), written back into the
+        placed leaves: each rank ships the pod's whole rows."""
         # the round hook sees the whole state the round ran on
         whole, rnd = self._plain_round(T.tree_map(whole_local, state))
         T.tree_map(lambda d, w: _write_back(d, w) if is_dtensor(d) else None,

@@ -10,7 +10,11 @@ train state's spec tree, against the reference, leaf for leaf by path.
   reference's ``PartitionSpec``s, for sgd, momentum and adamw and the
   strategies ``asgd_ga``, ``asp``, ``ama`` and ``sma``.  The train state's
   ``step`` (an int in the port) has the axes ``LA(())`` and maps to the
-  empty spec ``()``, no placement, on both sides.
+  empty spec ``()``, no placement, on both sides;
+- ``make_serve_setup``'s placements under ``serve_rules()`` (the
+  parameters, the prefill and decode batches and the decode caches of
+  ``decode_32k`` and ``long_500k``) equal the reference's
+  ``spec_tree_for_params`` on both fake meshes, for every arch.
 
 The reference side runs without devices: a fake mesh object and abstract
 shapes, no ``jax.make_mesh`` and no ``make_train_setup`` (which would flip
@@ -169,3 +173,64 @@ def test_batch_axes_are_the_reference():
         want = JC.batch_axes(jbatch, stacked=stacked)
         assert {k: tuple(v) for k, v in got.items()} == \
             {k: tuple(v) for k, v in want.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_caches(arch_name: str, batch: int, seq: int):
+    """The reference's abstract decode cache, as its ``lower_decode``
+    builds it."""
+    jarch = jget_arch(arch_name)
+    if jarch.module == "encdec":
+        from repro.models import encdec as jencdec
+        return jax.eval_shape(lambda: jencdec.init_cache(jarch.config, batch,
+                                                         seq))
+    jfns = jget_fns(jarch.module)
+    return jax.eval_shape(lambda: jfns.init_cache(jarch.config, batch, seq))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch_name", ARCH_IDS)
+def test_serve_specs_match_the_reference(arch_name, mesh):
+    """``make_serve_setup``'s placement of the parameters, the prefill and
+    decode batches and the decode caches of ``decode_32k`` and (where the
+    arch runs it) ``long_500k`` under ``serve_rules()``, against the
+    reference's ``spec_tree_for_params`` of the same axes: the kv heads
+    yield ``"model"`` to the cache's sequence, and an axis that does not
+    divide (``long_500k``'s batch of 1) is dropped."""
+    from repro.launch import shapes as JS
+    from repro_torch.launch import shapes as S
+
+    arch, jarch = get_arch(arch_name), jget_arch(arch_name)
+    fns, jfns = get_model_fns(arch.module), jget_fns(jarch.module)
+    fake = _fake_mesh(MESHES[mesh])
+    setup = C.make_serve_setup(arch, fake)
+    rules = JC.serve_rules()
+    is_p = lambda x: isinstance(x, P)  # noqa: E731
+
+    def same(got, want):
+        assert [(p, tuple(s.spec)) for p, s in _port_paths(got)] == \
+            [(p, tuple(s)) for p, s in _ref_paths(want, is_p)]
+
+    same(setup.param_sharding, jspec_tree(
+        jfns.param_logical_axes(jarch.config),
+        jfns.abstract_params(jarch.config), rules, fake))
+    for shape_name in ("prefill_32k", "decode_32k", "long_500k"):
+        if not S.shape_supported(arch, shape_name)[0]:
+            continue
+        shape, jshape = S.INPUT_SHAPES[shape_name], JS.INPUT_SHAPES[
+            shape_name]
+        if shape.kind == "prefill":
+            specs, jspecs = S.prefill_specs(arch, shape), \
+                JS.prefill_specs(jarch, jshape)
+        else:
+            specs, jspecs = S.decode_specs(arch, shape), \
+                JS.decode_specs(jarch, jshape)
+            cache = fns.init_cache(arch.config, shape.global_batch,
+                                   shape.seq_len, device="meta")
+            same(setup.cache_sharding(cache, shape.seq_len), jspec_tree(
+                jfns.cache_logical_axes(jarch.config, shape.seq_len),
+                _ref_caches(arch_name, shape.global_batch, shape.seq_len),
+                rules, fake))
+        same(C.batch_sharding(specs, fake, setup.rules, stacked=False),
+             jspec_tree(JC.batch_axes(jspecs, stacked=False), jspecs, rules,
+                        fake))

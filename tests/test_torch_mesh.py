@@ -19,7 +19,7 @@ sync round.
   step count is 1 after one step, and the parameters are finite.
 - **Collectives**: a ring round (``ama``, ``asgd_ga``, ``asp``) sends point
   to point over the pod group and gathers nothing over it (an ``asp``
-  round all-reduces its two counts once); an ``sma`` round all-reduces
+  round all-reduces its count once); an ``sma`` round all-reduces
   over it, and an ``asgd`` step all-reduces its gradients (the seam's
   counts; on (2, 1, 1), where nothing is split inside a pod,
   ``CommDebugMode`` sees no all-gather at all in a ring round and sees the
@@ -62,7 +62,7 @@ SYNCS = {
     "asp": SyncConfig("asp", 2, compress_topk=0.05),
     "asgd": SyncConfig("asgd", 2),
 }
-# the seam's all-reduces in one ring round: ASP's two counts, in one
+# the seam's all-reduces in one ring round: ASP's significance count
 RING_ALL_REDUCES = {"ama": 0, "asgd_ga": 0, "asp": 1}
 
 
@@ -201,9 +201,9 @@ def test_debug_mesh_matches_one_process(arch, strategy, tmp_path):
         _ring_rounds(out, strategy, nothing_in_pod=False)
 
 
-# a dense ``ama``, ``sma`` or ``asgd_ga`` round is elementwise across pods:
-# on (2, 2, 2) each rank ships (or all-reduces) its own shard of every leaf;
-# ``asp`` and the codec keep the round on leaves gathered whole
+# a dense ``ama``, ``sma``, ``asgd_ga`` or ``asp`` round is elementwise
+# across pods: on (2, 2, 2) each rank ships (or all-reduces) its own shard
+# of every leaf; the codec keeps the round on leaves gathered whole
 SHARD_SYNCS = {
     "ama": SyncConfig("ama", 2),
     "sma": SyncConfig("sma", 2),
@@ -247,9 +247,64 @@ def test_split_pod_rounds_ship_own_shard(name, shard_rounds):
         elif name == "sma":
             assert red == [local] * rounds and g_red == [row] * rounds
             assert sent == g_sent == [0] * rounds
+        elif name == "asp":
+            # each rank ships its own shard; its significance count (one
+            # int64) is all-reduced over "data", then "model", then (one
+            # f64) across pods, where the whole-gather round all-reduces
+            # the pods' one f64 count
+            assert sent == [local] * rounds and g_sent == [row] * rounds
+            assert red == [8 + 8 + 8] * rounds and g_red == [8] * rounds
         else:
             # unchanged: the round gathers whole leaves either way
             assert sent == g_sent and red == g_red
             assert all(s > 0 for s in sent)
-            if name == "asp":
-                assert sent == [row] * rounds
+    assert torch.equal(own["significant_frac"],
+                       gathered["significant_frac"])
+
+
+# serving under ``serve_rules`` on (2, 2, 2): 8 rows over ("pod", "data"),
+# the full cache's sequence over "model"; the decode step writes each row's
+# K/V into the rank whose range of the sequence holds it and combines the
+# ranks' softmax by all-reduce (``layers._decode_attend``), so its logits
+# differ from one process's by the order of the sums: held within
+# SERVE_RTOL of max|logit|, the greedy tokens equal
+SERVE_ROWS, SERVE_PROMPT, SERVE_NEW = 8, 16, 4
+SERVE_RTOL = 1e-5
+
+
+def _serve_single(arch: str, params, prompt):
+    from repro_torch.models.registry import get_model_fns
+
+    cfg = get_arch(arch).smoke
+    fns = get_model_fns(get_arch(arch).module)
+    out, toks = [], []
+    with torch.no_grad():
+        logits, cache = fns.prefill(params, cfg, prompt,
+                                    SERVE_PROMPT + SERVE_NEW)
+        for i in range(SERVE_NEW):
+            whole = logits.reshape(SERVE_ROWS, -1)
+            out.append(whole)
+            tok = torch.argmax(whole, dim=-1).to(torch.int32)
+            toks.append(tok)
+            logits, cache = fns.decode_step(params, cfg, tok[:, None], cache,
+                                            SERVE_PROMPT + i)
+        out.append(logits.reshape(SERVE_ROWS, -1))
+    return out, toks
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-1.3b"])
+def test_serving_on_mesh_matches_one_process(arch, tmp_path):
+    job = _job(arch, "ama", (2, 2, 2))
+    params = T.tree_map(lambda x: x[0].clone(), job["params"])
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(
+        0, get_arch(arch).smoke.vocab_size,
+        (SERVE_ROWS, SERVE_PROMPT)).astype(np.int32))
+    out = _launch({"arch": arch, "mesh": (2, 2, 2), "params": params,
+                   "prompt": prompt, "new": SERVE_NEW}, tmp_path)
+    logits, tokens = _serve_single(arch, params, prompt)
+    assert all(out["kept"]) and out["kept"]
+    assert [t.tolist() for t in out["tokens"]] == [t.tolist() for t in tokens]
+    for got, want in zip(out["logits"], logits):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= SERVE_RTOL * scale

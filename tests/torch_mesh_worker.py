@@ -31,6 +31,8 @@ def run(rank: int, world: int, job_file: str, out_file: str) -> None:
     try:
         if "syncs" in job:
             _rounds(rank, job, out_file)
+        elif "prompt" in job:
+            _serve(rank, job, out_file)
         else:
             _run(rank, job, out_file)
     finally:
@@ -70,7 +72,7 @@ def _rounds(rank: int, job: dict, out_file: str) -> None:
     state: the trainer's own rounds (``maybe_sync``), then every round
     through ``_gathered_round``, the path that gathers each leaf whole.
     Per run: the losses, the step counters, every parameter leaf whole,
-    and each rank's bytes shipped point to point and all-reduced
+    ``asp``'s significant fraction, and each rank's bytes shipped point to point and all-reduced
     (``c10d.allreduce_``) in each round beside its local shard bytes and a
     pod's whole row bytes of the parameters."""
     from repro_torch import tree as T
@@ -116,12 +118,60 @@ def _rounds(rank: int, job: dict, out_file: str) -> None:
             dist.all_gather_object(per_rank, (sent, reduced, local, row))
             runs[how] = {
                 "losses": losses, "counters": counters, "ranks": per_rank,
+                "significant_frac": whole_local(
+                    state.sync_state.significant_frac),
                 "params": T.tree_map(lambda x: _whole_rows(x, tr.pods),
                                      state.params)}
         out[name] = runs
     if rank == 0:
         tmp = out_file + ".tmp"
         torch.save(out, tmp)
+        os.replace(tmp, out_file)
+
+
+def _serve(rank: int, job: dict, out_file: str) -> None:
+    """Greedy serving on the mesh under ``serve_rules``: the parameters
+    placed by ``make_serve_setup``, a prefill of ``job["prompt"]`` into a
+    cache of ``prompt + new`` positions (the cache's sequence over
+    ``"model"``, the rows over ``("pod", "data")``), then ``job["new"]``
+    decode steps.  Rank 0 writes every step's logits gathered whole, the
+    tokens, and whether every cache leaf kept its placements."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import context as C
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.rules import whole_local
+
+    mesh = make_debug_mesh(*job["mesh"])
+    setup = C.make_serve_setup(get_arch(job["arch"]), mesh, smoke=True)
+    cfg, fns = setup.cfg, setup.fns
+    params = setup.place_params(T.tree_map(lambda x: x.clone(),
+                                           job["params"]))
+    prompt = job["prompt"]
+    B, S = prompt.shape
+    logits_seq, tokens = [], []
+    with torch.no_grad(), setup.scope():
+        batch = setup.place_batch({"tokens": prompt})
+        logits, cache = fns.prefill(params, cfg, batch["tokens"],
+                                    S + job["new"])
+        want = setup.cache_sharding(cache, S + job["new"])
+        for i in range(job["new"]):
+            whole = whole_local(logits).reshape(B, -1)
+            logits_seq.append(whole)
+            tok = torch.argmax(whole, dim=-1).to(torch.int32)
+            tokens.append(tok)
+            step = setup.place_batch({
+                "token": tok[:, None],
+                "cache_pos": torch.tensor(S + i, dtype=torch.int32)})
+            logits, cache = fns.decode_step(params, cfg, step["token"],
+                                            cache, step["cache_pos"])
+        logits_seq.append(whole_local(logits).reshape(B, -1))
+        kept = [tuple(x.placements) == sh.placements(mesh)
+                for x, sh in zip(T.leaves(cache), T.leaves(want))]
+    if rank == 0:
+        tmp = out_file + ".tmp"
+        torch.save({"logits": logits_seq, "tokens": tokens, "kept": kept},
+                   tmp)
         os.replace(tmp, out_file)
 
 
