@@ -199,6 +199,31 @@ Phases (any failure raises and the script exits non-zero):
    ``embed_impl="onehot"`` against ``"gather"``, and every arch's input
    specs at the four assigned shapes on the meta device, allocating
    nothing; the NCCL version and the card's name and power limit.
+3k. The WAN transports on a pod axis split over processes: phase 3's run
+   (granite-8b x2 layers at full width, 2 pods, batch 8, seq 512, sgd,
+   ASGD-GA every 2 steps, the int8 codec at top-k ``POD_PROC_TOPK`` with
+   EF, three bucket groups of ``STREAM_CHUNKS`` chunks), each arm first
+   run whole in this process (its digests kept, its state freed), then in
+   two spawned processes on the card, one pod each, through
+   ``make_train_setup`` on a ``(2, 1, 1)`` mesh with the transport bound
+   to the split pod axis.  One card: the pod group is gloo (NCCL refuses
+   two ranks on one device, gloo sends no CUDA tensor), and ``PodAxis``
+   stages the rows through pinned host buffers; two or more cards: NCCL,
+   one card a pod.
+   Arms, 4 steps each: (a) ``SimTransport``, (b) ``MeshTransport`` with
+   the emulated ``HOP_MBPS`` hop, (c) a ``ChaosTransport`` with a failed
+   and a corrupted attempt (round 1) and pod 1 crashed (round 2,
+   degraded), (d) a streaming round over 3g (b)'s collapsing trace that
+   retunes mid-round, (e) ``HierarchicalTransport`` over two regions, (f)
+   ``Trainer.retune`` from int8 to int4 between the rounds.  Each held
+   bit for bit against its whole run: losses, every parameter row's and
+   EF row's digest, the records and billed seconds (b: their bytes), the
+   probe belief, fault outcomes, streaming decisions and tiers, equal on
+   both ranks (b's measured seconds agreed over the pod group); every
+   codec launch of the processes held to its plain version by the round
+   hook.  Prints the backend, each rank's launches, each arm's round and
+   step times split against whole and each process's peak memory; a
+   failed or hung process (``POD_PROC_TIMEOUT``) fails the phase.
 3j. The dry run (``repro_torch.launch.dryrun``'s command line, each run
    in a process of its own: its fake process group is global to the
    process), on the host, no card, at all layers, on the multi-pod mesh of
@@ -466,16 +491,21 @@ def phase_device(torch) -> dict:
     print(f"[device] {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}")
-    # f32 matmuls and convolutions in full f32, as the reference's parity
-    # assumes; cuDNN's deterministic algorithms and no autotuning, so that
-    # two runs that must agree (phase 3c's ama@8 and sma@8 at 2 pods) do
-    # not differ by the order of an atomic sum or by the algorithm chosen
+    deterministic(torch)
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+def deterministic(torch) -> None:
+    """f32 matmuls and convolutions in full f32, as the reference's parity
+    assumes; cuDNN's deterministic algorithms and no autotuning, so that
+    two runs that must agree (phase 3c's ama@8 and sma@8 at 2 pods, phase
+    3k's pod processes and the whole run) do not differ by the order of an
+    atomic sum or by the algorithm chosen."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
 
 
 def phase_kernels(torch) -> dict:
@@ -1331,63 +1361,82 @@ def nan_equal(torch, a, b) -> bool:
         torch.where(nb, torch.zeros_like(b), b)))
 
 
-def fault_round_check(torch, transport):
-    """A ``round_hook`` for rounds over a chaos-wrapped transport: each
-    bucket's kernel decode of the shipped chunks (a corrupted one
-    included) == its plain decode, NaN equal in place; the round's
-    launches are one encode and two decodes per chunk; a sender whose
-    message was delivered keeps ``flat - local`` as its EF residual, one
-    whose message was not keeps the whole ``flat`` and its norms read 0
-    (the reference's degraded-round rule, ``repro/core/sync.py:969-980``).
-    The compare launches leave the counts as they were."""
+def fault_round_check(torch, transport, first: int = 0):
+    """A ``round_hook`` for rounds over any transport, a chaos-wrapped one
+    included, run by a process that holds the pods' rows from global pod
+    ``first`` on: each shipped chunk's kernel decode (a corrupted one
+    included) == its plain decode, NaN equal in place, the prefix at the
+    bucket's tier and a streaming retune's tails at the retune's; the
+    round's launches are one encode and one local decode per chunk and one
+    peer decode per shipped chunk; a sender whose message was delivered
+    keeps ``flat - local`` as its EF residual (the spliced local after a
+    retune), one whose message was not keeps the whole ``flat`` and its
+    norms read 0 (the reference's degraded-round rule,
+    ``repro/core/sync.py:969-980``).  The compare launches leave the
+    counts as they were."""
     from repro_torch.core import sync as S
     from repro_torch.kernels import ops
 
     checked, mark = [], {}
 
-    def hook(state, payloads, shipped, sync):
+    def decode_held(bcfg, chunks, widths, n_total, what):
+        block = min(bcfg.codec_block, max(1, n_total))
+        kern, plain = (S._cat([ops.wan_decode(
+            c.q, c.idx.to(torch.int32), c.scales, m, block=block,
+            value_dtype=bcfg.value_dtype, use_kernel=use)
+            for c, m in zip(chunks, widths)]) for use in (True, False))
+        require(nan_equal(torch, kern, plain),
+                f"round {len(checked)} {what}: peer decode kernel == plain")
+
+    def hook(state, payloads, shipped, sync, retune=None):
         counts = dict(ops.LAUNCHES)
         enc = counts["wan_encode"] - mark["wan_encode"]
         dec = counts["wan_decode"] - mark["wan_decode"]
         ss = state.sync_state
-        n = ss.ef_residual.shape[0]
         failed = tuple(getattr(transport, "round_failed_pods", ()) or ())
-        alive = [0 if p in failed else 1 for p in range(n)]
-        delivered = [alive[p] * alive[(p + sync.peer_shift) % n]
-                     for p in range(n)]
-        for p in range(n):
-            want = (payloads.flat[p] - payloads.local[p] if delivered[p]
-                    else payloads.flat[p])
-            require(nan_equal(torch, ss.ef_residual[p], want),
+        alive = [0 if p in failed else 1 for p in range(PODS)]
+        delivered = [alive[p] * alive[(p + sync.peer_shift) % PODS]
+                     for p in range(PODS)]
+        for i in range(ss.ef_residual.shape[0]):
+            p = first + i
+            want = (payloads.flat[i] - payloads.local[i] if delivered[p]
+                    else payloads.flat[i])
+            require(nan_equal(torch, ss.ef_residual[i], want),
                     f"round {len(checked)} pod {p}: EF residual == "
                     f"{'flat - local' if delivered[p] else 'flat'}")
             if not delivered[p]:
-                require(float(ss.msg_norm[p].abs().sum()) == 0.0
-                        and float(ss.resid_norm[p].abs().sum()) == 0.0,
+                require(float(ss.msg_norm[i].abs().sum()) == 0.0
+                        and float(ss.resid_norm[i].abs().sum()) == 0.0,
                         f"round {len(checked)} pod {p}: undelivered norms "
                         f"read 0")
         layout = S.bucket_layout(sync, ss.ga_buffer)
-        n_chunks = 0
+        want_launches = [0, 0]
         for g, name in enumerate(layout.names):
             size = layout.sizes[g]
             if not size:
                 continue
             bcfg = sync.for_bucket(name)
-            block = min(bcfg.codec_block, max(1, size))
             widths = S._chunk_widths(bcfg, size)
-            kern = S._decode_bucket(bcfg, shipped[name], size)
-            plain = S._cat([ops.wan_decode(
-                c.q, c.idx.to(torch.int32), c.scales, m, block=block,
-                value_dtype=bcfg.value_dtype, use_kernel=False)
-                for c, m in zip(shipped[name], widths)])
-            require(nan_equal(torch, kern, plain),
-                    f"round {len(checked)} {name}: peer decode kernel == "
-                    f"plain")
-            n_chunks += len(widths)
-        require(enc == n_chunks and dec == 2 * n_chunks,
-                f"round {len(checked)}: {enc} encodes, {dec} decodes for "
-                f"{n_chunks} chunks")
-        checked.append({"failed": failed, "delivered": delivered})
+            n_sent = (len(widths) if retune is None
+                      else retune.sent.get(name, len(widths)))
+            if n_sent:
+                decode_held(bcfg, shipped[name][:n_sent], widths[:n_sent],
+                            size, name)
+            want_launches[0] += len(widths)
+            want_launches[1] += len(widths) + n_sent
+            if n_sent < len(widths):
+                tcfg = retune.cfg_to.for_bucket(name)
+                tw = size - sum(widths[:n_sent])
+                twidths = S._chunk_widths(tcfg, tw)
+                decode_held(tcfg, retune.tail_shipped[name], twidths, tw,
+                            f"{name} tail")
+                want_launches[0] += len(twidths)
+                want_launches[1] += 2 * len(twidths)
+        require([enc, dec] == want_launches,
+                f"round {len(checked)}: {enc} encodes, {dec} decodes, want "
+                f"{want_launches}")
+        checked.append({"failed": failed, "delivered": delivered,
+                        "retuned": retune is not None})
         ops.LAUNCHES.update(counts)
         mark.update(counts)
 
@@ -3263,6 +3312,378 @@ def phase_mesh(torch) -> dict:
         ops.TOPK_CHECK_HOOK = None
         dist.destroy_process_group()
     return launches
+
+
+# phase 3k: phase 3's run as two processes on the card, one pod each (one
+# card a pod where the machine has two), 4 steps (2 rounds) an arm, each
+# held bit for bit against the same arm run whole in this process: (a)
+# SimTransport, (b) MeshTransport with the emulated hop, (c) a chaos plan
+# with a failed and a corrupted attempt in round 1 and pod 1 crashed
+# (degraded) in round 2, (d) a streaming round over 3g (b)'s collapsing
+# trace that retunes mid-round, (e) HierarchicalTransport over two regions,
+# (f) a retune from int8 to int4 between the rounds
+POD_PROC_ARMS = ("a", "b", "c", "d", "e", "f")
+POD_PROC_STEPS = 4
+POD_PROC_TOPK = 0.05
+POD_PROC_FAULTS = (("fail", 1, 0), ("corrupt", 1, 0), ("crash", 3, 1))
+POD_PROC_TIMEOUT = 480        # seconds for the two pod processes together
+
+
+def pod_arm(name: str, model_mb: float):
+    """Phase 3k's arm ``name`` -> (sync config, transport, streaming
+    controller or None, the config a retune after round 1 goes to or
+    None).  Every process builds the same arm from the same seeds."""
+    import dataclasses
+
+    from repro_torch.core import sync as S
+    from repro_torch.core.autotune import StreamingShipController
+    from repro_torch.core.faults import ChaosTransport, FaultEvent, FaultPlan
+    from repro_torch.core.topology import HierarchicalTransport, TopologySpec
+    from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
+                                            SimTransport)
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=POD_PROC_TOPK,
+                        quantize_int8=True, error_feedback=True,
+                        overlap_chunks=STREAM_CHUNKS,
+                        bucket_policy="layer-class")
+    trace = BandwidthTrace(*STREAM_TRACE)
+
+    def sim(wan=WANConfig(fluctuation=0.25, seed=0)):
+        return SimTransport(trace, wan, probe=MeasuredWanProbe())
+
+    if name == "a":
+        return sync, sim(), None, None
+    if name == "b":
+        return sync, MeshTransport(probe=MeasuredWanProbe(),
+                                   emulate_mbps=HOP_MBPS), None, None
+    if name == "c":
+        plan = FaultPlan(tuple(FaultEvent(k, step, pod=pod)
+                               for k, step, pod in POD_PROC_FAULTS))
+        return sync, ChaosTransport(sim(), plan), None, None
+    if name == "d":
+        t = sim(WANConfig(latency_s=0.0, fluctuation=0.0))
+        return sync, t, StreamingShipController(
+            sync, model_mb, cliff_ratio=STREAM_CLIFF,
+            ef_guard=STREAM_EF_GUARD, probe_est=t.probe.estimator), None
+    if name == "e":
+        spec = TopologySpec.from_regions(["us", "eu"], kind="tree")
+        return sync, HierarchicalTransport(
+            spec, trace, wan=WANConfig(fluctuation=0.25, seed=0),
+            probe=MeasuredWanProbe()), None, None
+    if name == "f":
+        return sync, sim(), None, dataclasses.replace(sync,
+                                                      value_dtype="int4")
+    raise ValueError(name)
+
+
+def row_digests(torch, state, first: int) -> dict:
+    """Digests of every parameter leaf's and the EF residual's rows, keyed
+    by the global pod: ``first`` is the global pod of row 0."""
+    from repro_torch import tree as T
+    from repro_torch.sharding.rules import whole_local
+
+    out = {}
+    leaves = T.leaves_with_path(state.params) + [
+        ("ef_residual", state.sync_state.ef_residual)]
+    for path, x in leaves:
+        x = whole_local(x)
+        for i in range(x.shape[0]):
+            out[f"{path}@{first + i}"] = list(bits_digest(torch, x[i]))
+    return out
+
+
+def pod_drive(torch, trainer, state, batches, place=lambda b: b):
+    """Phase 3k's loop: ``POD_PROC_STEPS`` steps, the round where due, the
+    sim clock ticking 0.5 s a step, and ``trainer.retune_to`` (if set)
+    applied after the first round.  Returns (trainer, state, the losses
+    and what the host decided, as plain JSON values)."""
+    import dataclasses
+
+    from repro_torch.sharding.rules import whole_local
+
+    t = trainer.transport
+    retune_to = getattr(trainer, "retune_to", None)
+    losses, keeps_mesh = [], None
+    for step in range(POD_PROC_STEPS):
+        batch = place(batches(step))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        trainer.step_seconds.append(time.perf_counter() - t0)
+        losses.append(metrics["loss_per_pod"].float().cpu().tolist())
+        state = trainer.maybe_sync(state, step)
+        if hasattr(t, "tick"):
+            t.tick(0.5)
+        if retune_to is not None and len(trainer.sync_seconds) == 1:
+            mesh = trainer.mesh
+            trainer, state = trainer.retune(state, retune_to)
+            keeps_mesh, retune_to = trainer.mesh is mesh, None
+    torch.cuda.synchronize()
+    stream = trainer.stream
+    host = {
+        "losses": losses,
+        "records": [list(dataclasses.astuple(r)) for r in t.records],
+        "probe": t.probe.estimator.bandwidth_mbps,
+        "outcomes": list(getattr(t, "outcomes", [])),
+        "retries": getattr(t, "retries", 0),
+        "degraded": getattr(t, "degraded_rounds", 0),
+        "stream_rounds": list(t.stream_rounds),
+        "decisions": [] if stream is None else list(stream.decisions),
+        "stream_retunes": trainer.stream_retunes,
+        "tier": whole_local(state.sync_state.tier).tolist(),
+        "keeps_mesh": keeps_mesh,
+    }
+    return trainer, state, json.loads(json.dumps(host))
+
+
+def pod_batches(torch, cfg, sync, device: str):
+    from repro_torch.core.control_plane import (TrainingRequest,
+                                                build_training_plan)
+    from repro_torch.core.scheduler import CloudResources
+    from repro_torch.launch.train import make_batches
+
+    clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
+                                  data_size=1.0) for i in range(PODS))
+    plan = build_training_plan(TrainingRequest(
+        model=cfg.name, clouds=clouds, sync=sync, n_iters=POD_PROC_STEPS,
+        global_batch=8))
+    return make_batches(plan, cfg.vocab_size, 512, device)
+
+
+def pod_proc_worker(rank: int, world: int, backend: str, store: str,
+                    out_file: str) -> None:
+    """One pod process of phase 3k: a ``world``-rank group of ``backend``
+    (a ``FileStore``: no network), ``make_debug_mesh(2, 1, 1)`` on the
+    card, every arm through ``make_train_setup`` with its transport bound
+    to the split pod axis; each round held by :func:`fault_round_check`.
+    Writes its rows' digests, the host decisions, launches, times and peak
+    memory as JSON."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    deterministic(torch)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    try:
+        from repro_torch.configs import get_arch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import context as C
+        from repro_torch.launch import mesh as M
+
+        arch = get_arch("granite-8b")
+        mesh = M.make_debug_mesh(PODS, 1, 1, device_type="cuda")
+        out = {"arms": {}}
+        for name in POD_PROC_ARMS:
+            cfg = arch.config.replace(n_layers=2)
+            sync, transport, stream, retune_to = pod_arm(
+                name, cfg.param_count() * 2 / 1e6)
+            setup = C.make_train_setup(arch, mesh, sync=sync, lr=0.02,
+                                       n_pods=PODS,
+                                       config_overrides={"n_layers": 2},
+                                       transport=transport, stream=stream)
+            tr = setup.trainer
+            hook, checked, mark = fault_round_check(torch, transport,
+                                                    tr.pods.first)
+            tr.round_hook, tr.retune_to = hook, retune_to
+            batches = pod_batches(torch, setup.cfg, sync, "cuda")
+            state = setup.place_state(tr.init_state(SEED))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            mark.update(ops.LAUNCHES)
+            pods = tr.pods
+            tr, state, host = pod_drive(torch, tr, state, batches,
+                                        setup.place_batch)
+            out["arms"][name] = {
+                "host": host, "digests": row_digests(torch, state,
+                                                     pods.first),
+                "launches": {k: ops.LAUNCHES[k]
+                             for k in ("wan_encode", "wan_decode")},
+                "checked": len(checked),
+                "sync_s": list(tr.sync_seconds),
+                "step_s": list(tr.step_seconds),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "sends": pods.sends, "agreements": pods.agreements}
+            out["backend"], out["staged"] = pods.backend, pods.staged
+            out["first"] = pods.first
+            del setup, tr, state, batches, transport, stream
+            torch.cuda.empty_cache()
+        with open(out_file + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(out_file + ".tmp", out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pod_procs(torch) -> dict:
+    """Phase 3k: the WAN transports on a pod axis split over processes.
+    Each arm runs whole in this process first (its digests kept, its
+    state freed), then two spawned processes run every arm, one pod each;
+    a failed or hung process fails the phase.  Returns the codec launches
+    of the whole runs and both processes."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch.configs import granite_8b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = granite_8b.CONFIG.replace(n_layers=2)
+    model_mb = cfg.param_count() * 2 / 1e6
+    world = PODS
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    why = ("one card a pod" if backend == "nccl" else
+           "both pods on one card: NCCL refuses two ranks on one device, "
+           "so the pod group is gloo and the rows are staged through "
+           "pinned host buffers")
+    total = {"wan_encode": 0, "wan_decode": 0}
+    want = {}
+    for name in POD_PROC_ARMS:
+        sync, transport, stream, retune_to = pod_arm(name, model_mb)
+        hook, checked, mark = fault_round_check(torch, transport)
+        tr = Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                     lambda g: transformer.init_params(g, cfg, "cuda"),
+                     TrainerConfig(n_pods=PODS, optimizer="sgd", lr=0.02,
+                                   sync=sync),
+                     device="cuda", round_hook=hook, transport=transport,
+                     stream=stream)
+        tr.retune_to = retune_to
+        batches = pod_batches(torch, cfg, sync, "cuda")
+        state = tr.init_state(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        mark.update(ops.LAUNCHES)
+        tr, state, host = pod_drive(torch, tr, state, batches)
+        require(len(checked) == POD_PROC_STEPS // 2,
+                f"[pods] arm {name}: {len(checked)} rounds held")
+        want[name] = {"host": host, "digests": row_digests(torch, state, 0),
+                      "sync_s": list(tr.sync_seconds),
+                      "step_s": list(tr.step_seconds),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        del tr, state, batches, transport, stream
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t_phase
+
+    # the pod processes: every arm, one pod each
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+        ctx = tmp.get_context("spawn")
+        procs = [ctx.Process(target=pod_proc_worker,
+                             args=(r, world, backend,
+                                   os.path.join(d, "store"), outs[r]))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + POD_PROC_TIMEOUT
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join(10)
+        require(not hung, f"[pods] {len(hung)} of {world} pod processes "
+                f"still running after {POD_PROC_TIMEOUT} s")
+        require([p.exitcode for p in procs] == [0] * world,
+                f"[pods] pod processes exited {[p.exitcode for p in procs]}")
+        got = []
+        for o in outs:
+            with open(o) as f:
+                got.append(json.load(f))
+    procs_s = time.perf_counter() - t_spawn
+    smi = card_line()
+    print(f"[pods] {cfg.name} x{cfg.n_layers} layers, {PODS} pods, batch 8, "
+          f"seq 512, {POD_PROC_STEPS} steps an arm: {world} processes, "
+          f"pod group {got[0]['backend']} (staged through pinned host "
+          f"buffers: {got[0]['staged']}; {why})")
+    for name in POD_PROC_ARMS:
+        w = want[name]
+        ranks = [g["arms"][name] for g in got]
+        for r, a in enumerate(ranks):
+            h, wh = a["host"], w["host"]
+            require(h["losses"] == wh["losses"],
+                    f"[pods] arm {name} rank {r}: losses {h['losses']} == "
+                    f"whole {wh['losses']}")
+            bad = [k for k, v in a["digests"].items()
+                   if w["digests"].get(k) != v]
+            require(not bad and len(a["digests"]) * world
+                    == len(w["digests"]),
+                    f"[pods] arm {name} rank {r}: rows bit-equal to the "
+                    f"whole run, differing {bad[:4]}")
+            same_keys = (("records", "probe", "outcomes", "retries",
+                          "degraded", "stream_rounds", "decisions",
+                          "stream_retunes", "tier") if name != "b"
+                         else ("outcomes", "retries", "tier"))
+            for k in same_keys:
+                require(h[k] == wh[k], f"[pods] arm {name} rank {r}: {k} "
+                        f"equal to the whole run's")
+            if name == "b":
+                require([x[:2] + x[3:] for x in h["records"]]
+                        == [x[:2] + x[3:] for x in wh["records"]],
+                        f"[pods] arm b rank {r}: record bytes equal")
+            require(a["checked"] == POD_PROC_STEPS // 2,
+                    f"[pods] arm {name} rank {r}: {a['checked']} rounds "
+                    f"held to the plain decode")
+            for k in total:
+                total[k] += a["launches"][k]
+        # every rank decided alike: measured seconds are agreed
+        for k in ranks[0]["host"]:
+            require(all(a["host"][k] == ranks[0]["host"][k]
+                        for a in ranks),
+                    f"[pods] arm {name}: ranks' {k} equal")
+        h0 = ranks[0]["host"]
+        if name == "c":
+            require(h0["retries"] == 2 and h0["degraded"] == 1,
+                    f"[pods] arm c: 2 retries, 1 degraded round: {h0}")
+        if name == "d":
+            require(h0["stream_retunes"] == 1,
+                    f"[pods] arm d: one mid-round retune")
+        if name == "f":
+            require(h0["keeps_mesh"] is True
+                    and h0["tier"] == [3] * len(h0["tier"]),
+                    f"[pods] arm f: retuned on the mesh to int4")
+        extra = ""
+        if name == "b":
+            extra = (f"; records {len(h0['records'])}, probe "
+                     f"{h0['probe']:.1f} Mbps on both ranks (agreed: "
+                     f"{ranks[0]['agreements']} all-reduces)")
+        if name == "c":
+            extra = (f"; outcomes {[o['kinds'] for o in h0['outcomes']]}, "
+                     f"retries {h0['retries']}, degraded {h0['degraded']}")
+        if name == "d":
+            cut = [(x["step"], x["chunk"], x["bucket"])
+                   for x in h0["decisions"] if x["action"] == "retune"]
+            extra = f"; retune at (step, chunk, bucket) {cut}"
+        print(f"[pods] arm {name}: losses and {len(w['digests'])} row "
+              f"digests bit-equal to the whole run, host decisions equal"
+              f"{extra}; launches by rank "
+              f"{[a['launches'] for a in ranks]}, every round held to the "
+              f"plain decode")
+        print(f"[pods] arm {name} round s: split "
+              f"{[[round(t, 4) for t in a['sync_s']] for a in ranks]} "
+              f"against whole {[round(t, 4) for t in w['sync_s']]}; step s "
+              f"split {[[round(t, 4) for t in a['step_s']] for a in ranks]}"
+              f" against whole {[round(t, 4) for t in w['step_s']]}; peak "
+              f"memory a process {[round(a['peak_gb'], 2) for a in ranks]}"
+              f" GB against whole {w['peak_gb']:.2f} GB")
+    print(f"[pods] whole runs {whole_s:.1f} s, pod processes {procs_s:.1f} "
+          f"s; {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 DRYRUN_TIMEOUT = 300          # seconds for the full-depth dry runs
@@ -5158,6 +5579,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_launches = phase_mesh(torch)
     torch.cuda.empty_cache()
+    pod_launches = phase_pod_procs(torch)
+    torch.cuda.empty_cache()
     phase_paper_models(torch)
     phase_entry_point(torch)
     phase_entry_point_ama(torch)
@@ -5189,7 +5612,8 @@ def main() -> int:
                                      + snap_launches[name]
                                      + moe_train_launches[name]
                                      + vl_launches[name]
-                                     + mesh_launches[name])
+                                     + mesh_launches[name]
+                                     + pod_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]
         + gemma_launches["flash_attention"]

@@ -35,8 +35,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.sync import (ChunkPayload, PodUnreachableError,
-                                   TransferFailed)
+from repro_torch.core.sync import (WHOLE_PODS, ChunkPayload, PodAxis,
+                                   PodUnreachableError, TransferFailed)
 from repro_torch.core.wan import RetryPolicy, retry_schedule
 
 FAULT_KINDS = ("timeout", "fail", "corrupt", "flap", "crash")
@@ -210,6 +210,7 @@ class ChaosTransport:
                  policy: Optional[RetryPolicy] = None,
                  tolerate: bool = True):
         self.inner = inner
+        self.pods: PodAxis = WHOLE_PODS
         self.plan = plan
         self.retry_policy = policy if policy is not None else RetryPolicy()
         self.tolerate = tolerate
@@ -235,6 +236,15 @@ class ChaosTransport:
         if inner is None:
             raise AttributeError(name)
         return getattr(inner, name)
+
+    def bind(self, pods: PodAxis) -> None:
+        """Bind the wrapper and the wrapped transport to the pod axis
+        ``pods``.  The plan and every decision of it are host state, the
+        same on every rank; only the corrupted row is placed by the axis."""
+        self.pods = pods
+        bind = getattr(self.inner, "bind", None)
+        if bind is not None:
+            bind(pods)
 
     @property
     def in_graph(self) -> bool:
@@ -363,9 +373,14 @@ class ChaosTransport:
         """A real wire bit-flip: XOR the exponent's top bit of every fp32
         scale on the corrupted receiver row of the first chunk, the kind of
         silent payload damage the per-chunk checksums exist to catch.  The
-        flip lands on a copy: the shipped chunk is untouched."""
+        flip lands on a copy: the shipped chunk is untouched.  The row is
+        global (the sender's ring peer among every pod); on a split pod
+        axis only the rank that holds it flips it."""
         first = shipped[0]
-        row = (ev.pod + shift) % first.scales.shape[0]
+        n = self.pods.n_pods if self.pods.split else first.scales.shape[0]
+        row = (ev.pod + shift) % n - self.pods.first
+        if not 0 <= row < first.scales.shape[0]:
+            return tuple(shipped)
         corrupted = first._replace(scales=_flipped(first.scales, row))
         return (corrupted,) + tuple(shipped[1:])
 

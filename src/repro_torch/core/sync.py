@@ -84,7 +84,15 @@ class PodAxis:
     ring (:meth:`roll`), its sums and means (:meth:`sum`, :meth:`mean`)
     and the per-pod metrics (:meth:`gather`) are the only operations that
     cross it; split, they count what they post.  Host-side vectors over
-    all pods (a degraded round's ``alive``) stay whole on every rank."""
+    all pods (a degraded round's ``alive``) stay whole on every rank, and
+    every host decision that reads a measurement goes through
+    :meth:`agree` first, so that each rank takes it alike.
+
+    The group's backend decides how device rows travel: a group that takes
+    no CUDA tensors (``gloo``: two pod processes on one card, where NCCL
+    refuses a second rank on the same device) stages them through pinned
+    host buffers (``staged``); ``nccl`` posts them as they are.  On the CPU
+    the staging is the identity."""
 
     def __init__(self, n_pods: Optional[int] = None, group=None):
         import torch.distributed as dist
@@ -98,7 +106,10 @@ class PodAxis:
                              f"of {self.size}")
         self.n_local = n_pods // self.size if self.split else None
         self.first = self.index * self.n_local if self.split else 0
+        self.backend = str(dist.get_backend(group)) if self.split else ""
+        self.staged = self.split and "nccl" not in self.backend
         self.sends = self.all_reduces = self.all_gathers = 0
+        self.agreements = 0
         # bytes shipped point to point, by the peer's global rank
         self.sent: Dict[int, int] = {}
         # the inline ring over this axis: the transport of ``None``
@@ -116,6 +127,21 @@ class PodAxis:
     def _peer(self, r: int) -> int:
         import torch.distributed as dist
         return dist.get_global_rank(self.group, r)
+
+    def _posted(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the group can post it: a CUDA tensor copied into a
+        pinned host buffer when the group is staged, else ``t`` itself."""
+        if not (self.staged and t.device.type == "cuda"):
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t)
+
+    def _host_device(self) -> torch.device:
+        """Where a small host-made tensor goes to be posted: the CPU for a
+        group that takes CPU tensors, else the current card."""
+        if "gloo" in self.backend or not torch.cuda.is_available():
+            return torch.device("cpu")
+        return torch.device("cuda", torch.cuda.current_device())
 
     def roll(self, x: torch.Tensor, shift: int) -> torch.Tensor:
         """``torch.roll(dims=0)`` of the global pod dimension.  Split, on
@@ -138,8 +164,10 @@ class PodAxis:
         import torch.distributed as dist
 
         n, n_loc = self.n_pods, self.n_local
-        rows = x.contiguous().reshape(n_loc, -1).view(torch.uint8)
-        out = torch.empty_like(rows)
+        rows = self._posted(x.contiguous().reshape(n_loc, -1).view(
+            torch.uint8))
+        out = torch.empty(rows.shape, dtype=rows.dtype, device=rows.device,
+                          pin_memory=rows.device != x.device)
         ops = []
         for j in range(n_loc):
             dst = (self.first + j + shift) % n
@@ -158,7 +186,7 @@ class PodAxis:
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return out.view(x.dtype).reshape(x.shape)
+        return out.to(x.device).view(x.dtype).reshape(x.shape)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over all pods, ``(1, ...)``.  Split: this rank's rows
@@ -168,18 +196,26 @@ class PodAxis:
         slice."""
         if not self.split:
             return x.sum(dim=0, keepdim=True)
-        import torch.distributed as dist
-
         from repro_torch.sharding.rules import is_dtensor
         if is_dtensor(x):
             from torch.distributed.tensor import DTensor
             local = self.sum(x.to_local())
             return DTensor.from_local(local, x.device_mesh, x.placements,
                                       run_check=False)
-        total = x.sum(dim=0, keepdim=True)
+        return self.all_sum(x.sum(dim=0, keepdim=True))
+
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (this rank's part of a plain tensor) summed over the ranks
+        of the pod group: one all-reduce, in place on ``x`` unless it is
+        staged; ``x`` itself when whole."""
+        if not self.split:
+            return x
+        import torch.distributed as dist
+
+        total = self._posted(x)
         dist.all_reduce(total, group=self.group)
         self.all_reduces += 1
-        return total
+        return total.to(x.device)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """``x.mean(dim=0, keepdim=True)`` over all pods."""
@@ -194,10 +230,36 @@ class PodAxis:
             return x
         import torch.distributed as dist
 
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
+        mine = self._posted(x.contiguous())
+        parts = [torch.empty_like(mine) for _ in range(self.size)]
+        dist.all_gather(parts, mine, group=self.group)
         self.all_gathers += 1
-        return torch.cat(parts)
+        return torch.cat(parts).to(x.device)
+
+    def gather_ints(self, values: Sequence[int]) -> Tuple[int, ...]:
+        """Every pod's entries of a host vector with this rank's pods'
+        entries in ``values`` (a per-row checksum), on every rank."""
+        if not self.split:
+            return tuple(int(v) for v in values)
+        t = torch.tensor(list(values), dtype=torch.int64,
+                         device=self._host_device())
+        return tuple(int(v) for v in self.gather(t).tolist())
+
+    def agree(self, values: Sequence[float]) -> Tuple[float, ...]:
+        """The max over the ranks of the pod group of each of ``values``,
+        one all-reduce of a float64 vector: what every rank reads before a
+        host decision that hangs on a measurement (a transfer's seconds)
+        or on a verdict (a retry), so that the ranks decide alike.  Whole,
+        ``values`` as they are."""
+        if not self.split:
+            return tuple(float(v) for v in values)
+        import torch.distributed as dist
+
+        t = torch.tensor(list(values), dtype=torch.float64,
+                         device=self._host_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        self.agreements += 1
+        return tuple(float(v) for v in t.tolist())
 
     def rows(self, v: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a tensor over all pods."""
@@ -845,17 +907,44 @@ def chunk_checksum_rows(chunks: Sequence[ChunkPayload]) -> Tuple[int, ...]:
 
 
 def verify_shipment(name: str, sent_crc: Sequence[int],
-                    shipped: Sequence[ChunkPayload], shift: int) -> None:
+                    shipped: Sequence[ChunkPayload], shift: int,
+                    pods: PodAxis = WHOLE_PODS) -> None:
     """Check a shipped bucket against pre-ship checksums: under the ring
     permute, shipped row ``p`` must be sender row ``(p - shift) % n`` bit
-    for bit.  Raises :class:`CorruptPayloadError` naming the first
-    mismatching receiver row."""
+    for bit.  ``sent_crc`` holds every pod's checksum (on a split pod
+    axis, gathered over the pod group: the sender's row sits on another
+    rank); ``shipped`` this rank's rows, the global rows from
+    ``pods.first`` on.  Raises :class:`CorruptPayloadError` naming the
+    first mismatching receiver row."""
     n = len(sent_crc)
-    got = chunk_checksum_rows(shipped)
-    for p in range(n):
-        if got[p] != sent_crc[(p - shift) % n]:
+    for i, crc in enumerate(chunk_checksum_rows(shipped)):
+        p = pods.first + i
+        if crc != sent_crc[(p - shift) % n]:
             raise CorruptPayloadError(
                 name, 0, f"checksum mismatch on receiver row {p}", pod=p)
+
+
+def _agreed_failure(pods: PodAxis, name: str, attempt: int,
+                    err: Optional[TransferFailed]
+                    ) -> Optional[TransferFailed]:
+    """One attempt's verdict, the same on every rank of the pod group:
+    failed, corrupt and the pod, each the max over the ranks (one small
+    all-reduce).  A rank that saw nothing fail takes the failure another
+    rank saw (a corrupted row is checked only where it lands), so every
+    rank retries, or gives up, on the same attempt and no point-to-point
+    send is left unpaired."""
+    mine = (0.0, 0.0, -1.0) if err is None else (
+        1.0, float(isinstance(err, CorruptPayloadError)),
+        float(err.pod if err.pod is not None else -1))
+    failed, corrupt, pod = pods.agree(mine)
+    if not failed:
+        return None
+    pod = int(pod) if pod >= 0 else None
+    if err is not None and err.pod == pod:
+        return err
+    kind = CorruptPayloadError if corrupt else TransferFailed
+    return kind(name, attempt + 1, f"pod {pod} failed on another rank of "
+                f"the pod axis", pod=pod)
 
 
 def bucket_wire_mb(cfg: SyncConfig, layout: BucketLayout
@@ -896,11 +985,14 @@ def prepare_codec_sync(cfg: SyncConfig, state: SyncState) -> SyncPayloads:
 def ship_sync_payloads(cfg: SyncConfig,
                        chunks: Mapping[str, Tuple[ChunkPayload, ...]],
                        transport=None,
-                       wire_mb: Optional[Mapping[str, float]] = None
+                       wire_mb: Optional[Mapping[str, float]] = None,
+                       pods: Optional[PodAxis] = None
                        ) -> Dict[str, Tuple[ChunkPayload, ...]]:
     """Ship every bucket's wire chunks to the transport's one-peer ring
-    send.  ``transport=None`` is the inline ring; a host-seam transport
-    (``in_graph=False``) executes and times each bucket's transfer here.
+    send.  ``transport=None`` is the inline ring of the pod axis ``pods``
+    (default: the transport's bound axis, else the whole one); a host-seam
+    transport (``in_graph=False``) executes and times each bucket's
+    transfer here.
 
     Fault tolerance rides the transport's optional attributes, as in the
     reference: a ``retry_policy`` (:class:`repro_torch.core.wan.RetryPolicy`)
@@ -909,32 +1001,44 @@ def ship_sync_payloads(cfg: SyncConfig,
     only) checksums each bucket before the ship and verifies the shipped
     rows, so a corrupted payload is re-shipped instead of decoded into the
     parameters; ``note_retry(name, attempt, err)`` hears each retry.
-    Transports without these attributes get one attempt."""
-    ship = transport if transport is not None else _INLINE_RING
+    Transports without these attributes get one attempt.  On a split pod
+    axis the sender checksums are gathered over the pod group, and each
+    attempt's verdict is agreed (:func:`_agreed_failure`) wherever one
+    can fail."""
+    if pods is None:
+        pods = getattr(transport, "pods", None) or WHOLE_PODS
+    ship = transport if transport is not None else pods.ring
     wire_mb = wire_mb or {}
     in_graph = getattr(ship, "in_graph", True)
     verify = bool(getattr(ship, "verify_checksums", False)) and not in_graph
     policy = getattr(ship, "retry_policy", None)
     max_retries = int(policy.max_retries) if policy is not None else 0
     note_retry = getattr(ship, "note_retry", None)
+    agree = pods.split and (verify or policy is not None)
     out: Dict[str, Tuple[ChunkPayload, ...]] = {}
     for name, bchunks in chunks.items():
-        sent_crc = chunk_checksum_rows(bchunks) if verify else None
+        sent_crc = (pods.gather_ints(chunk_checksum_rows(bchunks))
+                    if verify else None)
         attempt = 0
         while True:
+            err = None
             try:
                 shipped = ship.ship_bucket(name, bchunks, cfg.peer_shift,
                                            wire_mb.get(name, 0.0))
                 if verify:
-                    verify_shipment(name, sent_crc, shipped, cfg.peer_shift)
+                    verify_shipment(name, sent_crc, shipped, cfg.peer_shift,
+                                    pods)
+            except TransferFailed as e:
+                err = e
+            if agree:
+                err = _agreed_failure(pods, name, attempt, err)
+            if err is None:
                 break
-            except TransferFailed as err:
-                attempt += 1
-                if attempt > max_retries:
-                    raise PodUnreachableError(pod=err.pod,
-                                              bucket=name) from err
-                if note_retry is not None:
-                    note_retry(name, attempt, err)
+            attempt += 1
+            if attempt > max_retries:
+                raise PodUnreachableError(pod=err.pod, bucket=name) from err
+            if note_retry is not None:
+                note_retry(name, attempt, err)
         out[name] = shipped
     return out
 
@@ -943,12 +1047,13 @@ def finish_codec_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
                       payloads: SyncPayloads,
                       shipped: Mapping[str, Tuple[ChunkPayload, ...]],
                       lr: float = 1.0,
-                      alive: Optional[torch.Tensor] = None
+                      alive: Optional[torch.Tensor] = None,
+                      pods: PodAxis = WHOLE_PODS
                       ) -> Tuple[Pytree, SyncState]:
     """Decode the shipped chunks, apply the receiver-side SGD update and
     roll the EF residual and per-bucket telemetry into a new state.
-    ``alive`` (``(n_pods,)`` 1/0) is the degraded round: see
-    :func:`_finish_from_peer`."""
+    ``alive`` (``(n_pods,)`` 1/0, over every pod on every rank) is the
+    degraded round: see :func:`_finish_from_peer`."""
     layout = bucket_layout(cfg, state.ga_buffer)
     # decoded chunk by chunk into one buffer: at full width a list of
     # decoded buckets beside their concatenation would cost a second one
@@ -961,7 +1066,8 @@ def finish_codec_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
         _decode_into(peer_flat[:, off:off + size], bcfg, shipped[name],
                      _chunk_widths(bcfg, size), size)
     return _finish_from_peer(cfg, params, state, payloads.flat,
-                             payloads.local, peer_flat, layout, lr, alive)
+                             payloads.local, peer_flat, layout, lr, alive,
+                             pods)
 
 
 def _bucket_norms(flat: torch.Tensor, layout: BucketLayout) -> torch.Tensor:
@@ -975,17 +1081,19 @@ def _bucket_norms(flat: torch.Tensor, layout: BucketLayout) -> torch.Tensor:
 def _finish_from_peer(cfg: SyncConfig, params: Pytree, state: SyncState,
                       flat: torch.Tensor, local: Optional[torch.Tensor],
                       peer_flat: torch.Tensor, layout: BucketLayout,
-                      lr: float, alive: Optional[torch.Tensor]
+                      lr: float, alive: Optional[torch.Tensor],
+                      pods: PodAxis = WHOLE_PODS
                       ) -> Tuple[Pytree, SyncState]:
     """Alive masking, receiver SGD, EF rollover and telemetry.  A receiver
     applies the peer update iff it and its ring sender are alive; a sender
-    whose message did not arrive keeps the whole message as its residual."""
+    whose message did not arrive keeps the whole message as its residual.
+    ``alive`` covers every pod; the masks are read at this rank's rows."""
     applied = delivered = None
     if alive is not None:
         alive = torch.as_tensor(alive, dtype=torch.float32,
                                 device=flat.device)
-        applied = alive * torch.roll(alive, cfg.peer_shift)
-        delivered = alive * torch.roll(alive, -cfg.peer_shift)
+        applied = pods.rows(alive * torch.roll(alive, cfg.peer_shift))
+        delivered = pods.rows(alive * torch.roll(alive, -cfg.peer_shift))
         peer_flat.mul_(applied[:, None])      # the round's own decode
     peer = _unpack_stacked(peer_flat, state.ga_buffer, layout)
     msg_norm = _bucket_norms(flat, layout)
@@ -1075,7 +1183,8 @@ def finish_codec_sync_split(cfg: SyncConfig, cfg_to: SyncConfig,
                                                   Tuple[ChunkPayload, ...]],
                             tail_local: Mapping[str, torch.Tensor],
                             sent: Mapping[str, int], lr: float = 1.0,
-                            alive: Optional[torch.Tensor] = None
+                            alive: Optional[torch.Tensor] = None,
+                            pods: PodAxis = WHOLE_PODS
                             ) -> Tuple[Pytree, SyncState]:
     """Finish a streaming round that retuned mid-round: each bucket's peer
     message is its shipped ``cfg`` prefix chunks, decoded at the bucket's
@@ -1110,7 +1219,7 @@ def finish_codec_sync_split(cfg: SyncConfig, cfg_to: SyncConfig,
                 payloads.local[:, off + sw:off + size].copy_(
                     tail_local[name])
     return _finish_from_peer(cfg, params, state, flat, payloads.local,
-                             peer_flat, layout, lr, alive)
+                             peer_flat, layout, lr, alive, pods)
 
 
 def bucket_chunk_mb(cfg: SyncConfig, layout: BucketLayout
@@ -1214,11 +1323,10 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
         if cfg.uses_codec:
             payloads = prepare_codec_sync(cfg, state)
             wire = bucket_wire_mb(cfg, bucket_layout(cfg, state.ga_buffer))
-            shipped = ship_sync_payloads(
-                cfg, payloads.chunks,
-                pods.ring if transport is None else transport, wire)
+            shipped = ship_sync_payloads(cfg, payloads.chunks, transport,
+                                         wire, pods)
             return finish_codec_sync(cfg, params, state, payloads, shipped,
-                                     lr)
+                                     lr, pods=pods)
         denom = torch.clamp(state.steps_since_sync, min=1).float()
         scale = torch.tensor(lr, dtype=f32, device=dev) * cfg.ga_lr_scale
 
@@ -1280,13 +1388,11 @@ def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],
     means either gossip one ring step (``inter="ama"``) or take their
     global mean (``"sma"``), broadcast back to every member.  All-singleton
     groups in pod order recover flat ``ama`` and one group flat ``sma``.
-    Returns a new tree.  It needs the whole pod dimension on the rank:
-    a split pod axis (``pods``) raises."""
-    if pods.split:
-        raise NotImplementedError(
-            "hierarchical_average needs every pod's rows on the rank; the "
-            "topology path over a split pod axis is ROADMAP.md Queue 1 "
-            "item 15c")
+    Returns a new tree.  ``pods`` holds this rank's rows of ``tree``: each
+    rank sums its own members of every group into a ``(n_groups, ...)``
+    stack, one all-reduce over the pod group sums the stacks (none when the
+    axis is whole), and every member reads its group's mean from the
+    result."""
     groups = tuple(tuple(int(i) for i in g) for g in groups)
     if not groups or any(not g for g in groups):
         raise ValueError("groups must be non-empty and cover every pod")
@@ -1294,7 +1400,7 @@ def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],
     leaves = T.leaves(tree)
     if not leaves:
         return tree
-    n_pods = leaves[0].shape[0]
+    n_pods = pods.count(tree)
     if sorted(members) != list(range(n_pods)):
         raise ValueError(f"groups {groups} do not partition pods "
                          f"0..{n_pods - 1}")
@@ -1309,17 +1415,29 @@ def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],
         for i in g:
             assign[i] = gi
 
+    mine = assign[pods.first:pods.first + leaves[0].shape[0]]
+
+    def group_means(x):
+        sums = []
+        for gi in range(n_groups):
+            rows = [i for i, a in enumerate(mine) if a == gi]
+            part = x[rows[0]].clone() if rows else x.new_zeros(x.shape[1:])
+            for i in rows[1:]:
+                part += x[i]
+            sums.append(part)
+        sizes = torch.tensor([float(len(g)) for g in groups],
+                             device=x.device)
+        return pods.all_sum(torch.stack(sums)) / sizes.reshape(
+            (n_groups,) + (1,) * (x.dim() - 1))
+
     def avg(p):
         dev = p.device
-        x = p.float()
-        m = torch.stack([x.index_select(0, torch.tensor(g, device=dev))
-                         .mean(dim=0) for g in groups])
+        m = group_means(p.float())
         if inter == "ama":
             m = (m + torch.roll(m, shift, dims=0)) * 0.5
         else:
             m = m.mean(dim=0, keepdim=True).expand(m.shape)
-        return m.index_select(0, torch.tensor(assign, device=dev)).to(
-            p.dtype)
+        return m.index_select(0, torch.tensor(mine, device=dev)).to(p.dtype)
 
     return T.tree_map(avg, tree)
 
@@ -1451,7 +1569,9 @@ def retune_sync_state(new_cfg: SyncConfig, old_cfg: SyncConfig,
             f"{new_cfg.strategy!r}); that is a reconfiguration "
             f"(resize_sync_state / Trainer.reconfigure)")
     leaves = T.leaves(stacked_params)
-    n_pods, dev = leaves[0].shape[0], leaves[0].device
+    # the params give shapes only (a trainer on a mesh passes a skeleton on
+    # the meta device); new tensors go where the sync state lives
+    n_pods, dev = leaves[0].shape[0], state.ef_residual.device
     want_ef = new_cfg.uses_codec and new_cfg.error_feedback
     had_ef = state.ef_residual.shape[1] > 0
     if want_ef and not had_ef:

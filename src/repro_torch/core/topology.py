@@ -26,10 +26,12 @@ Three layers:
   generalization of the PR-5 :class:`~repro_torch.core.transport.MeasuredWanProbe`.
 - :class:`HierarchicalTransport` — *who ships*: a
   :class:`~repro_torch.core.transport.WanTransport` behind the PR-5 seam.
-  Shipping delegates to the inline ring (``sync._INLINE_RING``) — the SAME
-  code path the legacy jit traces, so flat-ring and hierarchical runs
-  produce **bit-identical** averaged parameters by construction; what the
-  topology changes is the *billing*: each sync round costs the compiled
+  Shipping delegates to the inline ring of the bound pod axis
+  (``WanTransport.bind``; point to point when the axis is split over
+  processes) — the SAME code path the flat ring ships, so flat-ring and
+  hierarchical runs produce **bit-identical** averaged parameters by
+  construction; what the topology changes is the *billing*: each sync
+  round costs the compiled
   schedule's phase times (intra legs at fabric speed, WAN legs at their
   own link's traced bandwidth through the DES ``transfer_time`` law), and
   the billed per-leg times feed the link beliefs, which recompile the
@@ -50,8 +52,10 @@ its degenerate equivalences (singleton groups == flat ``ama``, one group
 == flat ``sma``).
 
 Everything here is host arithmetic but the ship, which is the inline
-ring's ``torch.roll`` over the pod dimension; the planner takes its
-actuator as ``apply=`` (a transport's ``set_kind``).
+ring's ``torch.roll`` over the pod dimension (its point-to-point ring on a
+split pod axis; the billing and the recompiles stay on the host, the same
+on every rank); the planner takes its actuator as ``apply=`` (a
+transport's ``set_kind``).
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 
 from repro_torch.core.autotune import WanProbeEstimator
-from repro_torch.core.sync import _INLINE_RING, ChunkPayload
+from repro_torch.core.sync import ChunkPayload
 from repro_torch.core.transport import (MeasuredWanProbe, TransferRecord,
                                         WanTransport, _close_billed_round,
                                         _StreamRound)
@@ -455,8 +459,8 @@ class HierarchicalTransport(WanTransport):
                     shift: int, payload_mb: float = 0.0
                     ) -> Tuple[ChunkPayload, ...]:
         # the hierarchy reshapes who pays for the bytes and when, never
-        # the bytes: the inline ring's ship, bit for bit
-        return _INLINE_RING.ship_bucket(name, chunks, shift, payload_mb)
+        # the bytes: the bound pod axis's inline ring, bit for bit
+        return self.pods.ring.ship_bucket(name, chunks, shift, payload_mb)
 
     def on_sync(self, wire_mb: Mapping[str, float],
                 step: Optional[int] = None) -> float:
@@ -526,8 +530,8 @@ class HierarchicalTransport(WanTransport):
 
     def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
                           chunk_mb: float) -> Tuple[ChunkPayload, float]:
-        shipped = _INLINE_RING.ship_bucket(name, (chunk,), shift,
-                                           chunk_mb)[0]
+        shipped = self.pods.ring.ship_bucket(name, (chunk,), shift,
+                                             chunk_mb)[0]
         return shipped, self.stream_chunk(name, chunk_mb)
 
     def retune_stream(self, tail_mb: float) -> None:

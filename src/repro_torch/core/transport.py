@@ -9,7 +9,8 @@ that took, is this module's job.  Three implementations of one protocol:
 
 - the **inline ring** (``transport=None`` /
   :class:`~repro_torch.core.sync.InlineRingShip`): ``torch.roll`` over the
-  pod dimension, no timing.
+  pod dimension, no timing; point to point over the pod group when the
+  pod axis is split over processes.
 - :class:`SimTransport`: ships over the same inline ring (so its rounds
   are the inline rounds, bit for bit) and *bills* every sync round against
   a :class:`~repro_torch.core.wan.BandwidthTrace` and
@@ -21,9 +22,18 @@ that took, is this module's job.  Three implementations of one protocol:
   :class:`TransferRecord`.  It is single-process, as the reference's is:
   with at least ``n_pods`` devices each pod row lives on its own device and
   the ship copies row ``p`` to device ``(p + shift) % n``; with fewer it is
-  a roll on the payload's own device.  ``emulate_mbps`` adds a WAN-scale
-  hop.  :meth:`MeshTransport.measure_overlap` measures what
-  ``SyncConfig.overlap_chunks`` pipelining buys.
+  a roll on the payload's own device.  On a pod axis split over
+  processes the rows already sit one pod a rank, and the timed ship is the
+  axis's point-to-point ring.  ``emulate_mbps`` adds a WAN-scale hop.
+  :meth:`MeshTransport.measure_overlap` measures what
+  ``SyncConfig.overlap_chunks`` pipelining buys, in one process.
+
+Every transport ships over the ring of the pod axis it is bound to
+(:meth:`WanTransport.bind`; the ``Trainer`` binds its own, default the
+whole axis).  Billing is seeded host arithmetic, the same on every rank;
+a measured second is agreed over the pod group (the max over the ranks,
+:meth:`~repro_torch.core.sync.PodAxis.agree`) before a record, the probe
+or a controller reads it, so the ranks of a split axis decide alike.
 
 The measured-feedback data path::
 
@@ -57,9 +67,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.autotune import WanProbe, WanProbeEstimator
-from repro_torch.core.sync import (_INLINE_RING, ChunkPayload, SyncConfig,
-                                   _chunk_widths, _decode_bucket,
-                                   _encode_bucket, _wire_bits)
+from repro_torch.core.sync import (_INLINE_RING, WHOLE_PODS, ChunkPayload,
+                                   PodAxis, SyncConfig, _chunk_widths,
+                                   _decode_bucket, _encode_bucket,
+                                   _wire_bits)
 from repro_torch.core.wan import (BandwidthTrace, WANConfig, stream_chunk_time,
                                   transfer_time)
 
@@ -237,12 +248,18 @@ class WanTransport:
     supports_streaming: bool = False
 
     def __init__(self):
+        self.pods: PodAxis = WHOLE_PODS
         self.records: List[TransferRecord] = []
         # replayable per-round streaming summaries (only streaming
         # transports append; kept on the base so consumers can read it
         # unconditionally)
         self.stream_rounds: List[Dict] = []
         self._stream: Optional[_StreamRound] = None
+
+    def bind(self, pods: PodAxis) -> None:
+        """Ship over the pod axis ``pods`` from now on: its ring, and its
+        agreement for measured seconds (the ``Trainer`` binds its own)."""
+        self.pods = pods
 
     def ship_bucket(self, name: str, chunks: Sequence[ChunkPayload],
                     shift: int, payload_mb: float = 0.0
@@ -325,7 +342,7 @@ class SimTransport(WanTransport):
                     ) -> Tuple[ChunkPayload, ...]:
         # delegating to the inline ring is the bit-exactness guarantee;
         # billing lives in on_sync, where sizes are host values
-        return _INLINE_RING.ship_bucket(name, chunks, shift, payload_mb)
+        return self.pods.ring.ship_bucket(name, chunks, shift, payload_mb)
 
     def on_sync(self, wire_mb: Mapping[str, float],
                 step: Optional[int] = None) -> float:
@@ -369,8 +386,8 @@ class SimTransport(WanTransport):
 
     def stream_ship_chunk(self, name: str, chunk: ChunkPayload, shift: int,
                           chunk_mb: float) -> Tuple[ChunkPayload, float]:
-        shipped = _INLINE_RING.ship_bucket(name, (chunk,), shift,
-                                           chunk_mb)[0]
+        shipped = self.pods.ring.ship_bucket(name, (chunk,), shift,
+                                             chunk_mb)[0]
         return shipped, self.stream_chunk(name, chunk_mb)
 
     def retune_stream(self, tail_mb: float) -> None:
@@ -478,7 +495,11 @@ class MeshTransport(WanTransport):
     bracketed by device waits, so a record times the copy, not its launch.
     Each transfer's wall-clock goes into a :class:`TransferRecord`: the
     measured feedback the adaptive controllers read through
-    :class:`MeasuredWanProbe`.
+    :class:`MeasuredWanProbe`.  Bound to a pod axis split over processes
+    (:meth:`bind`), each rank holds its own pods' rows: the timed ship is
+    the axis's point-to-point ring between device waits, and each
+    transfer's seconds are the max over the ranks, agreed before anything
+    records them.
 
     ``in_graph=False``: the trainer ships bucket by bucket at the host
     seam, which is where the timing boundary lives."""
@@ -531,8 +552,18 @@ class MeshTransport(WanTransport):
         """Ship ``chunks`` one ring step and time it on the host: the
         placement is waited for before the clock starts, the ship (and the
         emulated hop) before it stops, and the rows are gathered back onto
-        the payload's device after.  Returns (shipped chunks, seconds)."""
+        the payload's device after.  Returns (shipped chunks, seconds).
+        On a split pod axis: the axis's ring between device waits, the
+        seconds agreed over the pod group."""
         home = chunks[0].q.device
+        if self.pods.split:
+            _wait([home])
+            t0 = time.perf_counter()
+            out = self.pods.ring.ship_bucket("", chunks, shift)
+            _wait([home])
+            if self.emulate_mbps:
+                time.sleep(payload_mb * 8.0 / self.emulate_mbps)
+            return out, self.pods.agree([time.perf_counter() - t0])[0]
         n = int(chunks[0].q.shape[0])
         devs = self.sharding(n, home.type)
         fence = devs if devs is not None else [home]
@@ -543,7 +574,7 @@ class MeshTransport(WanTransport):
         _wait(fence)                    # placement is not transfer time
         t0 = time.perf_counter()
         if devs is None:
-            out = _INLINE_RING.ship_bucket("", chunks, shift)
+            out = self.pods.ring.ship_bucket("", chunks, shift)
         else:
             sent = [[_ring_send(rows, devs, shift, _move) for rows in c]
                     for c in placed]
@@ -648,7 +679,9 @@ class MeshTransport(WanTransport):
         Decodes run after all transfers in both schedules, and both
         schedules must decode to the same tensor (``RuntimeError`` if they
         do not).  With ``emulate_mbps=None`` the hop is the raw device
-        fabric, and the speedup degenerates to ~1."""
+        fabric, and the speedup degenerates to ~1.  Single-process: it
+        makes and ships its own rows over the devices of this process and
+        never crosses a bound pod axis."""
         if not cfg.uses_codec:
             raise ValueError("measure_overlap times the codec path: cfg "
                              "must have the fused codec enabled "

@@ -115,10 +115,11 @@ def batch_axes(batch: Dict, *, stacked: bool) -> Dict:
 def _place(x: torch.Tensor, sharding: NamedSharding, pods, inpod,
            stacked: bool) -> torch.Tensor:
     """One whole leaf -> this rank's part: its pods' rows (``stacked``
-    leaves, on a split pod axis), a DTensor on the in-pod mesh placed by
-    the spec."""
-    if stacked:
-        x = pods.rows(x)
+    leaves, on a split pod axis, copied: a view would keep every pod's
+    storage alive on the rank), a DTensor on the in-pod mesh placed by the
+    spec."""
+    if stacked and pods.split:
+        x = pods.rows(x).clone()
     if inpod is None:
         return x
     from torch.distributed.tensor import DTensor, Replicate
@@ -197,12 +198,15 @@ def make_train_setup(arch: Arch, mesh, *,
                      optimizer: str = "sgd", lr: float = 0.01,
                      smoke: bool = False,
                      config_overrides: Optional[dict] = None,
-                     n_pods: Optional[int] = None) -> TrainSetup:
+                     n_pods: Optional[int] = None, transport=None,
+                     stream=None) -> TrainSetup:
     """The trainer of ``arch`` on ``mesh`` with its abstract state and
     placement tree.  ``n_pods`` (default: the mesh's ``"pod"`` size) is
     the number of stacked pods, a multiple of that size: each rank of the
     pod axis holds ``n_pods / size`` of them (all of them on a mesh without
-    a pod axis, whose one rank stacks every pod)."""
+    a pod axis, whose one rank stacks every pod).  ``transport`` and
+    ``stream`` go to the ``Trainer``, which binds the transport to its pod
+    axis."""
     cfg = arch.smoke if smoke else arch.config
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
@@ -221,7 +225,8 @@ def make_train_setup(arch: Arch, mesh, *,
     rules = train_rules()
     trainer = Trainer(wrap_loss(fns, cfg),
                       lambda g: fns.init_params(g, cfg, device), tcfg,
-                      device=device, mesh=mesh)
+                      device=device, mesh=mesh, transport=transport,
+                      stream=stream)
     abstract_state = _abstract_state(trainer, fns, cfg, n_pods)
     axes = train_state_axes(fns, cfg, tcfg)
     sharding = sharding_tree_for_params(axes, abstract_state, mesh, rules)

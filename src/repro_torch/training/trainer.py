@@ -29,18 +29,23 @@ that replaced it.
 On a mesh (``mesh=``; ``repro_torch.launch.context.make_train_setup``
 builds the trainer on one) the ``"pod"`` axis runs across processes:
 each rank holds its own pods' rows and loops over them, and the sync layer
-crosses the pod axis through its seam (``sync.PodAxis``), over the inline
-ring only.  On the in-pod axes (``"data"``, ``"model"``) every state leaf
+crosses the pod axis through its seam (``sync.PodAxis``): the inline ring
+and every transport, bound to the axis (``WanTransport.bind``), ship over
+its point-to-point ring, and every measured second and retry verdict is
+agreed over the pod group before a host decision reads it.  On the
+in-pod axes (``"data"``, ``"model"``) every state leaf
 is a DTensor placed by ``TrainSetup.state_sharding``: the forward runs on
 the placed parameters under ``axis_rules(train_rules())`` and
 ``implicit_replication``,
 each gradient is redistributed to its parameter's placements, and the
 in-place updates keep them.  A dense ``ama``, ``sma`` or ``asgd_ga`` round
 is elementwise across pods and runs on the placed leaves: each rank ships
-its own shard.  Any other round gathers each in-pod leaf whole
-(``full_tensor``), runs on plain tensors (no DTensor reaches a kernel: the
-codec's blocks are blocks of the whole flattened leaf) and writes the
-result back into the placed leaves.
+its own shard.  Any other round, a streaming one too, gathers each in-pod
+leaf whole (``full_tensor``), runs on plain tensors (no DTensor reaches a
+kernel: the codec's blocks are blocks of the whole flattened leaf) and
+writes the result back into the placed leaves.  ``retune`` works on a
+mesh; ``reconfigure`` (a pod count that changes the pod group) does not
+(ROADMAP.md Queue 1 item 15c-2).
 
 :class:`LiveMigrator` stages a pod grow or shrink from the async snapshot
 engine's last durable snapshot on a background thread (restored to the
@@ -166,6 +171,18 @@ def _write_back(dst: torch.Tensor, src: torch.Tensor) -> None:
     local.copy_(part)
 
 
+def _keep_placed(dst, src):
+    """After a round or a retune on whole values: the placed leaf ``dst``
+    with ``src`` written into its shard, where ``src`` is a plain tensor
+    of its shape; else ``src`` (a leaf the round left placed, or one of
+    another shape, which stays plain)."""
+    if is_dtensor(dst) and not is_dtensor(src) \
+            and tuple(src.shape) == tuple(dst.shape):
+        _write_back(dst, src)
+        return dst
+    return src
+
+
 def _ships_shards(sync: SyncConfig) -> bool:
     """Whether a round is elementwise across pods, so that on the mesh it
     can run on each rank's own shard: ``sma`` (its mean ignores the
@@ -210,16 +227,11 @@ class Trainer:
 
         ``mesh`` (a ``DeviceMesh`` over ``"pod"``, ``"data"``, ``"model"``)
         runs the step on a mesh under ``sharding.rules.train_rules()``: the
-        module's docstring.  With the pod axis split over processes,
-        transports and streaming raise: that path ships over the inline
-        ring only (ROADMAP.md Queue 1 item 15c)."""
+        module's docstring.  A transport with ``bind`` is bound to the
+        trainer's pod axis, so that on an axis split over processes it
+        ships over the axis's ring."""
         self.mesh = mesh
         self.pods, self.inpod = _mesh_axes(mesh, cfg.n_pods)
-        if self.pods.split and (transport is not None or stream is not None):
-            raise NotImplementedError(
-                "a pod axis split over processes ships over the inline ring "
-                "only; transports and streaming rounds over it are "
-                "ROADMAP.md Queue 1 item 15c")
         self._whole: Optional[TrainState] = None
         self.loss_fn = loss_fn
         self.init_fn = init_fn
@@ -227,6 +239,7 @@ class Trainer:
         self.device = torch.device(device)
         self.round_hook = round_hook
         self.transport = transport
+        self._bind()
         self.stream = stream
         self.optimizer = cfg.make_optimizer()
         self.schedule = cfg.make_schedule()
@@ -237,6 +250,11 @@ class Trainer:
         self.stream_retunes = 0
         self.step_seconds: List[float] = []
         self.sync_seconds: List[float] = []
+
+    def _bind(self) -> None:
+        bind = getattr(self.transport, "bind", None)
+        if bind is not None:
+            bind(self.pods)
 
     def _placed(self):
         """The scope of a step on the mesh: the sharding rules installed
@@ -370,10 +388,8 @@ class Trainer:
         (:func:`_ships_shards`) runs on the placed leaves, so each rank
         ships only its own shard of every leaf to the rank that holds the
         same shard in the peer pod; the others run on the state gathered
-        whole (:meth:`_gathered_round`)."""
-        if self.inpod is None:
-            return self._plain_round(state)
-        if not _ships_shards(self.cfg.sync):
+        whole (:meth:`_gathered_round`), as does every round off the mesh."""
+        if self.inpod is None or not _ships_shards(self.cfg.sync):
             return self._gathered_round(state)
         with self._placed():
             new, rnd = self._plain_round(state)
@@ -387,13 +403,22 @@ class Trainer:
     def _gathered_round(self, state: TrainState):
         """The round on the state gathered whole (a sparse ship's blocks
         and the codec's buckets span whole leaves), written back into the
-        placed leaves: each rank ships the pod's whole rows."""
-        # the round hook sees the whole state the round ran on
-        whole, rnd = self._plain_round(T.tree_map(whole_local, state))
-        T.tree_map(lambda d, w: _write_back(d, w) if is_dtensor(d) else None,
-                   state, whole)
+        placed leaves: each rank ships the pod's whole rows.  Off the mesh
+        the state is whole already and this is the round itself."""
+        return self._gathered(self._plain_round, state)
+
+    def _gathered(self, fn: Callable, state: TrainState, *args):
+        """``fn(whole state, *args) -> (state, ...)`` run on the state
+        gathered whole in the pod, its state written back into the placed
+        leaves (a leaf the round replaced by a plain one of another shape
+        stays plain); the round hook sees the whole state
+        (``self._whole``).  ``None`` from ``fn`` passes through."""
+        out = fn(T.tree_map(whole_local, state), *args)
+        if out is None:
+            return None
+        whole, *rest = out
         self._whole = whole
-        return state, rnd
+        return (T.tree_map(_keep_placed, state, whole), *rest)
 
     def _plain_round(self, state: TrainState):
         lr = self.schedule(state.step)
@@ -412,10 +437,8 @@ class Trainer:
             # in name order, so a fault keyed to ship calls (the first
             # failed attempt of a round) bites the same bucket here
             chunks = dict(sorted(chunks.items()))
-        shipped = ship_sync_payloads(
-            cfg, chunks,
-            self.transport if self.transport is not None else self.pods.ring,
-            self.wire_mb(state))
+        shipped = ship_sync_payloads(cfg, chunks, self.transport,
+                                     self.wire_mb(state), self.pods)
         # a fault-aware transport reports the pods that missed the round:
         # finish degraded over the survivors
         failed = tuple(getattr(self.transport, "round_failed_pods", ())
@@ -428,7 +451,8 @@ class Trainer:
                     alive[p] = 0.0
         params, sync_state = finish_codec_sync(cfg, state.params,
                                                state.sync_state, payloads,
-                                               shipped, lr, alive=alive)
+                                               shipped, lr, alive=alive,
+                                               pods=self.pods)
         return (state._replace(params=params, sync_state=sync_state),
                 (payloads, shipped))
 
@@ -452,14 +476,20 @@ class Trainer:
         tail's fidelity delta exactly.  ``end_stream_round`` then emits the
         records and the probe fold ``on_sync`` would.  Buckets ship in name
         order, the reference's (its jitted prepare returns them
-        key-sorted), so a cliff lands in the same bucket."""
+        key-sorted), so a cliff lands in the same bucket.  On a split pod
+        axis the EF telemetry the controller reads is every pod's
+        (gathered), and the chunks' seconds come agreed from the
+        transport, so every rank retunes at the same chunk."""
         from repro_torch.core.autotune import BucketStats
 
         cfg = self.cfg.sync
         wire = self.wire_mb(state)
         if not self.transport.begin_stream_round(wire, step=host_step):
             return None
-        self.stream.note_stats(BucketStats.from_sync_state(state.sync_state))
+        ss = state.sync_state
+        self.stream.note_stats(BucketStats.from_sync_state(ss._replace(
+            msg_norm=self.pods.gather(ss.msg_norm),
+            resid_norm=self.pods.gather(ss.resid_norm))))
         self.stream.begin_round(host_step, cfg)
         lr = self.schedule(state.step)
         payloads = prepare_codec_sync(cfg, state.sync_state)
@@ -489,7 +519,8 @@ class Trainer:
                                                 layout, sent)
         if not tails:
             params, sync_state = finish_codec_sync(
-                cfg, state.params, state.sync_state, payloads, shipped_t, lr)
+                cfg, state.params, state.sync_state, payloads, shipped_t, lr,
+                pods=self.pods)
             self.transport.end_stream_round()
             self.stream.end_round()
             return (state._replace(params=params, sync_state=sync_state),
@@ -520,7 +551,7 @@ class Trainer:
             tail_shipped[name] = tuple(outs)
         params, sync_state = finish_codec_sync_split(
             cfg, cfg_to, state.params, state.sync_state, payloads,
-            shipped_t, tail_shipped, tail_local, sent, lr)
+            shipped_t, tail_shipped, tail_local, sent, lr, pods=self.pods)
         self.transport.end_stream_round()
         self.stream.end_round()
         return (state._replace(params=params, sync_state=sync_state),
@@ -546,16 +577,20 @@ class Trainer:
             _wait(self.device)
             t0 = time.perf_counter()
             if self._can_stream():
-                streamed = self._stream_sync(state, host_step)
+                streamed = self._gathered(self._stream_sync, state,
+                                          host_step)
                 if streamed is not None:
                     # end_stream_round was this round's barrier
                     state, args, kw = streamed
+                    seen, self._whole = self._whole, None
                     _wait(self.device)
                     self.sync_seconds.append(time.perf_counter() - t0)
                     if self.round_hook is not None:
-                        self.round_hook(state, *args, **kw)
+                        self.round_hook(seen, *args, **kw)
                     return state
             state, rnd = self._sync_round(state)
+            # the hook's whole state, not kept past the round
+            seen, self._whole = self._whole, None
             _wait(self.device)
             self.sync_seconds.append(time.perf_counter() - t0)
             if self.transport is not None:
@@ -563,7 +598,7 @@ class Trainer:
                 # transfers into the records and the measured probe
                 self.transport.on_sync(self.wire_mb(state), step=host_step)
             if self.round_hook is not None and rnd is not None:
-                seen = self._whole if self.inpod is not None else state
+                # a round that ships payloads ran gathered
                 self.round_hook(seen, *rnd, self.cfg.sync)
         return state
 
@@ -572,12 +607,18 @@ class Trainer:
         if self.mesh is not None:
             raise NotImplementedError(
                 f"{what} of a trainer on a mesh is ROADMAP.md Queue 1 item "
-                f"15c")
+                f"15c-2")
 
     def _successor(self, cfg: TrainerConfig) -> "Trainer":
+        """The trainer for ``cfg`` on the same mesh, transport and stream,
+        the accounts carried over; at the same pod count it keeps this
+        trainer's pod axis (and its counts)."""
         nxt = Trainer(self.loss_fn, self.init_fn, cfg, device=self.device,
                       round_hook=self.round_hook, transport=self.transport,
-                      stream=self.stream)
+                      stream=self.stream, mesh=self.mesh)
+        if cfg.n_pods == self.cfg.n_pods:
+            nxt.pods, nxt.inpod = self.pods, self.inpod
+            nxt._bind()
         nxt.traffic_mb = self.traffic_mb
         nxt.stream_retunes = self.stream_retunes
         nxt.step_seconds = self.step_seconds
@@ -607,11 +648,19 @@ class Trainer:
         :func:`retune_sync_state` (the EF residual carries over).  An
         interval-only retune (the same :meth:`_sync_key`) also keeps the
         cached wire and chunk accounting; one of the same bucket policy keeps the
-        bucket weights."""
-        self._unplaced("a retune")
+        bucket weights.  The retune runs on the sync state's fields gathered
+        whole in the pod (the params give only their shapes) and writes
+        them back into the placed leaves, where there are any."""
         new_cfg = dataclasses.replace(self.cfg, sync=sync)
-        sync_state = retune_sync_state(sync, self.cfg.sync, state.sync_state,
-                                       state.params)
+        ss = state.sync_state
+        fields = ("ef_residual", "tier", "msg_norm", "resid_norm")
+        skeleton = T.tree_map(lambda x: torch.empty(
+            x.shape, dtype=x.dtype, device="meta"), state.params)
+        new = retune_sync_state(sync, self.cfg.sync, ss._replace(
+            **{f: whole_local(getattr(ss, f)) for f in fields}), skeleton)
+        sync_state = new._replace(**{
+            f: _keep_placed(getattr(ss, f), getattr(new, f))
+            for f in fields})
         trainer = self._successor(new_cfg)
         if sync.bucket_policy == self.cfg.sync.bucket_policy:
             trainer._bucket_weights = self._bucket_weights

@@ -1,5 +1,7 @@
 """One rank of a multi-process mesh run of the port (gloo, CPU), for
-``tests/test_torch_mesh.py``.
+``tests/test_torch_mesh.py`` and ``tests/test_torch_mesh_transports.py``
+(whose arms, :func:`build_arm` and :func:`drive`, live here so that the
+one-process run builds and drives them the same way).
 
 Started with the ``spawn`` method, so it imports neither JAX nor the test
 module: the job (the arch, the sync config, the mesh shape, the whole
@@ -29,7 +31,9 @@ def run(rank: int, world: int, job_file: str, out_file: str) -> None:
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
                             timeout=timedelta(seconds=60))
     try:
-        if "syncs" in job:
+        if "arms" in job:
+            _transports(rank, job, out_file)
+        elif "syncs" in job:
             _rounds(rank, job, out_file)
         elif "prompt" in job:
             _serve(rank, job, out_file)
@@ -229,3 +233,270 @@ def _run(rank: int, job: dict, out_file: str) -> None:
         tmp = out_file + ".tmp"
         torch.save(out, tmp)
         os.replace(tmp, out_file)
+
+
+# ------------------------------------------------ transports on a split axis
+
+#: the codec of every transport arm: int8 + EF, top-k 0.05, three buckets,
+#: two chunks where a bucket has the blocks; a round every 2 steps
+ARM_SYNC = dict(compress_topk=0.05, quantize_int8=True, error_feedback=True,
+                overlap_chunks=2, bucket_policy="layer-class")
+ARM_TICK_S = 1.5            # sim seconds a step: the cliff lands in round 2
+UNEQUAL_FAST_S, UNEQUAL_SLOW_S = 0.05, 0.5   # "unequal": belief, rank 1's hop
+
+
+def build_arm(name: str, rank: int = 0):
+    """Arm ``name`` -> (sync config, transport, streaming controller or
+    None, the config a retune between the rounds goes to or None).  Every
+    rank builds the same arm, except that in ``"unequal"`` rank 1's
+    measured hop is slow (its ``emulate_mbps`` is set by :func:`drive`)."""
+    import dataclasses
+
+    from repro_torch.core.autotune import StreamingShipController
+    from repro_torch.core.faults import ChaosTransport, FaultEvent, FaultPlan
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.core.topology import HierarchicalTransport, TopologySpec
+    from repro_torch.core.transport import (MeasuredWanProbe, MeshTransport,
+                                            SimTransport)
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
+    sync = SyncConfig("asgd_ga", 2, **ARM_SYNC)
+    trace = BandwidthTrace((0.0, 3.0), (100.0, 2.0))
+
+    def sim(wan=WANConfig(fluctuation=0.2, seed=3)):
+        return SimTransport(trace, wan, probe=MeasuredWanProbe())
+
+    def stream_ctl(transport):
+        # the guard never blocks: the smoke model's EF ratio is not the
+        # subject here
+        return StreamingShipController(
+            sync, 1.0, cliff_ratio=2.0, ef_guard=1.0, escalate_margin=1.0,
+            probe_est=transport.probe.estimator)
+
+    if name == "sim":
+        return sync, sim(), None, None
+    if name == "mesh":
+        return sync, MeshTransport(probe=MeasuredWanProbe()), None, None
+    if name == "chaos":
+        plan = FaultPlan((FaultEvent("fail", 1, pod=0),
+                          FaultEvent("corrupt", 1, pod=0),
+                          FaultEvent("crash", 3, pod=1)))
+        return sync, ChaosTransport(sim(), plan), None, None
+    if name == "stream":
+        t = sim(WANConfig(latency_s=0.0, fluctuation=0.0))
+        return sync, t, stream_ctl(t), None
+    if name == "hier":
+        spec = TopologySpec.from_regions(["us", "eu"], kind="ring")
+        return sync, HierarchicalTransport(spec, trace,
+                                           wan=WANConfig(seed=0),
+                                           probe=MeasuredWanProbe()), \
+            None, None
+    if name == "retune":
+        return sync, sim(), None, dataclasses.replace(sync,
+                                                      value_dtype="int4")
+    if name == "unequal":
+        t = MeshTransport(probe=MeasuredWanProbe())
+        return sync, t, stream_ctl(t), None
+    raise ValueError(name)
+
+
+def drive(trainer, state, batches, rank: int = 0, place=lambda b: b):
+    """Train ``batches`` with ``trainer`` (one step, then a round where due;
+    a sim clock ticks ``ARM_TICK_S`` a step); a retune (``trainer.
+    retune_to``) goes in after the first round.  Returns (trainer, state,
+    what every rank observed on the host: losses, records, billed and
+    probed seconds, the fault outcomes, the streaming decisions)."""
+    import dataclasses
+
+    from repro_torch.sharding.rules import whole_local
+
+    t = trainer.transport
+    if getattr(trainer, "unequal", False):
+        # the belief a fast hop meets; rank 1's emulated hop takes
+        # UNEQUAL_SLOW_S for the first chunk, a cliff, and the others none
+        first = trainer.chunk_mb(state)[sorted(trainer.chunk_mb(state))[0]][0]
+        t.probe.estimator.observe(first * 8.0 / UNEQUAL_FAST_S)
+        if rank == 1:
+            t.emulate_mbps = first * 8.0 / UNEQUAL_SLOW_S
+    losses, mesh_after = [], None
+    retune_to = getattr(trainer, "retune_to", None)
+    for step, batch in enumerate(batches):
+        state, metrics = trainer.train_step(state, place(batch))
+        losses.append(metrics["loss_per_pod"].tolist())
+        state = trainer.maybe_sync(state, step)
+        if hasattr(t, "tick"):
+            t.tick(ARM_TICK_S)
+        if retune_to is not None and len(trainer.sync_seconds) == 1:
+            mesh_before = trainer.mesh
+            trainer, state = trainer.retune(state, retune_to)
+            mesh_after = trainer.mesh is mesh_before
+            retune_to = None
+    stream = trainer.stream
+    seen = {
+        "losses": losses,
+        "records": [dataclasses.astuple(r) for r in t.records],
+        "probe": t.probe.estimator.bandwidth_mbps,
+        "outcomes": list(getattr(t, "outcomes", [])),
+        "retries": getattr(t, "retries", 0),
+        "degraded": getattr(t, "degraded_rounds", 0),
+        "stream_rounds": [dict(r) for r in t.stream_rounds],
+        "decisions": [] if stream is None else list(stream.decisions),
+        "stream_retunes": trainer.stream_retunes,
+        "rounds": len(trainer.sync_seconds),
+        "tier": whole_local(state.sync_state.tier).tolist(),
+        "successor_keeps_mesh": mesh_after,
+    }
+    return trainer, state, seen
+
+
+def _transports(rank: int, job: dict, out_file: str) -> None:
+    """Every arm of ``job["arms"]`` on the mesh through
+    ``make_train_setup``, the transport bound by the trainer; then, on
+    (2, 1, 1), the pod seam's units (:func:`_pod_units`):
+    ``hierarchical_average`` of 4 pods over the 2 ranks, the successor
+    trainer's mesh, the chaos transport's corrupted row, and a verifying
+    ship's checksums.  Rank 0 writes each arm's parameters, gradient
+    accumulator and EF residual gathered whole, and every rank's host
+    observations."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import context as C
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(*job["mesh"])
+    out = {}
+    for name in job["arms"]:
+        sync, transport, stream, retune_to = build_arm(name, rank)
+        setup = C.make_train_setup(get_arch(job["arch"]), mesh, sync=sync,
+                                   optimizer="sgd", lr=job["lr"], smoke=True,
+                                   n_pods=job["n_pods"], transport=transport,
+                                   stream=stream)
+        tr = setup.trainer
+        tr.retune_to, tr.unequal = retune_to, name == "unequal"
+        state = setup.place_state(tr.state_from_params(
+            T.tree_map(lambda x: x.clone(), job["params"])))
+        tr, state, seen = drive(tr, state, job["batches"], rank,
+                                setup.place_batch)
+        seen["sends"] = tr.pods.sends
+        seen["agreements"] = tr.pods.agreements
+        if name == "retune":
+            # a pod count that changes the pod group stays refused
+            try:
+                tr.reconfigure(state, 1)
+                seen["reconfigure"] = None
+            except NotImplementedError as e:
+                seen["reconfigure"] = str(e)
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, seen)
+        out[name] = {
+            "ranks": per_rank,
+            "params": T.tree_map(lambda x: _whole_rows(x, tr.pods),
+                                 state.params),
+            "ga": T.tree_map(lambda x: _whole_rows(x, tr.pods),
+                             state.sync_state.ga_buffer),
+            "ef": _whole_rows(state.sync_state.ef_residual, tr.pods)}
+    if "units" in job:
+        out["units"] = _pod_units(rank, job["units"], mesh, job["arch"])
+    if rank == 0:
+        tmp = out_file + ".tmp"
+        torch.save(out, tmp)
+        os.replace(tmp, out_file)
+
+
+def _pod_units(rank: int, units: dict, mesh, arch: str) -> list:
+    """The pod seam alone over the world group (2 ranks), each unit on
+    its own (an error is kept as its value, so that one unit's failure
+    leaves the others to run): per rank, what each unit produced on its
+    rows."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_arch
+    from repro_torch.core.faults import ChaosTransport, FaultEvent, FaultPlan
+    from repro_torch.core.sync import (PodAxis, SyncConfig,
+                                       _encode_bucket, hierarchical_average,
+                                       ship_sync_payloads)
+    from repro_torch.core.transport import SimTransport
+    from repro_torch.core.wan import BandwidthTrace
+    from repro_torch.launch import context as C
+
+    res = {}
+
+    def unit(name, fn):
+        try:
+            res[name] = fn()
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            res[name] = f"{type(e).__name__}: {e}"
+
+    # hierarchical_average: 4 pods, 2 a rank; its all-reduces a call
+    pods4 = PodAxis(4, dist.group.WORLD)
+    mine = T.tree_map(pods4.rows, units["tree"])
+
+    def hier(groups, inter):
+        before = pods4.all_reduces
+        out = T.tree_map(pods4.gather, hierarchical_average(
+            mine, groups, inter, pods=pods4))
+        return {"tree": out, "all_reduces": pods4.all_reduces - before}
+
+    for key, (groups, inter) in units["hier"].items():
+        unit(f"hier {key}", lambda g=groups, i=inter: hier(g, i))
+
+    # the trainer a retune or reconfigure builds keeps the mesh and axis
+    def successor():
+        tr = C.make_train_setup(get_arch(arch), mesh,
+                                sync=SyncConfig("asgd_ga", 2, **ARM_SYNC),
+                                smoke=True, n_pods=2).trainer
+        nxt = tr._successor(tr.cfg)
+        return nxt.mesh is mesh and nxt.pods is tr.pods
+
+    unit("successor", successor)
+
+    # one pod a rank: the chunks of 2 pods, this rank's row
+    pods = PodAxis(2, dist.group.WORLD)
+    codec = SyncConfig("asgd_ga", 2, **ARM_SYNC).for_bucket("all")
+    flat = torch.randn(2, 3 * codec.codec_block,
+                       generator=torch.Generator().manual_seed(5))
+    chunks = tuple(type(c)(*(pods.rows(p) for p in c))
+                   for c in _encode_bucket(codec, flat, False)[0])
+    inline = pods.ring.ship_bucket("all", chunks, 1)
+
+    # the corrupted receiver row is global: pod 0's peer, pod 1, on rank 1
+    def corrupt():
+        chaos = ChaosTransport(
+            SimTransport(BandwidthTrace((0.0,), (100.0,))),
+            FaultPlan((FaultEvent("corrupt", 0, pod=0),)), tolerate=False)
+        chaos.bind(pods)
+        chaos.begin_round(0)
+        hit = chaos.ship_bucket("all", chunks, 1)
+        rest = (torch.equal(hit[0].q, inline[0].q)
+                and torch.equal(hit[0].idx, inline[0].idx)
+                and all(torch.equal(a, b)
+                        for ca, cb in zip(hit[1:], inline[1:])
+                        for a, b in zip(ca, cb)))
+        return {"flipped": not torch.equal(hit[0].scales, inline[0].scales),
+                "rest_equal": rest}
+
+    unit("corrupt", corrupt)
+
+    # a verifying host-seam ship over the split ring: the receiver's rows
+    # are held to the sender checksums gathered over the pod group
+    class Verified:
+        in_graph, verify_checksums = False, True
+
+        def __init__(self):
+            self.pods = pods
+
+        def ship_bucket(self, name, bchunks, shift, payload_mb=0.0):
+            return pods.ring.ship_bucket(name, bchunks, shift)
+
+    def verified():
+        before = pods.all_gathers
+        shipped = ship_sync_payloads(SyncConfig("asgd_ga", 2),
+                                     {"all": chunks}, Verified())
+        equal = all(torch.equal(a, b)
+                    for ca, cb in zip(shipped["all"], inline)
+                    for a, b in zip(ca, cb))
+        return {"equal": equal, "crc_gathers": pods.all_gathers - before}
+
+    unit("verified", verified)
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, res)
+    return per_rank
