@@ -224,6 +224,28 @@ Phases (any failure raises and the script exits non-zero):
    hook.  Prints the backend, each rank's launches, each arm's round and
    step times split against whole and each process's peak memory; a
    failed or hung process (``POD_PROC_TIMEOUT``) fails the phase.
+3l. Elasticity on a pod axis split over processes: granite-8b at full
+   width and 1 layer, 3 pods, batch 8, seq 512, sgd, ASGD-GA every 2
+   steps through the int8 codec with EF at top-k ``POD_PROC_TOPK``, a
+   ``SimTransport`` without fluctuation in a chaos plan; first whole in
+   this process, then three spawned processes, one pod each, on a
+   ``(3, 1, 1)`` mesh (gloo on one card, NCCL with a card a pod).  Two
+   steps and a round; a placed save (``Trainer.save_state``) whose
+   size and CRC32 equal the whole run's save, restored placed bit-equal;
+   an async snapshot of the bound engine (the same file); pod 1 leaves at
+   the barrier (``keep=(0, 2)``), staged by ``LiveMigrator`` (the stage
+   joined before the barrier, so that the barrier holds the resize alone,
+   as the whole run's does); two steps
+   and a round on 2 pods; pod 1 rejoins; two steps and a round on 3
+   pods, then a round with pod 1 crashed (degraded).  The rows of the
+   parameters, the gradient accumulator and the EF residual after the
+   leave, the rejoin and the last round are bit-equal to the whole run,
+   losses, billed records and fault outcomes equal (pod 1's process
+   missing the rounds it idled through), every round held by the round
+   hook.  Prints the save, restore, ``snapshot()``, commit and stage s,
+   the reconfiguration barriers split against whole and each process's
+   peak;
+   a failed or hung process (``ELASTIC_TIMEOUT``) fails the phase.
 3j. The dry run (``repro_torch.launch.dryrun``'s command line, each run
    in a process of its own: its fake process group is global to the
    process), on the host, no card, at all layers, on the multi-pod mesh of
@@ -1355,16 +1377,20 @@ def nan_equal(torch, a, b) -> bool:
     corrupted scale decodes q = 0 to NaN on both sides)."""
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
+    if torch.equal(a, b):
+        return True
     na, nb = torch.isnan(a), torch.isnan(b)
     return bool(torch.equal(na, nb)) and bool(torch.equal(
         torch.where(na, torch.zeros_like(a), a),
         torch.where(nb, torch.zeros_like(b), b)))
 
 
-def fault_round_check(torch, transport, first: int = 0):
+def fault_round_check(torch, transport, first=0, n_pods=PODS):
     """A ``round_hook`` for rounds over any transport, a chaos-wrapped one
     included, run by a process that holds the pods' rows from global pod
-    ``first`` on: each shipped chunk's kernel decode (a corrupted one
+    ``first`` on, of ``n_pods`` (either may be a function that reads it at
+    the round, for a run that reconfigures): each shipped chunk's kernel
+    decode (a corrupted one
     included) == its plain decode, NaN equal in place, the prefix at the
     bucket's tier and a streaming retune's tails at the retune's; the
     round's launches are one encode and one local decode per chunk and one
@@ -1380,25 +1406,32 @@ def fault_round_check(torch, transport, first: int = 0):
     checked, mark = [], {}
 
     def decode_held(bcfg, chunks, widths, n_total, what):
+        # chunk by chunk: at full width a bucket's decode, twice, beside
+        # the round's buffers would not fit the card
         block = min(bcfg.codec_block, max(1, n_total))
-        kern, plain = (S._cat([ops.wan_decode(
-            c.q, c.idx.to(torch.int32), c.scales, m, block=block,
-            value_dtype=bcfg.value_dtype, use_kernel=use)
-            for c, m in zip(chunks, widths)]) for use in (True, False))
-        require(nan_equal(torch, kern, plain),
-                f"round {len(checked)} {what}: peer decode kernel == plain")
+        for i, (c, m) in enumerate(zip(chunks, widths)):
+            kern, plain = (ops.wan_decode(
+                c.q, c.idx.to(torch.int32), c.scales, m, block=block,
+                value_dtype=bcfg.value_dtype, use_kernel=use)
+                for use in (True, False))
+            require(nan_equal(torch, kern, plain),
+                    f"round {len(checked)} {what} chunk {i}: peer decode "
+                    f"kernel == plain")
+            del kern, plain
 
     def hook(state, payloads, shipped, sync, retune=None):
         counts = dict(ops.LAUNCHES)
         enc = counts["wan_encode"] - mark["wan_encode"]
         dec = counts["wan_decode"] - mark["wan_decode"]
         ss = state.sync_state
+        n = n_pods() if callable(n_pods) else n_pods
+        at = first() if callable(first) else first
         failed = tuple(getattr(transport, "round_failed_pods", ()) or ())
-        alive = [0 if p in failed else 1 for p in range(PODS)]
-        delivered = [alive[p] * alive[(p + sync.peer_shift) % PODS]
-                     for p in range(PODS)]
+        alive = [0 if p in failed else 1 for p in range(n)]
+        delivered = [alive[p] * alive[(p + sync.peer_shift) % n]
+                     for p in range(n)]
         for i in range(ss.ef_residual.shape[0]):
-            p = first + i
+            p = at + i
             want = (payloads.flat[i] - payloads.local[i] if delivered[p]
                     else payloads.flat[i])
             require(nan_equal(torch, ss.ef_residual[i], want),
@@ -3378,14 +3411,17 @@ def pod_arm(name: str, model_mb: float):
 
 
 def row_digests(torch, state, first: int) -> dict:
-    """Digests of every parameter leaf's and the EF residual's rows, keyed
-    by the global pod: ``first`` is the global pod of row 0."""
+    """Digests of every parameter leaf's, the gradient accumulator's and
+    the EF residual's rows, keyed by the global pod: ``first`` is the
+    global pod of row 0."""
     from repro_torch import tree as T
     from repro_torch.sharding.rules import whole_local
 
     out = {}
     leaves = T.leaves_with_path(state.params) + [
-        ("ef_residual", state.sync_state.ef_residual)]
+        ("ef_residual", state.sync_state.ef_residual)] + [
+        ("ga" + path, x) for path, x in
+        T.leaves_with_path(state.sync_state.ga_buffer)]
     for path, x in leaves:
         x = whole_local(x)
         for i in range(x.shape[0]):
@@ -3438,16 +3474,19 @@ def pod_drive(torch, trainer, state, batches, place=lambda b: b):
     return trainer, state, json.loads(json.dumps(host))
 
 
-def pod_batches(torch, cfg, sync, device: str):
+def pod_batches(torch, cfg, sync, device: str, n_pods: int = PODS,
+                steps: int = POD_PROC_STEPS):
+    """The launcher's batches of global batch 8 split over ``n_pods``
+    clouds (a batch function of the step)."""
     from repro_torch.core.control_plane import (TrainingRequest,
                                                 build_training_plan)
     from repro_torch.core.scheduler import CloudResources
     from repro_torch.launch.train import make_batches
 
     clouds = tuple(CloudResources(region=f"pod{i}", devices=(("v5e", 4),),
-                                  data_size=1.0) for i in range(PODS))
+                                  data_size=1.0) for i in range(n_pods))
     plan = build_training_plan(TrainingRequest(
-        model=cfg.name, clouds=clouds, sync=sync, n_iters=POD_PROC_STEPS,
+        model=cfg.name, clouds=clouds, sync=sync, n_iters=steps,
         global_batch=8))
     return make_batches(plan, cfg.vocab_size, 512, device)
 
@@ -3683,6 +3722,379 @@ def phase_pod_procs(torch) -> dict:
               f" GB against whole {w['peak_gb']:.2f} GB")
     print(f"[pods] whole runs {whole_s:.1f} s, pod processes {procs_s:.1f} "
           f"s; {smi}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# phase 3l: elastic reconfiguration on a split pod axis, one pod a process:
+# granite-8b at full width and 1 layer, 3 pods (three processes share one
+# card: at 2 layers one of phase 3k's processes peaks at 24.01-30.52 GB on
+# an NVIDIA H100 80GB HBM3 at 700 W), the schedule of
+# tests/test_torch_mesh_elastic.py
+ELASTIC_PODS = 3
+ELASTIC_LAYERS = 1
+ELASTIC_STEPS = 8
+ELASTIC_CRASH = 7             # the chaos round: pod 1 crashed
+ELASTIC_TIMEOUT = 600         # seconds for the three pod processes together
+
+
+def elastic_arm():
+    """Phase 3l's sync config and transport: phase 3k's codec (int8 + EF
+    at top-k ``POD_PROC_TOPK``, layer-class buckets of ``STREAM_CHUNKS``
+    chunks), a round every 2 steps, over a ``SimTransport`` billed without
+    fluctuation (a pod that idles misses rounds, so every bill depends on
+    the clock alone) in a chaos plan that crashes pod 1 in the last
+    round."""
+    from repro_torch.core import sync as S
+    from repro_torch.core.faults import ChaosTransport, FaultEvent, FaultPlan
+    from repro_torch.core.transport import SimTransport
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
+    sync = S.SyncConfig("asgd_ga", 2, compress_topk=POD_PROC_TOPK,
+                        quantize_int8=True, error_feedback=True,
+                        overlap_chunks=STREAM_CHUNKS,
+                        bucket_policy="layer-class")
+    sim = SimTransport(BandwidthTrace(*STREAM_TRACE),
+                       WANConfig(fluctuation=0.0, seed=0))
+    return sync, ChaosTransport(sim, FaultPlan((
+        FaultEvent("crash", ELASTIC_CRASH, pod=1),)))
+
+
+class ElasticPlan:
+    """A reconfiguration plan as ``apply_reconfig`` reads one."""
+
+    def __init__(self, n_new, keep, sync):
+        from types import SimpleNamespace
+
+        self.is_noop, self._t = False, (keep, n_new)
+        self.new = SimpleNamespace(request=SimpleNamespace(sync=sync))
+
+    def pod_transition(self):
+        return self._t
+
+
+def elastic_drive(torch, box, state, batches, d, setup=None, engine=None):
+    """Phase 3l's schedule for the whole run (``setup=None``) or one pod
+    process: two steps and a round on 3 pods; a save (placed: every rank)
+    and, split, its restore held bit-equal, an async snapshot, and pod 1
+    leaving at the barrier (``keep=(0, 2)``) staged by ``LiveMigrator``,
+    the stage joined before the barrier (whole: ``apply_reconfig``); two
+    steps and a round on 2 pods; pod 1
+    rejoins; two steps and a round on 3 pods, two more with the chaos
+    round.  ``box[0]`` is the live trainer (the round hook reads it);
+    ``batches[n]`` the batch function for ``n`` pods.  Returns the host
+    record: losses, times, digests of the rows after the leave, the rejoin
+    and the last round, the save's and snapshot's commit records."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.sharding.rules import local_part
+    from repro_torch.training.trainer import LiveMigrator, apply_reconfig
+
+    rec = {"losses": {}, "times": {}, "digests": {}}
+    writer = setup is None or dist.get_rank() == 0
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["times"][name] = time.perf_counter() - t0
+        return out
+
+    def steps(lo, hi):
+        nonlocal state
+        for step in range(lo, hi):
+            tr = box[0]
+            if state is not None:
+                b = batches[tr.cfg.n_pods](step)
+                if setup is not None:
+                    b = setup.place_batch(b, tr)
+                state, metrics = tr.train_step(state, b)
+                rec["losses"][str(step)] = \
+                    metrics["loss_per_pod"].float().cpu().tolist()
+                state = tr.maybe_sync(state, step)
+            tr.transport.tick(0.5)
+
+    def digest(name):
+        if state is not None:
+            torch.cuda.synchronize()
+            rec["digests"][name] = row_digests(torch, state,
+                                               box[0].pods.first)
+
+    def manifest(path):
+        m = ckpt.load_manifest(path)
+        return [m["arrays_bytes"], m["arrays_crc32"]]
+
+    steps(0, 2)
+    path = os.path.join(d, "save")
+    run("save", lambda: box[0].save_state(path, state))
+    rec["save"] = manifest(path)
+    plan = ElasticPlan(2, (0, 2), box[0].cfg.sync)
+    if setup is None:
+        shutil.rmtree(path)
+        box[0], state, _ = run("leave", lambda: apply_reconfig(
+            box[0], state, plan))
+    else:
+        got, step = run("restore", lambda: setup.restore_state(path))
+        rec["restore_equal"] = step == state.step and all(
+            torch.equal(local_part(a), local_part(b))
+            for a, b in zip(T.leaves(got), T.leaves(state))
+            if isinstance(a, torch.Tensor))
+        state = got
+        del got
+        dist.barrier()
+        if writer:
+            shutil.rmtree(path)
+        t0 = time.perf_counter()
+        engine.snapshot(state, state.step, parts=box[0].leaf_parts(state))
+        rec["times"]["snapshot"] = time.perf_counter() - t0
+        run("commit", engine.wait)
+        rec["snapshot"] = manifest(engine.last_durable()[1])
+        migrator = LiveMigrator(engine)
+        migrator.stage(state, 2, (0, 2), trainer=box[0],
+                       like=setup.abstract_state)
+        run("stage", migrator.wait)
+        box[0], state, _ = run("leave", lambda: migrator.reconcile(
+            box[0], state, plan))
+        rec["staged_mb"] = migrator.staged_mb
+        rec["migrator_errors"] = [repr(e) for e in migrator.errors]
+        migrator.last_staged = None
+    digest("left")
+    steps(2, 4)
+    box[0], state = run("join", lambda: box[0].reconfigure(state, 3))
+    digest("joined")
+    steps(4, ELASTIC_STEPS)
+    digest("final")
+    t = box[0].transport
+    rec.update(records=[list(dataclasses.astuple(r)) for r in t.records],
+               outcomes=list(t.outcomes), degraded=t.degraded_rounds,
+               retries=t.retries,
+               moved_gb=getattr(box[0], "reconfig_sent", 0) / 1e9)
+    return json.loads(json.dumps(rec))
+
+
+def elastic_worker(rank: int, world: int, backend: str, store: str,
+                   out_file: str, d: str) -> None:
+    """One pod process of phase 3l: a ``world``-rank group of ``backend``
+    (a ``FileStore``), ``make_debug_mesh(3, 1, 1)`` on the card, granite-8b
+    x1 through ``make_train_setup`` (the rank's init staggered: each
+    process builds the whole initial state before it keeps its rows), the
+    async engine bound to the mesh, :func:`elastic_drive`, every round held
+    by :func:`fault_round_check`.  Writes its record, launches and peak
+    memory as JSON."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    deterministic(torch)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    try:
+        from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
+        from repro_torch.configs import get_arch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import context as C
+        from repro_torch.launch import mesh as M
+
+        mesh = M.make_debug_mesh(ELASTIC_PODS, 1, 1, device_type="cuda")
+        sync, transport = elastic_arm()
+        setup = C.make_train_setup(
+            get_arch("granite-8b"), mesh, sync=sync, lr=0.02,
+            n_pods=ELASTIC_PODS,
+            config_overrides={"n_layers": ELASTIC_LAYERS},
+            transport=transport)
+        box = [setup.trainer]
+        hook, checked, mark = fault_round_check(
+            torch, transport, first=lambda: box[0].pods.first,
+            n_pods=lambda: box[0].cfg.n_pods)
+        box[0].round_hook = hook
+        batches = {n: pod_batches(torch, setup.cfg, sync, "cuda", n,
+                                  ELASTIC_STEPS) for n in (2, 3)}
+        state = None
+        for r in range(world):
+            if r == rank:
+                state = setup.place_state(box[0].init_state(SEED))
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        engine = AsyncCheckpointEngine(os.path.join(d, "snaps"), keep=1)
+        engine.bind(box[0].mesh_ranks)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        mark.update(ops.LAUNCHES)
+        rec = elastic_drive(torch, box, state, batches, d, setup, engine)
+        engine.close()
+        rec.update(
+            launches={k: ops.LAUNCHES[k] for k in ("wan_encode",
+                                                   "wan_decode")},
+            checked=len(checked), live=box[0].live,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            backend=str(dist.get_backend()), first=box[0].pods.first)
+        with open(out_file + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(out_file + ".tmp", out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_elastic(torch) -> dict:
+    """Phase 3l: elastic reconfiguration on a pod axis split over
+    processes.  The schedule runs whole in this process first (its
+    digests kept, its state freed), then in three spawned processes, one
+    pod each; a failed or hung process fails the phase.  Returns the codec
+    launches of the whole run and the processes."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch.configs import granite_8b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = granite_8b.CONFIG.replace(n_layers=ELASTIC_LAYERS)
+    world = ELASTIC_PODS
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    sync, transport = elastic_arm()
+    box = []
+    hook, checked, mark = fault_round_check(
+        torch, transport, n_pods=lambda: box[0].cfg.n_pods)
+    box.append(Trainer(lambda p, b: transformer.loss_fn(p, cfg, b),
+                       lambda g: transformer.init_params(g, cfg, "cuda"),
+                       TrainerConfig(n_pods=ELASTIC_PODS, optimizer="sgd",
+                                     lr=0.02, sync=sync),
+                       device="cuda", round_hook=hook, transport=transport))
+    batches = {n: pod_batches(torch, cfg, sync, "cuda", n, ELASTIC_STEPS)
+               for n in (2, 3)}
+    state = box[0].init_state(SEED)
+    gb = state_gb(torch, state)
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        free = shutil.disk_usage(d).free / 1e9
+        require(free > 1.5 * gb, f"[elastic] {free:.1f} GB free on disk for "
+                f"a {gb:.2f} GB state, want 1.5x")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        mark.update(ops.LAUNCHES)
+        want = elastic_drive(torch, box, state, batches, d)
+        want["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        require(len(checked) == ELASTIC_STEPS // 2,
+                f"[elastic] whole run: {len(checked)} rounds held")
+        total = {k: ops.LAUNCHES[k] for k in ("wan_encode", "wan_decode")}
+        del state, box[:], transport
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        whole_s = time.perf_counter() - t_phase
+
+        t_spawn = time.perf_counter()
+        outs = [os.path.join(d, f"rank{r}.json") for r in range(world)]
+        ctx = tmp.get_context("spawn")
+        procs = [ctx.Process(target=elastic_worker,
+                             args=(r, world, backend,
+                                   os.path.join(d, "store"), outs[r], d))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + ELASTIC_TIMEOUT
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join(10)
+        require(not hung, f"[elastic] {len(hung)} of {world} pod processes "
+                f"still running after {ELASTIC_TIMEOUT} s")
+        require([p.exitcode for p in procs] == [0] * world,
+                f"[elastic] pod processes exited "
+                f"{[p.exitcode for p in procs]}")
+        got = []
+        for o in outs:
+            with open(o) as f:
+                got.append(json.load(f))
+    procs_s = time.perf_counter() - t_spawn
+    away = {"2", "3"}               # steps pod 1's process idles through
+    for r, g in enumerate(got):
+        present = {s: v for s, v in want["losses"].items()
+                   if r != 1 or s not in away}
+        require(g["losses"] == present,
+                f"[elastic] rank {r}: losses equal to the whole run's")
+        rounds = [x for x in want["records"]
+                  if r != 1 or str(x[-1]) not in away]
+        require(g["records"] == rounds,
+                f"[elastic] rank {r}: billed records equal to the whole "
+                f"run's rounds it took part in")
+        require(g["outcomes"] == want["outcomes"] and g["degraded"] == 1
+                == want["degraded"],
+                f"[elastic] rank {r}: the degraded chaos round, as whole")
+        require(g["save"] == want["save"],
+                f"[elastic] rank {r}: placed save {g['save']} == whole "
+                f"save {want['save']} (bytes, CRC32)")
+        require(g["snapshot"] == want["save"],
+                f"[elastic] rank {r}: the snapshot's file is the save's")
+        require(g["restore_equal"] is True,
+                f"[elastic] rank {r}: restore bit-equal")
+        require(not g["migrator_errors"],
+                f"[elastic] rank {r}: migrator errors {g['migrator_errors']}")
+        require(g["checked"] == ELASTIC_STEPS // 2 - (r == 1),
+                f"[elastic] rank {r}: {g['checked']} rounds held to the "
+                f"plain decode")
+        require(g["live"], f"[elastic] rank {r} live at the end")
+        for k in total:
+            total[k] += g["launches"][k]
+    require(got[1]["staged_mb"] == 0 and got[0]["staged_mb"] > 0
+            and got[0]["staged_mb"] == got[2]["staged_mb"],
+            f"[elastic] staged MB by rank {[g['staged_mb'] for g in got]}")
+    for point in ("left", "joined", "final"):
+        split = {}
+        for g in got:
+            split.update(g["digests"].get(point, {}))
+        bad = [k for k, v in want["digests"][point].items()
+               if split.get(k) != v]
+        require(not bad and len(split) == len(want["digests"][point]),
+                f"[elastic] {point}: every pod's rows bit-equal to the "
+                f"whole run's, differing {bad[:4]}")
+    smi = card_line()
+    t = [g["times"] for g in got]
+    print(f"[elastic] {cfg.name} x{cfg.n_layers} layer, {ELASTIC_PODS} pods, "
+          f"batch 8, seq 512, {ELASTIC_STEPS} steps: {world} processes, pod "
+          f"group {got[0]['backend']}; 3 -> 2 (keep (0, 2), staged) -> 3 "
+          f"pods, a degraded round at 3 pods with pod 1 crashed; rows after "
+          f"the leave, the rejoin and the last round bit-equal to the whole "
+          f"run ({len(want['digests']['final'])} row digests), losses, "
+          f"records and outcomes equal, every round held to the plain "
+          f"decode")
+    print(f"[elastic] save: whole {want['times']['save']:.2f} s, placed "
+          f"{[round(x['save'], 2) for x in t]} s, {want['save'][0] / 1e9:.3f}"
+          f" GB, CRC32 {want['save'][1]} on every rank; placed restore "
+          f"{[round(x['restore'], 2) for x in t]} s; snapshot() host "
+          f"{[round(x['snapshot'], 4) for x in t]} s, commit "
+          f"{[round(x['commit'], 2) for x in t]} s; the leave's stage "
+          f"(the snapshot read and resized to each rank's rows) "
+          f"{[round(x['stage'], 2) for x in t]} s")
+    print(f"[elastic] reconfiguration barrier s (the resize and the new "
+          f"mesh, the stage joined before): leave split "
+          f"{[round(x['leave'], 3) for x in t]} against whole "
+          f"{want['times']['leave']:.3f}; rejoin split "
+          f"{[round(x['join'], 3) for x in t]} against whole "
+          f"{want['times']['join']:.3f}; staged MB "
+          f"{[round(g['staged_mb'], 1) for g in got]}; peak GB a process "
+          f"{[round(g['peak_gb'], 2) for g in got]} against whole "
+          f"{want['peak_gb']:.2f}; launches by rank "
+          f"{[g['launches'] for g in got]}")
+    print(f"[elastic] whole run {whole_s:.1f} s, pod processes "
+          f"{procs_s:.1f} s; {smi}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -5581,6 +5993,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     pod_launches = phase_pod_procs(torch)
     torch.cuda.empty_cache()
+    elastic_launches = phase_elastic(torch)
+    torch.cuda.empty_cache()
     phase_paper_models(torch)
     phase_entry_point(torch)
     phase_entry_point_ama(torch)
@@ -5613,7 +6027,8 @@ def main() -> int:
                                      + moe_train_launches[name]
                                      + vl_launches[name]
                                      + mesh_launches[name]
-                                     + pod_launches[name])
+                                     + pod_launches[name]
+                                     + elastic_launches[name])
     kernels["flash_attention"]["launches"] = (
         serve_launches["flash_attention"]
         + gemma_launches["flash_attention"]

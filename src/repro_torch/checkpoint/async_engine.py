@@ -54,6 +54,17 @@ save or the CPU.
 
 At granite-8b x2 layers and 2 pods one set is ~18 GB, and with the
 default ``max_inflight=2`` the pool holds up to three.
+
+Bound to a mesh (:meth:`AsyncCheckpointEngine.bind`, on every rank of the
+world), the engine snapshots a placed tree: ``snapshot(tree, step,
+parts=...)`` captures only this rank's local shards, on the side stream as
+above, and posts nothing to any other rank.  The worker thread then ships each
+leaf's owned pieces to the writer (the mesh's first rank) over a gloo
+group of the engine's own, made at ``bind``, in queue order and key
+order, so the ranks' sends pair up; the writer assembles and writes the
+whole leaves and renames the directory, and broadcasts the outcome on the
+same group, so that ``last_durable()`` advances on every rank only after
+the writer's atomic rename.  The files equal the unplaced snapshot's.
 """
 from __future__ import annotations
 
@@ -62,11 +73,12 @@ import queue
 import re
 import shutil
 import threading
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.sharding.rules import is_dtensor, local_part
 
 from . import checkpoint as ckpt
 
@@ -174,23 +186,49 @@ class AsyncCheckpointEngine:
         self._max_sets = depth + 1
         self._pool = threading.Condition()
         self._stream = None
+        self._group: Optional[ckpt.CheckpointGroup] = None
         self.committed = 0
         self._closed = False
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="ckpt-engine")
         self._thread.start()
 
+    # ------------------------------------------------------------ binding
+    def bind(self, ranks: Sequence[int]) -> None:
+        """Bind the engine to a mesh's ranks (global ranks, the writer
+        first; ``Trainer.mesh_ranks``) before the snapshots they share: it
+        makes the engine's own gloo group, which is collective over the
+        world, so every rank of the world calls it, on its main thread, in
+        the same order.  Drains the queue first, so that a re-bind (after a
+        reconfiguration) starts on a clean group."""
+        self.wait()
+        self._group = ckpt.CheckpointGroup(ranks)
+
     # ------------------------------------------------------------ enqueue
     def snapshot(self, tree: Pytree, step: int,
-                 metadata: Optional[dict] = None) -> None:
+                 metadata: Optional[dict] = None,
+                 parts: Optional[Pytree] = None) -> None:
         """Enqueue an async snapshot of ``tree`` tagged ``step``.  Returns
         once every tensor leaf is captured into a host buffer (on the card:
         once its copy is queued on the device behind the step that made
-        it); the serialize and commit happen on the worker thread."""
+        it); the serialize and commit happen on the worker thread.  An
+        engine bound to a mesh takes a placed tree and its ``parts``
+        (``Trainer.leaf_parts``) and captures the local shards; an unbound
+        one refuses a DTensor leaf."""
         if self._closed:
             raise RuntimeError("engine is closed")
         self._raise_pending()
         keys, leaves = ckpt._keys(tree), T.leaves(tree)
+        group = self._group
+        if group is not None:
+            if parts is None:
+                raise ValueError("an engine bound to a mesh snapshots a "
+                                 "placed tree: pass parts=")
+            parts = ckpt._part_leaves(parts, len(leaves))
+            leaves = [local_part(x) for x in leaves]
+        elif any(is_dtensor(x) for x in leaves):
+            raise TypeError("snapshot of a tree that holds a DTensor: bind "
+                            "the engine to the mesh and pass parts=")
         bufs = self._acquire(_layout(leaves))
         try:
             ready = self._capture(leaves, bufs)
@@ -199,7 +237,7 @@ class AsyncCheckpointEngine:
             raise
         host = [b if b is not None else x for b, x in zip(bufs.views, leaves)]
         self._q.put((bufs, ready, (keys, host, int(step),
-                                   dict(metadata or {}))))
+                                   dict(metadata or {}), parts, group)))
 
     def _acquire(self, layout) -> _HostBuffers:
         """A free buffer set of ``layout``: reused, newly allocated while
@@ -271,29 +309,40 @@ class AsyncCheckpointEngine:
             finally:
                 self._q.task_done()
 
-    def _commit_snapshot(self, keys, host, step: int, metadata: dict) -> None:
-        shapes = [tuple(x.shape) if isinstance(x, torch.Tensor) else ()
-                  for x in host]
+    def _commit_snapshot(self, keys, host, step: int, metadata: dict,
+                         parts=None, group=None) -> None:
+        shapes = ([tuple(p.shape) for p in parts] if parts is not None else
+                  [tuple(x.shape) if isinstance(x, torch.Tensor) else ()
+                   for x in host])
         manifest = ckpt.build_manifest(keys, host, shapes, step, metadata)
         final = step_dir(self.root, step)
-        tmp = final + ".tmp"
-        for stale in (tmp, final):
-            if os.path.isdir(stale):
-                shutil.rmtree(stale)
-        os.makedirs(tmp)
-        ckpt.write_files(tmp, host, manifest)
-        os.replace(tmp, final)               # the atomic commit point
+        leaves = host if group is None else group.ship(host, parts)
+
+        def write():
+            tmp = final + ".tmp"
+            for stale in (tmp, final):
+                if os.path.isdir(stale):
+                    shutil.rmtree(stale)
+            os.makedirs(tmp)
+            ckpt.write_files(tmp, leaves, manifest)
+            os.replace(tmp, final)           # the atomic commit point
+
+        if group is None:
+            write()
+        else:
+            group.commit(write)
         with self._lock:
             self._durable = sorted(set(self._durable) | {step})
             self.committed += 1
-        self._prune()
+        self._prune(group is None or group.is_writer)
 
-    def _prune(self) -> None:
+    def _prune(self, remove: bool = True) -> None:
         with self._lock:
             drop = self._durable[:-self.keep]
             self._durable = self._durable[-self.keep:]
-        for s in drop:
-            shutil.rmtree(step_dir(self.root, s), ignore_errors=True)
+        if remove:
+            for s in drop:
+                shutil.rmtree(step_dir(self.root, s), ignore_errors=True)
 
     # -------------------------------------------------------------- query
     def _raise_pending(self) -> None:
@@ -319,9 +368,10 @@ class AsyncCheckpointEngine:
         return s, step_dir(self.root, s)
 
     def restore_last(self, like: Pytree, *,
-                     pod_resize: Optional[str] = None) -> Tuple[Pytree, int]:
+                     pod_resize: Optional[str] = None,
+                     parts: Optional[Pytree] = None) -> Tuple[Pytree, int]:
         """Drain the queue, then restore the newest durable snapshot onto
-        ``like``'s devices.
+        ``like``'s devices (placed, by ``parts``: ``checkpoint.restore``).
 
         A snapshot this engine committed can only be damaged externally
         (disk truncation, an operator's stray rm); on a
@@ -336,7 +386,7 @@ class AsyncCheckpointEngine:
                 s = self._durable[-1]
             try:
                 return ckpt.restore(step_dir(self.root, s), like=like,
-                                    pod_resize=pod_resize)
+                                    pod_resize=pod_resize, parts=parts)
             except ckpt.CheckpointCorruptError:
                 with self._lock:
                     if self._durable and self._durable[-1] == s:
@@ -365,11 +415,17 @@ class AsyncCheckpointEngine:
 
 
 def blocking_equivalent(tree: Pytree, step: int, directory: str,
-                        metadata: Optional[dict] = None) -> str:
+                        metadata: Optional[dict] = None,
+                        parts: Optional[Pytree] = None,
+                        group: Optional[ckpt.CheckpointGroup] = None) -> str:
     """Reference semantics for one engine snapshot: the blocking
-    ``checkpoint.save`` of the same tree at the same step, written under
-    ``directory`` with the engine's step-dir naming.  A snapshot's files
-    equal this save's byte for byte."""
+    ``checkpoint.save`` of the same tree at the same step (of a placed
+    tree, ``checkpoint.save_placed`` with its ``parts`` over ``group``),
+    written under ``directory`` with the engine's step-dir naming.  A
+    snapshot's files equal this save's byte for byte."""
     d = step_dir(directory, step)
-    ckpt.save(d, tree, step=step, metadata=metadata)
+    if parts is None:
+        ckpt.save(d, tree, step=step, metadata=metadata)
+    else:
+        ckpt.save_placed(d, tree, parts, group, step=step, metadata=metadata)
     return d

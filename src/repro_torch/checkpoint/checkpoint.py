@@ -32,6 +32,19 @@ Threads checksum the data in chunks, and the file's CRC32, the same
 number as the reference's, is assembled from those pieces and the few
 header bytes between them.  ``restore`` takes ``device=`` where
 the reference takes ``shardings=``.
+
+A placed tree (a trainer's state on a mesh: each rank holds its pods' rows
+of the pod-stacked leaves, each an in-pod DTensor) is described by a tree
+of :class:`Part` (the port's ``shardings=``).  :func:`save_placed`, called
+by every rank of the mesh, writes the file the unplaced save of the whole
+tree writes, byte for byte: leaf by leaf, in key order, each rank ships the
+pieces it owns to one writer, the mesh's first rank (over the gloo group
+of a :class:`CheckpointGroup`), which assembles the whole leaf on the host
+while it writes the one before and commits; every rank returns after the
+commit.  ``restore(..., parts=)`` has each rank read and check the whole
+file, resize the whole pod dimension (``pod_resize``), and keep only its
+rows and in-pod shard of each leaf on the host before it places them.  A
+plain :func:`save` of a DTensor leaf raises.
 """
 from __future__ import annotations
 
@@ -45,12 +58,16 @@ import tempfile
 import zipfile
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, List, Optional, Tuple
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.sharding.rules import (contiguous_stride, is_dtensor,
+                                        local_part)
 
 Pytree = Any
 
@@ -113,7 +130,15 @@ def _dtype_name(x) -> str:
 
 def _host_leaf(x) -> np.ndarray:
     """One leaf on the host as the file stores it: bf16 upcast to f32, an
-    ``int`` (the trainer's step) as a 0-d int32."""
+    ``int`` (the trainer's step) as a 0-d int32; a callable (a leaf the
+    writer assembles from its pieces, ``CheckpointGroup.ship``) is called
+    first."""
+    if callable(x):
+        x = x()
+    if is_dtensor(x):
+        raise TypeError("a checkpoint leaf is a DTensor: save a placed tree "
+                        "with save_placed (Trainer.save_state), which "
+                        "writes its whole value")
     if not isinstance(x, torch.Tensor):
         if not isinstance(x, int) or isinstance(x, bool):
             raise TypeError(f"a checkpoint leaf is a tensor or an int, "
@@ -319,12 +344,218 @@ def build_manifest(keys, leaves, shapes, step: int,
 
 def save(directory: str, tree: Pytree, step: int = 0,
          metadata: Optional[dict] = None) -> None:
-    os.makedirs(directory, exist_ok=True)
+    """Save a whole tree; a DTensor leaf raises (:func:`save_placed`)."""
     keys, leaves = _keys(tree), T.leaves(tree)
+    if any(is_dtensor(x) for x in leaves):
+        raise TypeError("save of a tree that holds a DTensor: save a placed "
+                        "tree with save_placed (Trainer.save_state)")
+    os.makedirs(directory, exist_ok=True)
     shapes = [tuple(x.shape) if isinstance(x, torch.Tensor) else ()
               for x in leaves]
     _commit(directory, leaves,
             build_manifest(keys, leaves, shapes, step, metadata))
+
+
+# ------------------------------------------------------------ placed trees
+
+
+@dataclass(frozen=True)
+class Part:
+    """This rank's part of one leaf of a placed tree.  ``shape`` is the
+    whole leaf's; ``rows`` the ``(first, count)`` rows of its leading pod
+    dimension this rank holds (``None``: the leaf has no pod dimension);
+    ``mesh`` and ``placements`` the in-pod ``DeviceMesh`` and placements of
+    a DTensor leaf (``None``: a plain tensor or an ``int``).  ``owner``:
+    whether this rank ships its piece to the writer (one rank of the
+    ranks that hold a piece alike)."""
+
+    shape: Tuple[int, ...]
+    rows: Optional[Tuple[int, int]] = None
+    mesh: Any = None
+    placements: tuple = ()
+    owner: bool = True
+
+    def local(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """(the local piece's shape, its offset in the whole leaf)."""
+        shape = tuple(self.shape)
+        if self.rows is not None:
+            shape = (self.rows[1],) + shape[1:]
+        offset = (0,) * len(shape)
+        if self.mesh is not None:
+            from torch.distributed.tensor._utils import \
+                compute_local_shape_and_global_offset
+            shape, offset = compute_local_shape_and_global_offset(
+                shape, self.mesh, self.placements)
+            shape, offset = tuple(shape), tuple(offset)
+        if self.rows is not None:
+            offset = (offset[0] + self.rows[0],) + offset[1:]
+        return shape, offset
+
+
+def owner_of(mesh, placements) -> bool:
+    """Whether this rank owns its piece among the ranks of ``mesh`` that
+    hold it alike: its coordinate is 0 on every replicated mesh axis."""
+    if mesh is None:
+        return True
+    coord = mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, placements)
+               if p.is_replicate())
+
+
+def _index(offset, shape):
+    return tuple(slice(o, o + n) for o, n in zip(offset, shape))
+
+
+class CheckpointGroup:
+    """The ranks of a placed tree's mesh (global ranks, the writer first)
+    and the gloo group that carries each leaf's pieces to the writer,
+    which alone touches the directory, and the writer's outcome back to
+    every rank, point to point: ``group`` may hold other ranks too (a
+    trainer's gloo group of the whole world, ``Trainer.io_group``).
+    Without one it makes a gloo group of ``ranks``, which is collective
+    over the whole world (``new_group``): every rank of the world makes
+    it, in the same order."""
+
+    def __init__(self, ranks: Sequence[int], group=None,
+                 timeout: timedelta = timedelta(seconds=600)):
+        import torch.distributed as dist
+
+        self.ranks = tuple(int(r) for r in ranks)
+        self.writer = self.ranks[0]
+        self.rank = dist.get_rank()
+        self.group = (group if group is not None else
+                      dist.new_group(list(self.ranks), backend="gloo",
+                                     timeout=timeout))
+
+    @property
+    def is_writer(self) -> bool:
+        return self.rank == self.writer
+
+    def ship(self, locals_: Sequence, parts: Sequence[Part]):
+        """Every rank, in key order: each owned piece goes to the writer.
+        On the writer, returns one callable a leaf that assembles the whole
+        leaf from its pieces (to be called in key order, as the writer's
+        stream does); elsewhere, ``None`` once every piece is sent."""
+        import torch.distributed as dist
+
+        mine = []
+        for i, (x, part) in enumerate(zip(locals_, parts)):
+            if part.owner:
+                shape, offset = part.local()
+                mine.append((i, offset, shape))
+        if not self.is_writer:
+            dist.send_object_list([mine], self.writer, group=self.group)
+            for i, _, shape in mine:
+                if isinstance(locals_[i], torch.Tensor) and \
+                        torch.Size(shape).numel():
+                    dist.send(_bytes(locals_[i].detach().cpu()),
+                              self.writer, group=self.group, tag=i + 1)
+            return None
+        senders: Dict[int, list] = {}
+        for r in self.ranks:
+            got = [mine]
+            if r != self.rank:
+                dist.recv_object_list(got, r, group=self.group)
+            for i, offset, shape in got[0]:
+                senders.setdefault(i, []).append((r, offset, shape))
+
+        def assemble(i):
+            # every sender's piece is received at once, each straight into
+            # the whole leaf where its slice is contiguous (a pod's rows)
+            x, part = locals_[i], parts[i]
+            if not isinstance(x, torch.Tensor):
+                return x
+            whole = torch.empty(part.shape, dtype=x.dtype)
+            filled, posted, staged = 0, [], []
+            for r, offset, shape in sorted(senders.get(i, [])):
+                view = whole[_index(offset, shape)]
+                if r == self.rank:
+                    view.copy_(x.detach().cpu())
+                elif view.numel():
+                    piece = (view if view.is_contiguous() else
+                             torch.empty(shape, dtype=x.dtype))
+                    posted.append(dist.irecv(_bytes(piece), r,
+                                             group=self.group, tag=i + 1))
+                    if piece is not view:
+                        staged.append((view, piece))
+                filled += view.numel()
+            for req in posted:
+                req.wait()
+            for view, piece in staged:
+                view.copy_(piece)
+            if filled != whole.numel():
+                raise RuntimeError(f"leaf {i}: the owned pieces cover "
+                                   f"{filled} of {whole.numel()} elements")
+            return whole
+
+        # the writer's fetch thread calls each, one leaf ahead of the write
+        return [lambda i=i: assemble(i) for i in range(len(locals_))]
+
+    def commit(self, fn: Callable[[], Any]):
+        """Run ``fn`` on the writer and hand its outcome to every rank:
+        its value, or on every rank a ``RuntimeError`` naming the writer's
+        failure."""
+        import torch.distributed as dist
+
+        out = [None]
+        if self.is_writer:
+            try:
+                out = [("ok", fn())]
+            except Exception as e:  # noqa: BLE001 — re-raised on all ranks
+                out = [("error", f"{type(e).__name__}: {e}")]
+                err = e
+            for r in self.ranks[1:]:
+                dist.send_object_list(out, r, group=self.group)
+        else:
+            dist.recv_object_list(out, self.writer, group=self.group)
+        kind, value = out[0]
+        if kind == "error":
+            if self.is_writer:
+                raise err
+            raise RuntimeError(f"the checkpoint writer (rank {self.writer}) "
+                               f"failed: {value}")
+        return value
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host tensor's bytes, as gloo ships them."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def save_placed(directory: str, tree: Pytree, parts: Pytree,
+                group: CheckpointGroup, step: int = 0,
+                metadata: Optional[dict] = None) -> None:
+    """Save a placed tree as :func:`save` saves its whole value, byte for
+    byte.  Every rank of ``group`` calls it with its own leaves and their
+    :class:`Part` tree; the writer streams the whole leaves and commits;
+    every rank returns after the commit (and raises if it failed)."""
+    keys, leaves = _keys(tree), T.leaves(tree)
+    parts = _part_leaves(parts, len(leaves))
+    for k, x, part in zip(keys, leaves, parts):
+        local = local_part(x)
+        want = part.local()[0] if isinstance(x, torch.Tensor) else ()
+        got = tuple(local.shape) if isinstance(x, torch.Tensor) else ()
+        if got != tuple(want):
+            raise ValueError(f"leaf {k!r}: this rank holds {got}, its part "
+                             f"says {tuple(want)} (a split state saved "
+                             f"without its pod axis?)")
+    fetch = group.ship([local_part(x) for x in leaves], parts)
+    manifest = build_manifest(keys, leaves, [p.shape for p in parts],
+                              step, metadata)
+
+    def write():
+        os.makedirs(directory, exist_ok=True)
+        _commit(directory, fetch, manifest)
+
+    group.commit(write)
+
+
+def _part_leaves(parts: Pytree, n: int) -> List[Part]:
+    out = T.leaves(parts)
+    if len(out) != n or not all(isinstance(p, Part) for p in out):
+        raise ValueError(f"a placed tree needs one Part a leaf ({n}), got "
+                         f"{len(out)}")
+    return out
 
 
 # ----------------------------------------------------------------- restore
@@ -341,9 +572,13 @@ def load_manifest(directory: str) -> dict:
             f"(torn write?): {e}") from e
 
 
-def _read_member(f, fd: int, pool, info: zipfile.ZipInfo, off: int):
+def _read_member(f, fd: int, pool, info: zipfile.ZipInfo, off: int,
+                 rows: Optional[Tuple[int, int]] = None):
     """One stored ``.npy`` member read into a new host array by the
-    pool's threads -> (array, its data span's CRC pieces)."""
+    pool's threads -> (array, its data span's CRC pieces).  With ``rows``
+    (``(first, count)`` of a C-order member's leading dimension) only those
+    rows are kept: every byte is still read and checksummed, the rest
+    through a scratch buffer."""
     if info.compress_type != zipfile.ZIP_STORED:
         raise ValueError(f"member {info.filename!r} is compressed")
     f.seek(off)
@@ -356,18 +591,33 @@ def _read_member(f, fd: int, pool, info: zipfile.ZipInfo, off: int):
     head = f.tell() - off
     f.seek(off)
     header = f.read(head)
-    arr = np.empty(shape, dtype, order="F" if fortran else "C")
-    n = arr.nbytes
+    n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
     if head + n != info.file_size:
         raise ValueError(f"member {info.filename!r}: {info.file_size} "
                          f"bytes for a {head} + {n} byte array")
+    if rows is None or fortran or not shape:
+        rows = None
+        arr = np.empty(shape, dtype, order="F" if fortran else "C")
+        lo_keep = 0
+    else:
+        arr = np.empty((rows[1],) + tuple(shape[1:]), dtype)
+        lo_keep = rows[0] * (n // shape[0] if shape[0] else 0)
     flat = arr.reshape(-1, order="A").view(np.uint8)
+    hi_keep = lo_keep + flat.nbytes
 
     def read(lo: int) -> int:
-        view = memoryview(flat[lo:lo + _CHUNK])
+        hi = min(lo + _CHUNK, n)
+        inside = lo_keep <= lo and hi <= hi_keep
+        view = memoryview(flat[lo - lo_keep:hi - lo_keep] if inside
+                          else np.empty(hi - lo, np.uint8))
         got = os.preadv(fd, [view], off + head + lo)
         if got != len(view):
             raise ValueError(f"member {info.filename!r} is cut off")
+        if not inside:
+            a, b = max(lo, lo_keep), min(hi, hi_keep)
+            if a < b:
+                flat[a - lo_keep:b - lo_keep] = \
+                    np.frombuffer(view, np.uint8)[a - lo:b - lo]
         return zlib.crc32(view)
 
     starts = range(0, n, _CHUNK)
@@ -385,10 +635,15 @@ def _file_crc(path: str) -> int:
     return crc
 
 
-def _load_arrays(directory: str, manifest: dict):
+def _load_arrays(directory: str, manifest: dict,
+                 plan: Optional[Callable] = None):
     """Read and integrity-check ``arrays.npz`` against the manifest: its
     byte size, then the CRC32 of the whole file (or, for a manifest
-    without the commit record, each member's zip CRC)."""
+    without the commit record, each member's zip CRC).  ``plan(key)`` ->
+    ``(rows, keep)``: the rows of the member to read (``None``: all) and
+    a function that makes what is kept of them (``None``: nothing), called
+    as each member is read, so that one member at a time is whole on the
+    host; no ``plan`` keeps every member whole."""
     apath = os.path.join(directory, _ARRAYS)
     try:
         size = os.path.getsize(apath)
@@ -401,20 +656,26 @@ def _load_arrays(directory: str, manifest: dict):
         raise CheckpointCorruptError(
             f"checkpoint {apath!r} is {size} bytes but the manifest "
             f"committed {want_bytes} (truncated or torn write)")
+    keys = {f"a{i}.npy": k for i, k in enumerate(manifest["keys"])}
     try:
         with open(apath, "rb") as f, zipfile.ZipFile(f) as zf, \
                 ThreadPoolExecutor(_THREADS) as pool:
-            arrays, spans = {}, []
+            by_key, spans = {}, []
             for info, off in _members(f, zf):
-                arr, pieces = _read_member(f, f.fileno(), pool, info, off)
+                key = keys[info.filename]
+                rows, keep = plan(key) if plan else (None, lambda a: a)
+                arr, pieces = _read_member(f, f.fileno(), pool, info, off,
+                                           rows)
                 if want_bytes is None and _crc_of(pieces) != info.CRC:
                     raise zipfile.BadZipFile(
                         f"bad CRC-32 for member {info.filename!r}")
-                arrays[info.filename] = arr
+                if keep is not None:
+                    by_key[key] = keep(arr)
                 spans.append((off, info.file_size, pieces))
             crc = _crc_of(_gaps(f, spans, size))
-            by_key = {k: arrays[f"a{i}.npy"]
-                      for i, k in enumerate(manifest["keys"])}
+            missing = set(keys.values()) - set(by_key)
+            if plan is None and missing:
+                raise KeyError(f"members of {sorted(missing)} missing")
     except (zipfile.BadZipFile, ValueError, KeyError, OSError,
             struct.error) as e:
         # the reference checks the CRC before it parses: a file that fails
@@ -434,19 +695,51 @@ def _load_arrays(directory: str, manifest: dict):
     return by_key
 
 
-def _resize_pod_dim(arr: np.ndarray, n_new: int, how: str) -> np.ndarray:
+def _resize_pod_dim(arr: np.ndarray, n_new: int, how: str,
+                    rows: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """Host-side pod-dimension resize, matching ``repro_torch.core.sync``'s
     transforms: grow seeds new pods with the mean replica ("mean") or copies
     of pod 0 ("clone"); shrink keeps the first ``n_new`` pods, shifted so
     their mean equals the old global mean ("mean") or plainly dropped
-    ("drop" / "clone")."""
+    ("drop" / "clone").  ``rows`` (``(first, count)`` of the new pod
+    dimension) makes only those rows.  The expression runs on chunks of
+    ``_RESIZE_COLS`` columns on ``_THREADS`` threads: every value depends
+    on its own column alone, so the chunks give the whole array's bits."""
     n_old = arr.shape[0]
+    first, count = rows if rows is not None else (0, n_new)
     if n_new == n_old:
-        return arr
+        return arr if rows is None else arr[first:first + count]
+    if n_new > n_old and how == "drop":
+        raise ValueError(
+            f"pod_resize='drop' cannot grow {n_old} -> {n_new} pods")
+    if n_new < n_old and how != "mean":
+        return arr[first:first + count]
+    cols = arr.reshape(n_old, -1)
+    out = np.empty((count, cols.shape[1]), arr.dtype)
+
+    def chunk(lo: int) -> None:
+        hi = min(lo + _RESIZE_COLS, cols.shape[1])
+        out[:, lo:hi] = _resize_cols(cols[:, lo:hi], n_new,
+                                     how)[first:first + count]
+
+    starts = range(0, cols.shape[1], _RESIZE_COLS)
+    if len(starts) == 1:
+        chunk(0)
+    else:
+        with ThreadPoolExecutor(_THREADS) as pool:
+            list(pool.map(chunk, starts))
+    return out.reshape((count,) + arr.shape[1:])
+
+
+# columns of the pod dimension one chunk of ``_resize_pod_dim`` resizes
+_RESIZE_COLS = 1 << 18
+
+
+def _resize_cols(arr: np.ndarray, n_new: int, how: str) -> np.ndarray:
+    """The resize of :func:`_resize_pod_dim` on ``(n_old, columns)``: a
+    grow by "mean" or "clone", a shrink by "mean"."""
+    n_old = arr.shape[0]
     if n_new > n_old:
-        if how == "drop":
-            raise ValueError(
-                f"pod_resize='drop' cannot grow {n_old} -> {n_new} pods")
         if how == "clone":
             fill = np.broadcast_to(arr[:1], (n_new - n_old,) + arr.shape[1:])
         else:
@@ -454,22 +747,20 @@ def _resize_pod_dim(arr: np.ndarray, n_new: int, how: str) -> np.ndarray:
                 arr.astype(np.float32).mean(axis=0, keepdims=True),
                 (n_new - n_old,) + arr.shape[1:]).astype(arr.dtype)
         return np.concatenate([arr, fill], axis=0)
+    # the reference's expression, value for value, with fewer temporaries:
+    # an f32 array is not copied to f32, and the shift is formed and
+    # applied in place
     kept = arr[:n_new]
-    if how == "mean":
-        # the reference's expression, value for value, with fewer
-        # temporaries (a state holds tens of GB): an f32 array is not
-        # copied to f32, and the shift is formed and applied in place
-        f32 = functools.partial(np.ndarray.astype, dtype=np.float32,
-                                copy=False)
-        shift = f32(arr).mean(axis=0, keepdims=True)
-        shift -= f32(kept).mean(axis=0, keepdims=True)
-        kept = np.add(f32(kept), shift, out=shift if n_new == 1 else None)
-        kept = kept.astype(arr.dtype, copy=False)
-    return kept
+    f32 = functools.partial(np.ndarray.astype, dtype=np.float32, copy=False)
+    shift = f32(arr).mean(axis=0, keepdims=True)
+    shift -= f32(kept).mean(axis=0, keepdims=True)
+    kept = np.add(f32(kept), shift, out=shift if n_new == 1 else None)
+    return kept.astype(arr.dtype, copy=False)
 
 
 def restore(directory: str, like: Pytree, device=None,
-            pod_resize: Optional[str] = None) -> Tuple[Pytree, int]:
+            pod_resize: Optional[str] = None,
+            parts: Optional[Pytree] = None) -> Tuple[Pytree, int]:
     """Restore into the structure of ``like``; keys are matched by path, so
     the tree may be re-laid-out.  Returns (tree, step).
 
@@ -480,34 +771,77 @@ def restore(directory: str, like: Pytree, device=None,
     into a tree stacked for another, with the named transform; trailing
     dimensions must still match exactly.
 
+    ``parts`` (a :class:`Part` a leaf; the reference's ``shardings=``)
+    restores placed: each leaf's whole shape is its part's, and this rank
+    keeps its rows of the (resized) pod dimension and, for a DTensor part,
+    its in-pod shard, cut on the host before it goes to ``device``: no
+    rank holds a whole leaf on the card.
+
     Raises :class:`CheckpointCorruptError` when the directory's files are
     missing, truncated, or fail the manifest's size or CRC record.
     """
     if pod_resize not in (None, "mean", "clone", "drop"):
         raise ValueError(f"unknown pod_resize mode {pod_resize!r}")
     manifest = load_manifest(directory)
-    by_key = _load_arrays(directory, manifest)
+    keys, refs = _keys(like), T.leaves(like)
+    parts = (_part_leaves(parts, len(refs)) if parts is not None
+             else [None] * len(refs))
+    stored = dict(zip(manifest["keys"], manifest.get("shapes") or []))
+    plans = {}
+    for k, ref, part in zip(keys, refs, parts):
+        if k not in manifest["keys"]:
+            raise KeyError(f"checkpoint missing leaf {k!r}")
+        shape = (tuple(part.shape) if part is not None else
+                 tuple(ref.shape) if isinstance(ref, torch.Tensor) else ())
+        plans[k] = _leaf_plan(k, tuple(stored.get(k, shape)), shape, part,
+                              pod_resize)
+    by_key = _load_arrays(directory, manifest,
+                          lambda k: plans.get(k, (None, None)))
 
     out = []
-    for k, ref in zip(_keys(like), T.leaves(like)):
-        if k not in by_key:
-            raise KeyError(f"checkpoint missing leaf {k!r}")
-        arr = by_key.pop(k)
-        shape = tuple(ref.shape) if isinstance(ref, torch.Tensor) else ()
-        if tuple(arr.shape) != shape:
-            if (pod_resize is not None and arr.ndim == len(shape)
-                    and arr.ndim >= 1
-                    and tuple(arr.shape[1:]) == shape[1:]):
-                arr = _resize_pod_dim(arr, shape[0], pod_resize)
-            else:
-                raise ValueError(
-                    f"shape mismatch for {k!r}: ckpt {arr.shape} "
-                    f"vs model {shape}")
+    for k, ref, part in zip(keys, refs, parts):
+        arr = by_key[k]
         if not isinstance(ref, torch.Tensor):
             out.append(int(arr))
             continue
-        if not arr.flags.c_contiguous:        # a Fortran-order member
-            arr = arr.copy(order="C")
-        t = torch.from_numpy(arr).to(ref.dtype)
-        out.append(t.to(device if device is not None else ref.device))
+        t = torch.from_numpy(arr).to(ref.dtype).to(
+            device if device is not None else ref.device)
+        if part is not None and part.mesh is not None:
+            from torch.distributed.tensor import DTensor
+            shape = (tuple(part.shape) if part.rows is None
+                     else (part.rows[1],) + tuple(part.shape[1:]))
+            t = DTensor.from_local(t, part.mesh, part.placements,
+                                   run_check=False, shape=shape,
+                                   stride=contiguous_stride(shape))
+        out.append(t)
     return T.unflatten(like, out), manifest["step"]
+
+
+def _leaf_plan(key: str, stored: Tuple[int, ...], shape: Tuple[int, ...],
+               part: Optional[Part], pod_resize: Optional[str]):
+    """How one member is read: ``(rows, keep)`` for :func:`_load_arrays`.
+    A shape that differs from the file's raises here, before any read,
+    unless ``pod_resize`` bridges the leading dimension."""
+    resize = stored != shape
+    if resize and not (pod_resize is not None and len(stored) == len(shape)
+                       and len(shape) >= 1 and stored[1:] == shape[1:]):
+        raise ValueError(f"shape mismatch for {key!r}: ckpt {stored} "
+                         f"vs model {shape}")
+    if resize and pod_resize == "drop" and shape[0] > stored[0]:
+        raise ValueError(f"pod_resize='drop' cannot grow {stored[0]} -> "
+                         f"{shape[0]} pods")
+    rows = part.rows if part is not None else None
+
+    def keep(arr: np.ndarray) -> np.ndarray:
+        if resize:
+            arr = _resize_pod_dim(arr, shape[0], pod_resize, rows)
+        if part is not None and part.mesh is not None and arr.ndim:
+            local, offset = part.local()
+            if rows is not None:                 # the rows are cut already
+                offset = (offset[0] - rows[0],) + offset[1:]
+            arr = arr[_index(offset, local)]
+        if not arr.flags.c_contiguous:        # a Fortran-order member, a cut
+            arr = arr.copy(order="C")
+        return arr
+
+    return (None if resize else rows), keep

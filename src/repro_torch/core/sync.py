@@ -669,6 +669,17 @@ class SyncState(NamedTuple):
     resid_norm: torch.Tensor       # (n_pods, n_buckets) L2 of the residual
 
 
+# the sync state's fields that lead with the pod dimension (the gradient
+# accumulator too, where the strategy keeps one a pod: ``ga_buffer_stacked``)
+POD_STACKED_SYNC_FIELDS = ("ef_residual", "msg_norm", "resid_norm")
+
+
+def ga_buffer_stacked(cfg: SyncConfig) -> bool:
+    """Whether the strategy keeps a gradient accumulator (or ASP's
+    reference) a pod, stacked like the parameters."""
+    return cfg.strategy in ("asgd_ga", "asp")
+
+
 def init_sync_state(cfg: SyncConfig, stacked_params: Pytree) -> SyncState:
     """``stacked_params`` leaves have the leading pod dimension."""
     leaves = T.leaves(stacked_params)
@@ -1450,38 +1461,136 @@ def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],
 # shifted so their mean equals the old one.  Accumulator-like leaves ("sum",
 # the ASGD-GA buffer and the EF residual) keep the total: joiners start at
 # zero, and the departed pods' values are spread evenly over the survivors.
+#
+# Each new row is one elementwise expression of old rows (:class:`PodResize`),
+# and a mean or sum over pods adds the rows one by one, in pod order, in
+# f32.  So a leaf resized whole on one rank, or column by column on ranks
+# that each hold one pod and receive only the rows their new pod needs
+# (``Trainer.reconfigure`` on a split pod axis), comes out bit for bit the
+# same.
+
+SHRINK_MODES = ("mean", "sum", "drop")
+GROW_MODES = ("mean", "clone", "zeros")
+
+
+def _rows_sum(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The f32 sum of ``rows``, added one by one in their order."""
+    acc = rows[0].to(torch.float32, copy=True)
+    for r in rows[1:]:
+        acc.add_(r)
+    return acc
+
+
+def _rows_mean(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    return _rows_sum(rows).div_(len(rows))
+
+
+class PodResize(NamedTuple):
+    """One pod-count change of a stacked state: new pod ``i < len(keep)``
+    is old pod ``keep[i]``, shrunk by its leaf's mode when pods leave; the
+    other new pods join, grown by its leaf's mode from the kept ones.  A
+    ``keep`` that names every old pod is the identity, in any order (the
+    reference re-stacks only when a pod leaves)."""
+
+    n_old: int
+    keep: Tuple[int, ...]
+    n_new: int
+
+    @classmethod
+    def of(cls, n_old: int, n_new: int,
+           keep: Optional[Sequence[int]] = None) -> "PodResize":
+        keep = tuple(int(i) for i in (range(min(n_old, n_new))
+                                      if keep is None else keep))
+        if len(keep) > n_new:
+            raise ValueError(f"keep={keep} longer than n_new={n_new}")
+        if not keep:
+            raise ValueError("keep must be non-empty")
+        if any(i < 0 or i >= n_old for i in keep):
+            raise ValueError(f"keep {keep} out of range for {n_old} pods")
+        if len(set(keep)) != len(keep):
+            raise ValueError(f"duplicate pods in keep {keep}")
+        if len(keep) == n_old:
+            keep = tuple(range(n_old))
+        return cls(n_old, keep, n_new)
+
+    @property
+    def shrunk(self) -> bool:
+        return len(self.keep) < self.n_old
+
+    @property
+    def removed(self) -> Tuple[int, ...]:
+        return tuple(i for i in range(self.n_old) if i not in self.keep)
+
+    @property
+    def identity(self) -> bool:
+        return self.n_new == self.n_old and not self.shrunk
+
+    def needs(self, shrink: str, grow: str, i: int) -> frozenset:
+        """The old pods whose rows new pod ``i``'s row is made of."""
+        if i < len(self.keep):
+            if not self.shrunk or shrink == "drop":
+                return frozenset((self.keep[i],))
+            if shrink == "sum":
+                return frozenset((self.keep[i],) + self.removed)
+            return frozenset(range(self.n_old))
+        if grow == "zeros":
+            return frozenset()
+        if grow == "clone":
+            return self.needs(shrink, grow, 0)
+        return frozenset().union(*(self.needs(shrink, grow, j)
+                                   for j in range(len(self.keep))))
+
+    def row(self, rows: Sequence[Optional[torch.Tensor]],
+            like: torch.Tensor, shrink: str, grow: str,
+            i: int) -> torch.Tensor:
+        """New pod ``i``'s row from the old ``rows`` (in pod order; only
+        those :meth:`needs` names are read); ``like`` gives a row's shape,
+        dtype and device."""
+        if i < len(self.keep):
+            x = rows[self.keep[i]]
+            if not self.shrunk or shrink == "drop":
+                return x
+            if shrink == "mean":
+                shift = _rows_mean(rows) - _rows_mean(
+                    [rows[k] for k in self.keep])
+                return (x.float() + shift).to(x.dtype)
+            if shrink == "sum":
+                lost = _rows_sum([rows[p] for p in self.removed])
+                return (x.float() + lost / len(self.keep)).to(x.dtype)
+            raise ValueError(f"unknown shrink mode {shrink!r}")
+        if grow == "zeros":
+            return torch.zeros_like(like)
+        if grow == "clone":
+            return self.row(rows, like, shrink, grow, 0)
+        if grow == "mean":
+            return _rows_mean([self.row(rows, like, shrink, grow, j)
+                               for j in range(len(self.keep))]).to(like.dtype)
+        raise ValueError(f"unknown grow mode {grow!r}")
+
+    def leaf(self, x: torch.Tensor, shrink: str, grow: str) -> torch.Tensor:
+        """A whole stacked leaf resized; a leaf without the old pod
+        dimension passes through."""
+        if x.dim() == 0 or x.shape[0] != self.n_old or self.identity:
+            return x
+        rows = list(x.unbind(0))
+        return torch.stack([self.row(rows, rows[0], shrink, grow, i)
+                            for i in range(self.n_new)])
 
 
 def grow_pods(tree: Pytree, n_new: int, how: str = "mean") -> Pytree:
     """Grow the leading pod dimension to ``n_new`` (>= current): "mean"
     appends the mean replica, "clone" copies of pod 0, "zeros" zero pods.
     Leaves without the pod dimension pass through."""
+    if how not in GROW_MODES:
+        raise ValueError(f"grow_pods: unknown how={how!r}")
     leaves = T.leaves(tree)
     if not leaves:
         return tree
     n_old = leaves[0].shape[0]
     if n_new < n_old:
         raise ValueError(f"grow_pods: {n_new} < current {n_old}")
-    if n_new == n_old:
-        return tree
-    k = n_new - n_old
-
-    def grow(x):
-        if x.dim() == 0 or x.shape[0] != n_old:
-            return x
-        shape = (k,) + tuple(x.shape[1:])
-        if how == "mean":
-            fill = x.float().mean(dim=0, keepdim=True).expand(shape).to(
-                x.dtype)
-        elif how == "clone":
-            fill = x[:1].expand(shape)
-        elif how == "zeros":
-            fill = x.new_zeros(shape)
-        else:
-            raise ValueError(f"grow_pods: unknown how={how!r}")
-        return torch.cat([x, fill], dim=0)
-
-    return T.tree_map(grow, tree)
+    resize = PodResize(n_old, tuple(range(n_old)), n_new)
+    return T.tree_map(lambda x: resize.leaf(x, "drop", how), tree)
 
 
 def shrink_pods(tree: Pytree, keep: Sequence[int], how: str = "mean"
@@ -1490,6 +1599,8 @@ def shrink_pods(tree: Pytree, keep: Sequence[int], how: str = "mean"
     "mean" shifts the survivors so their mean equals the old global mean,
     "sum" spreads the removed pods' values evenly over the survivors,
     "drop" discards them."""
+    if how not in SHRINK_MODES:
+        raise ValueError(f"shrink_pods: unknown how={how!r}")
     keep = tuple(int(i) for i in keep)
     if not keep:
         raise ValueError("shrink_pods: keep must be non-empty")
@@ -1497,58 +1608,42 @@ def shrink_pods(tree: Pytree, keep: Sequence[int], how: str = "mean"
     if not leaves:
         return tree
     n_old = leaves[0].shape[0]
-    if any(i < 0 or i >= n_old for i in keep):
-        raise ValueError(f"shrink_pods: keep {keep} out of range for {n_old}")
-    if len(set(keep)) != len(keep):
-        raise ValueError("shrink_pods: duplicate indices in keep")
-    removed = tuple(i for i in range(n_old) if i not in keep)
-
-    def shrink(x):
-        if x.dim() == 0 or x.shape[0] != n_old:
-            return x
-        kept = x.index_select(0, torch.tensor(keep, device=x.device))
-        if how == "drop" or not removed:
-            return kept
-        xf, kf = x.float(), kept.float()
-        if how == "mean":
-            shift = (xf.mean(dim=0, keepdim=True)
-                     - kf.mean(dim=0, keepdim=True))
-            return (kf + shift).to(x.dtype)
-        if how == "sum":
-            lost = xf.index_select(0, torch.tensor(
-                removed, device=x.device)).sum(dim=0, keepdim=True)
-            return (kf + lost / len(keep)).to(x.dtype)
-        raise ValueError(f"shrink_pods: unknown how={how!r}")
-
-    return T.tree_map(shrink, tree)
+    resize = PodResize.of(n_old, len(keep), keep)
+    if not resize.shrunk:
+        # every old pod kept: re-ordered, unlike the reconfiguration
+        order = torch.tensor(keep, device=leaves[0].device)
+        return T.tree_map(lambda x: x if x.dim() == 0 or x.shape[0] != n_old
+                          else x.index_select(0, order), tree)
+    return T.tree_map(lambda x: resize.leaf(x, how, "zeros"), tree)
 
 
 def resize_sync_state(cfg: SyncConfig, state: SyncState, new_params: Pytree,
-                      keep: Optional[Sequence[int]] = None) -> SyncState:
+                      keep: Optional[Sequence[int]] = None,
+                      resize=None) -> SyncState:
     """Carry ``SyncState`` across a pod-count change (``new_params`` are
     the resized stacked params).  ASGD-GA replay-accumulates the departed
     pods' buffer and EF residual into the survivors and zero-seeds
     joiners; ASP restarts its reference from the new params; the
     bufferless strategies re-init.  The step count, ASP's fraction and the
-    tiers survive; the per-bucket norms re-arm at zero."""
-    n_new = T.leaves(new_params)[0].shape[0]
+    tiers survive; the per-bucket norms re-arm at zero.  ``resize`` (a
+    :class:`PodResize`, or the split pod axis's counterpart with the same
+    ``leaf``) overrides ``keep`` and the pod counts read from the
+    leaves."""
+    n_rows = T.leaves(new_params)[0].shape[0]
     dev = T.leaves(new_params)[0].device
     if cfg.strategy == "asgd_ga":
-        buf = state.ga_buffer
-        n_old = T.leaves(buf)[0].shape[0] if T.leaves(buf) else 0
-        resid = state.ef_residual
-        if keep is not None and len(keep) < n_old:
-            buf = shrink_pods(buf, keep, how="sum")
-            resid = shrink_pods([resid], keep, how="sum")[0]
-            n_old = len(keep)
-        if n_new > n_old:
-            buf = grow_pods(buf, n_new, how="zeros")
-            resid = grow_pods([resid], n_new, how="zeros")[0]
+        if resize is None:
+            n_old = state.ef_residual.shape[0]
+            kept = (tuple(keep) if keep is not None and len(keep) < n_old
+                    else tuple(range(n_old)))
+            resize = PodResize(n_old, kept, max(n_rows, len(kept)))
         nb = len(cfg.bucket_names)
         return state._replace(
-            ga_buffer=buf, ef_residual=resid,
-            msg_norm=torch.zeros(n_new, nb, device=dev),
-            resid_norm=torch.zeros(n_new, nb, device=dev))
+            ga_buffer=T.tree_map(lambda b: resize.leaf(b, "sum", "zeros"),
+                                 state.ga_buffer),
+            ef_residual=resize.leaf(state.ef_residual, "sum", "zeros"),
+            msg_norm=torch.zeros(n_rows, nb, device=dev),
+            resid_norm=torch.zeros(n_rows, nb, device=dev))
     fresh = init_sync_state(cfg, new_params)
     return fresh._replace(steps_since_sync=state.steps_since_sync,
                           significant_frac=state.significant_frac,

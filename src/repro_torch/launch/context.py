@@ -38,14 +38,16 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs import Arch
-from repro_torch.core.sync import SyncConfig, SyncState
+from repro_torch.core.sync import (POD_STACKED_SYNC_FIELDS, SyncConfig,
+                                   SyncState, ga_buffer_stacked)
 from repro_torch.models.registry import ModelFns, get_model_fns
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.sharding.rules import (LA, NamedSharding, map_la,
                                         mesh_sizes, serve_rules,
                                         sharding_tree_for_params,
                                         train_rules)
-from repro_torch.training.trainer import Trainer, TrainerConfig, TrainState
+from repro_torch.training.trainer import (Trainer, TrainerConfig, TrainState,
+                                          pod_stacked)
 
 Pytree = Any
 
@@ -71,16 +73,15 @@ def opt_state_axes(optimizer: str, param_axes: Pytree) -> Pytree:
 
 
 def sync_state_axes(sync: SyncConfig, param_axes: Pytree) -> SyncState:
-    if sync.strategy in ("asgd_ga", "asp"):
+    if ga_buffer_stacked(sync):
         buf = param_axes
     else:
         buf = map_la(lambda la: LA((None,)), param_axes)
+    per_pod = {f: LA(("pod_stack", None)) for f in POD_STACKED_SYNC_FIELDS}
     return SyncState(ga_buffer=buf, steps_since_sync=LA(()),
                      significant_frac=LA(()),
-                     ef_residual=LA(("pod_stack", None)),
                      tier=LA((None,)),              # (n_buckets,) vector
-                     msg_norm=LA(("pod_stack", None)),
-                     resid_norm=LA(("pod_stack", None)))
+                     **per_pod)
 
 
 def train_state_axes(fns: ModelFns, cfg, tcfg: TrainerConfig) -> TrainState:
@@ -144,36 +145,37 @@ class TrainSetup:
         """A whole train state (every pod's rows, plain tensors; from
         ``trainer.init_state(seed)``, or ``trainer.state_from_params`` of
         converted parameters) -> this rank's part on the mesh: its pods'
-        rows of the pod-stacked leaves (every parameter and optimizer leaf,
-        and the sync leaves whose axes lead with ``pod_stack``), each a
-        DTensor placed by :attr:`state_sharding`.  ``step`` stays an int.
-        The state is consumed: a replicated leaf shares its storage."""
+        rows of the pod-stacked leaves (:func:`~repro_torch.training.
+        trainer.pod_stacked`), each a DTensor placed by
+        :attr:`state_sharding`.  ``step`` stays an int.  The state is
+        consumed: a replicated leaf shares its storage."""
         tr = self.trainer
-        sh = self.state_sharding
+        return T.tree_map(
+            lambda x, s, stacked: _place(x, s, tr.pods, tr.inpod, stacked)
+            if isinstance(x, torch.Tensor) else int(x),
+            state, self.state_sharding, pod_stacked(tr.cfg.sync, state))
 
-        def put(tree, shard_tree, stacked: bool):
-            return T.tree_map(lambda x, s: _place(
-                x, s, tr.pods, tr.inpod, stacked), tree, shard_tree)
+    def restore_state(self, directory: str,
+                      pod_resize: Optional[str] = None
+                      ) -> Tuple[TrainState, int]:
+        """A checkpoint (of any placement, or none) onto the setup's
+        placements: each rank keeps its rows, resized with ``pod_resize``
+        when the file holds another pod count, and its in-pod shards, cut
+        on the host.  Returns (state, step).  A placed state is saved by
+        its trainer (``Trainer.save_state``, every rank of the mesh)."""
+        return self.trainer.restore_state(directory, self.abstract_state,
+                                          pod_resize=pod_resize,
+                                          sharding=self.state_sharding)
 
-        sync_axes = sync_state_axes(tr.cfg.sync, {})
-        sync_stacked = {f for f in SyncState._fields if f != "ga_buffer"
-                        and getattr(sync_axes, f)[:1] == ("pod_stack",)}
-        buf_stacked = tr.cfg.sync.strategy in ("asgd_ga", "asp")
-        sync_state = SyncState(*(
-            put(getattr(state.sync_state, f), getattr(sh.sync_state, f),
-                buf_stacked if f == "ga_buffer" else f in sync_stacked)
-            for f in SyncState._fields))
-        return TrainState(
-            params=put(state.params, sh.params, True),
-            opt_state=put(state.opt_state, sh.opt_state, True),
-            sync_state=sync_state, step=int(state.step))
-
-    def place_batch(self, batch: Dict[str, torch.Tensor]
+    def place_batch(self, batch: Dict[str, torch.Tensor],
+                    trainer: Optional[Trainer] = None
                     ) -> Dict[str, torch.Tensor]:
         """A whole stacked batch (leading pod dim) -> this rank's part:
-        its pods' rows, each leaf placed by :func:`batch_sharding`."""
-        tr = self.trainer
-        sh = batch_sharding(batch, self.mesh, self.rules, stacked=True)
+        its pods' rows, each leaf placed by :func:`batch_sharding`, on the
+        mesh of ``trainer`` (default: the setup's; after a
+        reconfiguration, the successor's)."""
+        tr = self.trainer if trainer is None else trainer
+        sh = batch_sharding(batch, tr.mesh, self.rules, stacked=True)
         return {k: _place(v, sh[k], tr.pods, tr.inpod, True)
                 for k, v in batch.items()}
 

@@ -316,7 +316,13 @@ def replicated_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
-def _contiguous_stride(shape: Sequence[int]) -> tuple:
+def local_part(x):
+    """A DTensor's local tensor on this rank; anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def contiguous_stride(shape: Sequence[int]) -> tuple:
+    """The strides of a C-contiguous tensor of ``shape``."""
     stride, acc = [], 1
     for s in reversed(tuple(shape)):
         stride.append(acc)
@@ -366,7 +372,7 @@ def local_region(fn: Callable, args: Sequence[Optional[torch.Tensor]],
         DTensor.from_local(
             r.contiguous(), mesh, placements_for(logical_to_spec(
                 tuple(shape), names, mesh=mesh), mesh), run_check=False,
-            shape=torch.Size(shape), stride=_contiguous_stride(shape))
+            shape=torch.Size(shape), stride=contiguous_stride(shape))
         for r, (names, shape) in zip(res, outs))
     return placed[0] if single else placed
 

@@ -44,8 +44,16 @@ its own shard.  Any other round, a streaming one too, gathers each in-pod
 leaf whole (``full_tensor``), runs on plain tensors (no DTensor reaches a
 kernel: the codec's blocks are blocks of the whole flattened leaf) and
 writes the result back into the placed leaves.  ``retune`` works on a
-mesh; ``reconfigure`` (a pod count that changes the pod group) does not
-(ROADMAP.md Queue 1 item 15c-2).
+mesh, and so does ``reconfigure``: on a pod axis split over the world's
+ranks, one pod a rank (one cloud a process), every rank of the world
+calls it; a pod that leaves idles in the world, an idle rank that joins
+receives its rows, each new row is computed on its own rank by the whole
+resize's expression from the rows it needs (sent point to point over
+one gloo group of the world), and the successor takes the mesh of the new
+layout (made once a layout, :class:`_Shared`) and a new pod axis.
+``save_state`` /
+``restore_state`` checkpoint a placed state in the file of its whole
+value.
 
 :class:`LiveMigrator` stages a pod grow or shrink from the async snapshot
 engine's last durable snapshot on a background thread (restored to the
@@ -65,23 +73,26 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.core.sync import (WHOLE_PODS, ChunkPayload, PodAxis,
+from repro_torch.core.sync import (POD_STACKED_SYNC_FIELDS, WHOLE_PODS,
+                                   ChunkPayload, PodAxis, PodResize,
                                    SyncConfig, SyncState,
                                    _chunk_widths, _sent_width, apply_sync,
                                    bucket_chunk_mb, bucket_layout,
                                    bucket_weights_of, bucket_wire_mb,
                                    finish_codec_sync,
-                                   finish_codec_sync_split, grow_pods,
-                                   init_sync_state, is_sync_step,
+                                   finish_codec_sync_split,
+                                   ga_buffer_stacked, init_sync_state,
+                                   is_sync_step,
                                    on_step_gradients, prepare_codec_sync,
                                    reencode_unsent, resize_sync_state,
                                    retune_sync_state, ship_sync_payloads,
-                                   shrink_pods, traffic_per_step_mb)
+                                   traffic_per_step_mb)
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           constant_schedule, get_optimizer,
                                           global_norm)
-from repro_torch.sharding.rules import (axis_rules, is_dtensor,
-                                        train_rules, whole_local)
+from repro_torch.sharding.rules import (axis_rules, contiguous_stride,
+                                        is_dtensor, local_part, train_rules,
+                                        whole_local)
 
 Pytree = Any
 
@@ -120,6 +131,28 @@ class StreamRetune(NamedTuple):
     sent: Dict[str, int]
     tails: Dict[str, Tuple[ChunkPayload, ...]]
     tail_shipped: Dict[str, Tuple[ChunkPayload, ...]]
+
+
+def pod_stacked(sync: SyncConfig, state: TrainState) -> TrainState:
+    """Which leaves of ``state`` lead with the pod dimension, as a tree of
+    bools like it: every parameter and optimizer leaf, the sync fields of
+    ``sync.POD_STACKED_SYNC_FIELDS`` and the gradient accumulator where the
+    strategy keeps one a pod (``sync.ga_buffer_stacked``); not the step,
+    the counters or the tiers.  Placement (``TrainSetup.place_state``),
+    checkpoints of a placed state and the reconfiguration read it."""
+    ss = state.sync_state
+
+    def each(tree, flag: bool):
+        return T.tree_map(lambda _: flag, tree)
+
+    return TrainState(
+        params=each(state.params, True),
+        opt_state=each(state.opt_state, True),
+        sync_state=SyncState(*(
+            each(getattr(ss, f), ga_buffer_stacked(sync) if f == "ga_buffer"
+                 else f in POD_STACKED_SYNC_FIELDS)
+            for f in SyncState._fields)),
+        step=False)
 
 
 def _stack(trees: List[Pytree]) -> Pytree:
@@ -231,7 +264,13 @@ class Trainer:
         trainer's pod axis, so that on an axis split over processes it
         ships over the axis's ring."""
         self.mesh = mesh
-        self.pods, self.inpod = _mesh_axes(mesh, cfg.n_pods)
+        # a rank of the world outside the mesh: a pod that left, idle until
+        # a reconfiguration takes it back
+        self.live = mesh is None or mesh.get_coordinate() is not None
+        self.pods, self.inpod = (_mesh_axes(mesh, cfg.n_pods) if self.live
+                                 else (WHOLE_PODS, None))
+        self._io = None
+        self._shared = _Shared()
         self._whole: Optional[TrainState] = None
         self.loss_fn = loss_fn
         self.init_fn = init_fn
@@ -253,7 +292,7 @@ class Trainer:
 
     def _bind(self) -> None:
         bind = getattr(self.transport, "bind", None)
-        if bind is not None:
+        if bind is not None and self.live:
             bind(self.pods)
 
     def _placed(self):
@@ -602,43 +641,262 @@ class Trainer:
                 self.round_hook(seen, *rnd, self.cfg.sync)
         return state
 
-    # ------------------------------------------------------ elasticity
-    def _unplaced(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} of a trainer on a mesh is ROADMAP.md Queue 1 item "
-                f"15c-2")
+    # ------------------------------------------------- placed checkpoints
+    @property
+    def mesh_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of the mesh, in its order (the first is the
+        checkpoint writer)."""
+        return tuple(int(r) for r in self.mesh.mesh.flatten().tolist())
 
-    def _successor(self, cfg: TrainerConfig) -> "Trainer":
-        """The trainer for ``cfg`` on the same mesh, transport and stream,
-        the accounts carried over; at the same pod count it keeps this
-        trainer's pod axis (and its counts)."""
+    def io_group(self):
+        """The ``checkpoint.CheckpointGroup`` of the mesh's ranks that
+        carries a placed save to its writer, point to point over the gloo
+        group of the world that the trainer's chain shares
+        (:class:`_Shared`): made on first use.  That group is collective
+        over the world: a reconfiguration makes it, else the first save on
+        a mesh over the whole world."""
+        import torch.distributed as dist
+
+        from repro_torch.checkpoint.checkpoint import CheckpointGroup
+
+        if self._io is None:
+            if (self._shared.world is None
+                    and self.mesh.size() != dist.get_world_size()):
+                raise RuntimeError(
+                    "a mesh over part of the world saves through the "
+                    "world's gloo group, which a reconfiguration makes on "
+                    "every rank; none has run")
+            self._io = CheckpointGroup(self.mesh_ranks, self._shared.gloo())
+        return self._io
+
+    def leaf_parts(self, like: TrainState, sharding: Optional[TrainState]
+                   = None, rows: Optional[Tuple[int, int]] = None
+                   ) -> TrainState:
+        """A ``checkpoint.Part`` for each leaf of ``like``: a placed state
+        of this trainer (each DTensor gives its in-pod placements), or a
+        skeleton of the whole state (``TrainSetup.abstract_state``) with
+        its ``sharding`` (``TrainSetup.state_sharding``) on this trainer's
+        in-pod mesh.  A pod-stacked leaf (:func:`pod_stacked`) has the pod
+        axis's count of pods and this rank's rows of them; ``rows`` names
+        other rows of a skeleton whose leading dimension is already whole
+        (a staged migration's)."""
+        from repro_torch.checkpoint.checkpoint import Part, owner_of
+
+        pods, inpod = self.pods, self.inpod
+        at_origin = inpod is None or not any(inpod.get_coordinate())
+
+        def part(x, stacked, s=None):
+            if not isinstance(x, torch.Tensor):
+                return Part((), owner=at_origin and pods.index == 0)
+            shape, held = tuple(x.shape), rows if stacked else None
+            if stacked and rows is None:
+                if pods.split:
+                    shape = (pods.n_pods,) + shape[1:]
+                held = (pods.first, pods.n_local if pods.split
+                        else shape[0])
+            mesh, placements = None, ()
+            if is_dtensor(x):
+                mesh, placements = x.device_mesh, tuple(x.placements)
+            elif s is not None and inpod is not None:
+                mesh, placements = inpod, tuple(s.placements(inpod))
+            owner = owner_of(mesh, placements) if mesh is not None \
+                else at_origin
+            return Part(shape, held, mesh, placements,
+                        owner and (stacked or pods.index == 0))
+
+        stacked = pod_stacked(self.cfg.sync, like)
+        if sharding is None:
+            return T.tree_map(part, like, stacked)
+        return T.tree_map(part, like, stacked, sharding)
+
+    def save_state(self, directory: str, state: TrainState,
+                   metadata: Optional[dict] = None) -> None:
+        """Save ``state`` at its step in the reference's format.  On a mesh
+        every rank calls it; the file is the one the unplaced save of the
+        whole state writes, byte for byte (``checkpoint.save_placed``)."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        if self.mesh is None:
+            ckpt.save(directory, state, step=int(state.step),
+                      metadata=metadata)
+            return
+        ckpt.save_placed(directory, state, self.leaf_parts(state),
+                         self.io_group(), step=int(state.step),
+                         metadata=metadata)
+
+    def restore_state(self, directory: str, like: TrainState,
+                      pod_resize: Optional[str] = None,
+                      sharding: Optional[TrainState] = None
+                      ) -> Tuple[TrainState, int]:
+        """Restore a checkpoint onto this trainer's placements, those of
+        ``like`` and ``sharding`` (:meth:`leaf_parts`).  Each rank reads
+        the whole file, resizes its pod dimension with ``pod_resize`` and
+        keeps its rows and in-pod shards."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        if self.mesh is None:
+            return ckpt.restore(directory, like, pod_resize=pod_resize)
+        return ckpt.restore(directory, like, device=self.device,
+                            pod_resize=pod_resize,
+                            parts=self.leaf_parts(like, sharding))
+
+    # ------------------------------------------------------ elasticity
+    def _successor(self, cfg: TrainerConfig, mesh=None) -> "Trainer":
+        """The trainer for ``cfg`` on ``mesh`` (default: this mesh), with
+        the same transport and stream, the accounts and the shared groups
+        carried over; on the same mesh it keeps the in-pod mesh and the
+        checkpoint group, and at the same pod count the pod axis (and its
+        counts)."""
         nxt = Trainer(self.loss_fn, self.init_fn, cfg, device=self.device,
                       round_hook=self.round_hook, transport=self.transport,
-                      stream=self.stream, mesh=self.mesh)
-        if cfg.n_pods == self.cfg.n_pods:
-            nxt.pods, nxt.inpod = self.pods, self.inpod
-            nxt._bind()
+                      stream=self.stream,
+                      mesh=self.mesh if mesh is None else mesh)
+        nxt._shared = self._shared
+        if mesh is None:
+            nxt.inpod, nxt._io = self.inpod, self._io
+            if cfg.n_pods == self.cfg.n_pods:
+                nxt.pods = self.pods
+                nxt._bind()
         nxt.traffic_mb = self.traffic_mb
         nxt.stream_retunes = self.stream_retunes
         nxt.step_seconds = self.step_seconds
         nxt.sync_seconds = self.sync_seconds
         return nxt
 
-    def reconfigure(self, state: TrainState, n_pods: int,
+    def _split_world(self) -> bool:
+        """Whether the world holds more than one pod's ranks, so that pods
+        come and go with their ranks (one pod a rank of the pod axis)."""
+        import torch.distributed as dist
+
+        if self.mesh is None or "pod" not in self.mesh.mesh_dim_names:
+            return False
+        return dist.get_world_size() > self.mesh.size() // self.mesh.size(
+            list(self.mesh.mesh_dim_names).index("pod"))
+
+    def pod_slots(self, n_pods: int, keep: Optional[Tuple[int, ...]] = None):
+        """Where the pods live across a reconfiguration on a split pod
+        axis, one pod a slot of the world's ranks (slot ``s``: ranks
+        ``s * inner .. (s + 1) * inner - 1``, one pod's in-pod mesh) ->
+        ``(resize, old slots, new slots, inner)``: old pod ``p`` lives in
+        slot ``old[p]``; the kept pods keep their slots, the joiners take
+        the lowest idle ones, and new pod ``i`` lives in the ``i``-th of
+        the new slots in ascending order, so that a kept pod whose new
+        index falls on another slot moves there."""
+        import torch.distributed as dist
+
+        names = tuple(self.mesh.mesh_dim_names)
+        if names[0] != "pod":
+            raise ValueError(f"a reconfigured mesh leads with its pod axis, "
+                             f"got {names}")
+        layout = self.mesh.mesh
+        inner = layout[0].numel()
+        old = [int(layout[p].flatten()[0]) // inner
+               for p in range(layout.shape[0])]
+        for p, slot in enumerate(old):
+            if layout[p].flatten().tolist() != list(
+                    range(slot * inner, (slot + 1) * inner)):
+                raise ValueError("the mesh's pods are not slots of the "
+                                 "world's ranks in order")
+        if len(old) != self.cfg.n_pods:
+            raise ValueError(
+                f"reconfigure on a split pod axis moves one pod a rank: "
+                f"{self.cfg.n_pods} pods over a pod axis of {len(old)} "
+                f"ranks hold several a rank")
+        resize = PodResize.of(self.cfg.n_pods, n_pods, keep)
+        kept = [old[k] for k in resize.keep]
+        free = [s for s in range(dist.get_world_size() // inner)
+                if s not in kept]
+        joining = resize.n_new - len(resize.keep)
+        if joining > len(free):
+            raise ValueError(f"{resize.n_new} pods need {joining} idle pod "
+                             f"slots of the world, it has {len(free)}")
+        return resize, old, sorted(kept + free[:joining]), inner
+
+    def new_rows(self, n_pods: int, keep: Optional[Tuple[int, ...]] = None
+                 ) -> Optional[Tuple[int, int]]:
+        """This rank's ``(first, count)`` rows of the pod dimension after a
+        reconfiguration to ``n_pods``; ``None`` on a rank that will idle."""
+        if self.mesh is None or not self._split_world():
+            return (0, n_pods)
+        import torch.distributed as dist
+
+        _, _, new, inner = self.pod_slots(n_pods, keep)
+        slot = dist.get_rank() // inner
+        return (new.index(slot), 1) if slot in new else None
+
+    def reconfigure(self, state: Optional[TrainState], n_pods: int,
                     keep: Optional[Tuple[int, ...]] = None,
                     sync: Optional[SyncConfig] = None
-                    ) -> Tuple["Trainer", TrainState]:
+                    ) -> Tuple["Trainer", Optional[TrainState]]:
         """Apply a reconfiguration at a sync barrier: re-stack the pod
-        dimension of the whole train state (:func:`resize_train_state`)
-        and return a new ``Trainer`` for the new pod count and sync config,
-        with the WAN-traffic account carried over."""
-        self._unplaced("a reconfiguration")
+        dimension of the train state (:func:`resize_train_state`) and
+        return a new ``Trainer`` for the new pod count and sync config,
+        with the WAN-traffic account carried over.
+
+        Off a mesh, or on one whose ranks hold every pod, the resize runs
+        on each rank's local shards and the mesh stays.  On a pod axis
+        split over the world's ranks (one pod a rank, :meth:`pod_slots`)
+        every rank of the world calls it, an idle one with ``state=None``:
+        each new pod's row is computed on its own ranks from the old rows
+        it is made of, sent point to point (between the ranks of one
+        in-pod coordinate) over the world's gloo group, by the expression
+        of the whole resize, so that the rows are those of the whole run
+        bit for bit; then the successor takes the mesh of the new layout
+        (a new pod axis, the transport bound to it), a departing rank gets
+        ``None`` for its state and a joining one its rows.  A split axis
+        that holds several pods a rank raises ``ValueError``."""
         new_cfg = dataclasses.replace(self.cfg, n_pods=n_pods,
                                       sync=sync or self.cfg.sync)
-        new_state = resize_train_state(new_cfg.sync, state, n_pods,
-                                       keep=keep)
-        return self._successor(new_cfg), new_state
+        if not self._split_world():
+            resize = PodResize.of(self.cfg.n_pods, n_pods, keep)
+            local = T.tree_map(local_part, state)
+            new = resize_train_state(new_cfg.sync, local, n_pods,
+                                     resize=resize)
+            nxt = self._successor(new_cfg)
+            return nxt, T.tree_map(lambda x, old: _placed_as(
+                x, old, nxt.inpod), new, state)
+        return self._reconfigure_split(state, new_cfg, keep)
+
+    def _reconfigure_split(self, state: Optional[TrainState],
+                           new_cfg: TrainerConfig,
+                           keep: Optional[Tuple[int, ...]]):
+        import torch.distributed as dist
+
+        resize, old, new, inner = self.pod_slots(new_cfg.n_pods, keep)
+        slot, coord = divmod(dist.get_rank(), inner)
+        ranks = torch.tensor([[s * inner + j for j in range(inner)]
+                              for s in new]).reshape(
+                                  (len(new),) + tuple(self.mesh.mesh.shape[1:]))
+        # every rank of the world takes part in making the group and the
+        # mesh, in the same order
+        gloo = self._shared.gloo()
+        nxt = self._successor(new_cfg, mesh=self._shared.mesh(self.mesh,
+                                                              ranks))
+        if slot not in set(old) | set(new):
+            return nxt, None
+        skeleton = (_skeleton(state, pod_stacked(self.cfg.sync, state))
+                    if slot in old else None)
+        # a joining rank learns the leaves' shapes, placements and the
+        # values without a pod dimension from old pod 0's rank
+        joining = [s for s in new if s not in old]
+        if slot == old[0]:
+            for s in joining:
+                dist.send_object_list([skeleton], s * inner + coord,
+                                      group=gloo)
+        elif slot in joining:
+            box = [None]
+            dist.recv_object_list(box, old[0] * inner + coord, group=gloo)
+            skeleton = box[0]
+        local = (T.tree_map(local_part, state) if state is not None
+                 else _from_skeleton(skeleton, self.device))
+        moves = _SplitResize(resize, old, new, slot, inner, coord, gloo)
+        new_state = resize_train_state(new_cfg.sync, local, new_cfg.n_pods,
+                                       resize=moves)
+        nxt.reconfig_sent = moves.sent
+        if slot not in new:
+            return nxt, None
+        return nxt, T.tree_map(lambda x, sk: _placed_as(x, sk, nxt.inpod),
+                               new_state, skeleton)
 
     def retune(self, state: TrainState, sync: SyncConfig
                ) -> Tuple["Trainer", TrainState]:
@@ -702,8 +960,52 @@ class Trainer:
 # ---------------------------------------------------------------------------
 
 
+class _Shared:
+    """What a trainer and its successors make collectively once, on every
+    rank of the world, and share: a gloo group of the whole world, which
+    carries a split reconfiguration's rows and the placed saves' pieces
+    point to point, and the meshes by layout, so that a reconfiguration
+    back to a layout takes its mesh again.  The groups a run makes are
+    bounded by its layouts, however often pods leave and join; a mesh is
+    kept, not destroyed, since DTensor's caches key on equal meshes."""
+
+    def __init__(self):
+        self.world = None
+        self.meshes: Dict[tuple, Any] = {}
+
+    def gloo(self):
+        """The world's gloo group, made on first use (collective over the
+        world), with a checkpoint writer's timeout: ranks wait on it for
+        the writer's disk."""
+        from datetime import timedelta
+
+        import torch.distributed as dist
+
+        if self.world is None:
+            self.world = dist.new_group(backend="gloo",
+                                        timeout=timedelta(seconds=600))
+        return self.world
+
+    def mesh(self, current, ranks: torch.Tensor):
+        """The mesh over ``ranks`` with ``current``'s device type and axis
+        names: one made earlier (``current`` too), else a new one."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        def key(m, r):
+            return (m.device_type, tuple(m.mesh_dim_names),
+                    tuple(r.shape), tuple(r.flatten().tolist()))
+
+        self.meshes.setdefault(key(current, current.mesh), current)
+        k = key(current, ranks)
+        if k not in self.meshes:
+            self.meshes[k] = DeviceMesh(current.device_type, ranks,
+                                        mesh_dim_names=current.mesh_dim_names)
+        return self.meshes[k]
+
+
 def resize_train_state(sync_cfg: SyncConfig, state: TrainState, n_new: int,
-                       keep: Optional[Tuple[int, ...]] = None) -> TrainState:
+                       keep: Optional[Tuple[int, ...]] = None,
+                       resize=None) -> TrainState:
     """Grow or shrink the pod dimension of a :class:`TrainState`.
 
     ``keep`` names the surviving old pods in their new order (default: the
@@ -711,24 +1013,153 @@ def resize_train_state(sync_cfg: SyncConfig, state: TrainState, n_new: int,
     moments are mean-seeded on grow and kept as they are on shrink (a mean
     shift could turn Adam's second moment negative); the sync state
     follows its strategy (:func:`repro_torch.core.sync.resize_sync_state`).
+    ``resize`` (a ``sync.PodResize``, or the split pod axis's row mover)
+    overrides ``keep`` and ``n_new``.
     """
-    n_old = T.leaves(state.params)[0].shape[0]
-    if keep is None:
-        keep = tuple(range(min(n_old, n_new)))
-    if len(keep) > n_new:
-        raise ValueError(f"keep={keep} longer than n_new={n_new}")
-    shrunk = len(keep) < n_old
-    params, opt = state.params, state.opt_state
-    if shrunk:
-        params = shrink_pods(params, keep, how="mean")
-        opt = shrink_pods(opt, keep, how="drop")
-    if n_new > len(keep):
-        params = grow_pods(params, n_new, how="mean")
-        opt = grow_pods(opt, n_new, how="mean")
+    if resize is None:
+        resize = PodResize.of(T.leaves(state.params)[0].shape[0], n_new,
+                              keep)
+    params = T.tree_map(lambda x: resize.leaf(x, "mean", "mean"),
+                        state.params)
+    opt = T.tree_map(lambda x: resize.leaf(x, "drop", "mean"),
+                     state.opt_state)
     sync_state = resize_sync_state(sync_cfg, state.sync_state, params,
-                                   keep=keep if shrunk else None)
+                                   resize=resize)
     return TrainState(params=params, opt_state=opt, sync_state=sync_state,
                       step=state.step)
+
+
+@dataclass(frozen=True)
+class _Leaf:
+    """A leaf's description for a rank that joins without a state: the
+    local shape and dtype, the in-pod placements and whole-in-pod shape
+    of a DTensor (``None``: a plain tensor), and the value of a leaf that
+    every pod holds alike (an ``int`` step, or a small host tensor)."""
+    shape: Tuple[int, ...]
+    dtype: Any
+    placements: Optional[tuple]
+    global_shape: Tuple[int, ...]
+    value: Any
+
+
+def _skeleton(state: TrainState, stacked: TrainState) -> TrainState:
+    """``state``'s leaves described for a joining rank: the pod-stacked
+    ones (``stacked``) by shape, the rest by value too (on the host)."""
+    def each(x, st):
+        if not isinstance(x, torch.Tensor):
+            return _Leaf((), None, None, (), int(x))
+        local = local_part(x)
+        return _Leaf(tuple(local.shape), local.dtype,
+                     tuple(x.placements) if is_dtensor(x) else None,
+                     tuple(x.shape),
+                     None if st else local.detach().cpu())
+    return T.tree_map(each, state, stacked)
+
+
+def _from_skeleton(skeleton: TrainState, device) -> TrainState:
+    """A joining rank's local leaves: empty rows where the old rows go
+    (never read: it holds no old pod), the shared values as they are."""
+    def each(leaf: _Leaf):
+        if leaf.dtype is None:
+            return leaf.value
+        if leaf.value is not None:
+            return leaf.value.to(device)
+        return torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+    return T.tree_map(each, skeleton)
+
+
+def _placed_as(x, like, inpod):
+    """A new local leaf placed as ``like`` (a placed leaf or a
+    :class:`_Leaf`) was, on the in-pod mesh ``inpod``: a DTensor with the
+    same placements whose whole-in-pod shape takes ``x``'s rows."""
+    placements = (like.placements if isinstance(like, _Leaf) else
+                  tuple(like.placements) if is_dtensor(like) else None)
+    if placements is None or not isinstance(x, torch.Tensor):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    shape = list(like.global_shape if isinstance(like, _Leaf)
+                 else like.shape)
+    if x.dim() and not any(p.is_shard(0) for p in placements):
+        shape[0] = x.shape[0]
+    return DTensor.from_local(x, inpod, placements, run_check=False,
+                              shape=tuple(shape), stride=contiguous_stride(shape))
+
+
+# values a chunk of a row moves and resizes at a time
+_RESIZE_CHUNK = 1 << 24
+
+
+class _SplitResize:
+    """The rows of a :class:`~repro_torch.core.sync.PodResize` moved over a
+    split pod axis, one pod a slot of ranks: for one in-pod coordinate,
+    each new pod's row is computed on its own rank (``PodResize.row``,
+    the whole resize's expression, column chunk by column chunk) from the
+    old rows it needs, which their ranks send point to point over
+    ``group`` (gloo; rows on the card travel through host memory).  Every
+    rank of the group calls :meth:`leaf` for the same leaves in the same
+    order; ``x`` is this rank's local rows ``(1, ...)`` (a joiner's are
+    empty)."""
+
+    def __init__(self, resize: PodResize, old, new, slot: int, inner: int,
+                 coord: int, group):
+        self.resize, self.group = resize, group
+        self.n_old, self.keep, self.n_new = resize
+        self.old, self.new = list(old), list(new)
+        self.old_i = self.old.index(slot) if slot in self.old else None
+        self.new_i = self.new.index(slot) if slot in self.new else None
+        self.rank_of = lambda s: s * inner + coord
+        self.sent = 0          # bytes this rank sent point to point
+
+    def leaf(self, x: torch.Tensor, shrink: str, grow: str) -> torch.Tensor:
+        import torch.distributed as dist
+
+        r = self.resize
+        if r.identity:
+            return x
+        # the (old pod, new pod) pairs whose row crosses ranks, this rank's
+        mine = [(p, i) for i in range(self.n_new)
+                for p in sorted(r.needs(shrink, grow, i))
+                if self.old[p] != self.new[i]
+                and (p == self.old_i or i == self.new_i)]
+        # this rank's new row is its old row as it is
+        same = (self.new_i is not None and self.new_i < len(self.keep)
+                and self.keep[self.new_i] == self.old_i
+                and (not r.shrunk or shrink == "drop"))
+        out = (torch.empty_like(x) if self.new_i is not None and not same
+               else None)
+        n = x[0].numel()
+        if not mine and out is None or n == 0:
+            return x if out is None else out
+        row = (x.reshape(x.shape[0], -1)[0] if self.old_i is not None
+               else None)
+        flat_out = out.reshape(-1) if out is not None else None
+        for a in range(0, n, _RESIZE_CHUNK):
+            b = min(n, a + _RESIZE_CHUNK)
+            rows: List[Optional[torch.Tensor]] = [None] * self.n_old
+            if row is not None:
+                rows[self.old_i] = row[a:b]
+            ops, got = [], {}
+            for p, i in mine:
+                if p == self.old_i:
+                    ops.append(dist.P2POp(dist.isend, row[a:b].cpu(),
+                                          self.rank_of(self.new[i]),
+                                          self.group))
+                    self.sent += (b - a) * x.element_size()
+                elif p not in got:
+                    got[p] = torch.empty(b - a, dtype=x.dtype)
+                    ops.append(dist.P2POp(dist.irecv, got[p],
+                                          self.rank_of(self.old[p]),
+                                          self.group))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            for p, t in got.items():
+                rows[p] = t.to(x.device)
+            if flat_out is not None:
+                like = torch.empty(b - a, dtype=x.dtype, device=x.device)
+                flat_out[a:b] = r.row(rows, like, shrink, grow, self.new_i)
+        return x if out is None else out
 
 
 def apply_reconfig(trainer: Trainer, state: TrainState, reconfig
@@ -750,18 +1181,26 @@ def apply_reconfig(trainer: Trainer, state: TrainState, reconfig
 # ---------------------------------------------------------------------------
 
 
-def _resized_like(tree: Pytree, n_old: int, n_new: int) -> Pytree:
+def _resized_like(tree: Pytree, n_old: int, n_new: int,
+                  stacked: Optional[Pytree] = None) -> Pytree:
     """Shape and dtype skeleton of ``tree`` on the ``meta`` device (nothing
     allocated) with every pod-stacked leaf's leading dimension re-sized
-    ``n_old -> n_new``; ``int`` leaves (the step) pass through."""
-    def f(x):
+    ``n_old -> n_new``: the leaves ``stacked`` marks (a tree of bools,
+    :func:`pod_stacked`), else those that lead with ``n_old``; ``int``
+    leaves (the step) pass through."""
+    flags = (T.leaves(stacked) if stacked is not None else
+             [isinstance(x, torch.Tensor) and x.dim() >= 1
+              and x.shape[0] == n_old for x in T.leaves(tree)])
+
+    def f(x, st):
         if not isinstance(x, torch.Tensor):
             return x
         shape = tuple(x.shape)
-        if len(shape) >= 1 and shape[0] == n_old:
+        if st:
             shape = (n_new,) + shape[1:]
         return torch.empty(shape, dtype=x.dtype, device="meta")
-    return T.tree_map(f, tree)
+    return T.unflatten(tree, [f(x, st) for x, st in
+                              zip(T.leaves(tree), flags)])
 
 
 class LiveMigrator:
@@ -797,18 +1236,45 @@ class LiveMigrator:
     def pending(self) -> bool:
         return self._pending is not None
 
-    def stage(self, state: TrainState, n_new: int,
-              keep: Optional[Tuple[int, ...]] = None) -> None:
+    def stage(self, state: Optional[TrainState], n_new: int,
+              keep: Optional[Tuple[int, ...]] = None, *,
+              trainer: Optional[Trainer] = None,
+              like: Optional[TrainState] = None) -> None:
         """Start materializing the ``n_new``-pod state from the last
         durable snapshot in the background.  Supersedes any earlier
         un-reconciled stage (the launcher composes events between
-        barriers: only the barrier-time plan is reconciled)."""
+        barriers: only the barrier-time plan is reconciled).
+
+        With a ``trainer`` on a split pod axis, each rank of the new pod
+        group stages its own rows (``trainer.new_rows``), a joining rank
+        (``state=None``) included, and a departing rank stages nothing;
+        the skeleton is the whole state's shapes (``like``: e.g.
+        ``TrainSetup.abstract_state``; default: read off ``state``'s
+        parts), never the local leading dimension."""
         from repro_torch.checkpoint import checkpoint as _ckpt
 
         if self._pending is not None:
             self._join_pending(superseded=True)
-        n_old = T.leaves(state.params)[0].shape[0]
-        like = _resized_like(state, n_old, n_new)
+        parts = None
+        if trainer is not None and trainer.mesh is not None:
+            rows = trainer.new_rows(n_new, keep)
+            if rows is None:
+                return
+            if like is None:
+                if state is None:
+                    raise ValueError("a joining rank stages from the whole "
+                                     "state's shapes: pass like=")
+                like = T.tree_map(
+                    lambda x, p: torch.empty(p.shape, dtype=x.dtype,
+                                             device="meta")
+                    if isinstance(x, torch.Tensor) else x,
+                    state, trainer.leaf_parts(state))
+            like = _resized_like(like, None, n_new,
+                                 pod_stacked(trainer.cfg.sync, like))
+            parts = trainer.leaf_parts(like, rows=rows)
+        else:
+            like = _resized_like(state, T.leaves(state.params)[0].shape[0],
+                                 n_new)
         holder: Dict[str, Any] = {"n_new": n_new,
                                   "keep": tuple(keep) if keep else None}
 
@@ -821,7 +1287,8 @@ class LiveMigrator:
                 snap_step, path = durable
                 staged, ckpt_step = _ckpt.restore(path, like=like,
                                                   device="cpu",
-                                                  pod_resize="mean")
+                                                  pod_resize="mean",
+                                                  parts=parts)
                 holder.update(
                     state=staged, snapshot_step=snap_step,
                     ckpt_step=ckpt_step,
@@ -833,6 +1300,13 @@ class LiveMigrator:
         t = threading.Thread(target=work, daemon=True, name="live-migrator")
         t.start()
         self._pending = (t, holder)
+
+    def wait(self) -> None:
+        """Block until the pending stage, if any, has finished; it stays
+        pending for :meth:`reconcile`, whose barrier then holds only the
+        resize."""
+        if self._pending is not None:
+            self._pending[0].join()
 
     def _join_pending(self, superseded: bool = False) -> Optional[Dict]:
         t, holder = self._pending
@@ -857,7 +1331,9 @@ class LiveMigrator:
         state.  Same signature and semantics as :func:`apply_reconfig`, and
         bit-identical results: the staged snapshot never enters the
         numerics, it only pre-moved the bytes a joining or leaving pod
-        needs and pre-validated the target structure."""
+        needs and pre-validated the target structure.  On a split pod axis
+        every rank of the world calls it, a departing one getting ``None``
+        for its state (``Trainer.reconfigure``)."""
         staged = self._join_pending() if self._pending is not None else None
         new_trainer, new_state, applied = apply_reconfig(trainer, state,
                                                          reconfig)
@@ -869,7 +1345,7 @@ class LiveMigrator:
                 # the plan evolved between stage and barrier: the staged
                 # skeleton is stale, and the barrier re-stack covered it
                 self.restaged += 1
-            else:
+            elif new_state is not None:
                 ref = T.leaves(new_state.params)
                 got = T.leaves(staged["state"].params)
                 if [(tuple(a.shape), a.dtype) for a in got] != \

@@ -31,7 +31,9 @@ def run(rank: int, world: int, job_file: str, out_file: str) -> None:
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
                             timeout=timedelta(seconds=60))
     try:
-        if "arms" in job:
+        if "elastic" in job:
+            _elastic(rank, job, out_file)
+        elif "arms" in job:
             _transports(rank, job, out_file)
         elif "syncs" in job:
             _rounds(rank, job, out_file)
@@ -380,12 +382,9 @@ def _transports(rank: int, job: dict, out_file: str) -> None:
         seen["sends"] = tr.pods.sends
         seen["agreements"] = tr.pods.agreements
         if name == "retune":
-            # a pod count that changes the pod group stays refused
-            try:
-                tr.reconfigure(state, 1)
-                seen["reconfigure"] = None
-            except NotImplementedError as e:
-                seen["reconfigure"] = str(e)
+            # where a shrink to 1 pod would leave this rank's rows: the
+            # reconfiguration plans on the split pod axis
+            seen["reconfigure"] = tr.new_rows(1)
         per_rank = [None] * dist.get_world_size()
         dist.all_gather_object(per_rank, seen)
         out[name] = {
@@ -500,3 +499,329 @@ def _pod_units(rank: int, units: dict, mesh, arch: str) -> list:
     per_rank = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, res)
     return per_rank
+
+
+# -------------------------------------------- elastic reconfiguration
+
+#: the elastic runs' sync round: the codec arms' config, a round every 2
+#: steps; the transport bills without fluctuation (a pod that idles misses
+#: rounds, and every rank's billing depends on the clock alone) and crashes
+#: pod 1 in the round at ``ELASTIC_CRASH``
+ELASTIC_STEPS = 8
+ELASTIC_CRASH = 7
+ELASTIC_TRACE = ((0.0, 3.0), (100.0, 2.0))
+
+
+def elastic_transport():
+    from repro_torch.core.faults import ChaosTransport, FaultEvent, FaultPlan
+    from repro_torch.core.transport import SimTransport
+    from repro_torch.core.wan import BandwidthTrace, WANConfig
+
+    sim = SimTransport(BandwidthTrace(*ELASTIC_TRACE),
+                       WANConfig(fluctuation=0.0, seed=3))
+    return ChaosTransport(sim, FaultPlan((FaultEvent("crash", ELASTIC_CRASH,
+                                                     pod=1),)))
+
+
+class Plan:
+    """A reconfiguration plan as ``apply_reconfig`` reads one."""
+
+    def __init__(self, n_new, keep, sync):
+        from types import SimpleNamespace
+
+        self.is_noop = False
+        self._t = (keep, n_new)
+        self.new = SimpleNamespace(request=SimpleNamespace(sync=sync))
+
+    def pod_transition(self):
+        return self._t
+
+
+class ElasticRun:
+    """One rank's elastic run (or the whole run in one process, with
+    ``setup=None``): steps, placed saves and restores, an async snapshot,
+    reconfigurations through ``LiveMigrator`` and ``Trainer.reconfigure``.
+    ``rec`` holds what the host saw; ``trees`` the states gathered whole
+    (every pod's rows on every live rank) at named points."""
+
+    def __init__(self, tr, state, batches, out_dir, setup=None, engine=None):
+        from repro_torch.training.trainer import LiveMigrator
+
+        self.tr, self.state, self.batches = tr, state, batches
+        self.setup, self.engine, self.out_dir = setup, engine, out_dir
+        self.first_mesh = tr.mesh
+        self.migrator = LiveMigrator(engine) if engine is not None else None
+        self.rec = {"losses": {}, "saves": {}}
+        self.trees = {}
+
+    @property
+    def live(self):
+        return self.state is not None
+
+    def place(self, batch):
+        n = self.tr.cfg.n_pods
+        batch = {k: v[:n] for k, v in batch.items()}
+        if self.setup is None:
+            return batch
+        return self.setup.place_batch(batch, self.tr)
+
+    def steps(self, lo, hi):
+        t = self.tr.transport
+        for step in range(lo, hi):
+            if self.live:
+                self.state, metrics = self.tr.train_step(
+                    self.state, self.place(self.batches[step]))
+                self.rec["losses"][step] = metrics["loss_per_pod"].tolist()
+                self.state = self.tr.maybe_sync(self.state, step)
+            t.tick(ARM_TICK_S)
+
+    def save(self, name):
+        """Save the state (placed: every rank); the manifest's commit
+        record."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        d = os.path.join(self.out_dir, name)
+        self.tr.save_state(d, self.state)
+        m = ckpt.load_manifest(d)
+        self.rec["saves"][name] = (m["arrays_bytes"], m["arrays_crc32"],
+                                   m["shapes"])
+        return d
+
+    def restore(self, d):
+        """Restore a save onto this trainer's placements, held to the live
+        state leaf by leaf on this rank; continue from the restored
+        state."""
+        if self.setup is not None and self.setup.trainer is self.tr:
+            got, step = self.setup.restore_state(d)
+        else:
+            got, step = self.tr.restore_state(d, self.state)
+        self.rec["restore_equal"] = self.equal(got, step)
+        self.state = got
+
+    def equal(self, got, step):
+        """Whether a restored ``(state, step)`` is the live state, leaf by
+        leaf on this rank (placements included)."""
+        from repro_torch import tree as T
+        from repro_torch.sharding.rules import local_part
+
+        return step == self.state.step and all(
+            (torch.equal(local_part(a), local_part(b))
+             and type(a) is type(b)) if isinstance(a, torch.Tensor)
+            else a == b
+            for a, b in zip(T.leaves(got), T.leaves(self.state)))
+
+    def snapshot(self):
+        """An async snapshot of the state; its manifest's commit record."""
+        from repro_torch.checkpoint import checkpoint as ckpt
+
+        parts = (self.tr.leaf_parts(self.state) if self.setup is not None
+                 else None)
+        self.engine.snapshot(self.state, self.state.step, parts=parts)
+        self.engine.wait()
+        _, d = self.engine.last_durable()
+        m = ckpt.load_manifest(d)
+        self.rec["snapshot"] = (m["arrays_bytes"], m["arrays_crc32"])
+
+    def leave(self, n_new, keep):
+        """Pods leave at the barrier, staged by ``LiveMigrator``."""
+        like = self.setup.abstract_state if self.setup is not None else None
+        self.migrator.stage(self.state, n_new, keep,
+                            trainer=self.tr if self.setup else None,
+                            like=like)
+        self.tr, self.state, _ = self.migrator.reconcile(
+            self.tr, self.state, Plan(n_new, keep, self.tr.cfg.sync))
+        staged = self.migrator.last_staged
+        from repro_torch import tree as T
+        self.rec["staged"] = (None if staged is None else
+                              [list(x.shape) for x in
+                               T.leaves(staged["state"].params)])
+        self.rec["migrator_errors"] = [repr(e) for e in self.migrator.errors]
+
+    def join(self, n_new, keep=None):
+        self.tr, self.state = self.tr.reconfigure(self.state, n_new, keep)
+
+    def gather(self, name, state=None):
+        """Every pod's rows of the parameters, the gradient accumulator
+        and the EF residual, whole, on every live rank."""
+        from repro_torch import tree as T
+
+        state = self.state if state is None else state
+        if state is None:
+            return
+        pods = self.tr.pods
+
+        def rows(x):
+            # a copy: whole in one process, the rows are the live leaf,
+            # which the next step updates in place
+            return _whole_rows(x, pods).clone()
+        self.trees[name] = {
+            "params": T.tree_map(rows, state.params),
+            "ga": T.tree_map(rows, state.sync_state.ga_buffer),
+            "ef": rows(state.sync_state.ef_residual)}
+
+    def host(self):
+        import dataclasses
+
+        t = self.tr.transport
+        self.rec.update(
+            records=[dataclasses.astuple(r) for r in t.records],
+            outcomes=list(t.outcomes), retries=t.retries,
+            degraded=t.degraded_rounds, n_pods=self.tr.cfg.n_pods,
+            live=self.live)
+        return self.rec
+
+
+def elastic_schedule(run: "ElasticRun", whole_dir=None) -> None:
+    """The (3, 1, 1) schedule: two steps and a round on 3 pods; a placed
+    save restored bit-equal; an async snapshot; pod 1 leaves at the
+    barrier (``keep=(0, 2)``), staged; (split) the whole save of step 2
+    restored placed, resized to 2 pods; two steps and a round on 2 pods
+    and a save of the 2-pod state; pod 1 rejoins, two steps and a round on
+    3 pods; two more with the chaos round (pod 1 crashed); then
+    ``keep=(2, 0)``."""
+    run.steps(0, 2)
+    run.restore(run.save("placed"))
+    run.snapshot()
+    run.leave(2, (0, 2))
+    run.rec["groups"] = [_groups()]
+    run.gather("left")
+    if whole_dir is not None and run.live:
+        got, _ = run.tr.restore_state(whole_dir, run.state, pod_resize="mean")
+        run.gather("whole_resized", got)
+    run.steps(2, 4)
+    if run.live:
+        run.save("before_join")
+    run.join(3)
+    run.rec["mesh_again"] = run.tr.mesh is run.first_mesh
+    run.gather("joined")
+    run.steps(4, 6)
+    run.gather("mid")
+    run.steps(6, ELASTIC_STEPS)
+    run.gather("final")
+    run.host()
+    run.join(2, (2, 0))
+    run.rec["groups"].append(_groups())
+    run.gather("swapped")
+    run.rec["swap_sent"] = getattr(run.tr, "reconfig_sent", None)
+
+
+def _groups() -> int:
+    """The process groups this rank holds."""
+    return len(dist.distributed_c10d._world.pg_map)
+
+
+def deep_schedule(run: "ElasticRun") -> None:
+    """The (2, 2, 2) schedule: two steps and a round; the state gathered
+    whole and saved unplaced (rank 0) beside its placed save, which is
+    restored bit-equal, as is the unplaced one; an async snapshot beside
+    its blocking equivalent, and restored placed by ``restore_last``,
+    bit-equal; 2 -> 1 pod, two steps; 1 -> 2 (the rows gathered), two steps
+    and a round."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.checkpoint.async_engine import blocking_equivalent
+    from repro_torch.sharding.rules import whole_local
+
+    run.steps(0, 2)
+    tr, state = run.tr, run.state
+    whole = T.tree_map(lambda x, st: _whole_rows(x, tr.pods) if st
+                       else whole_local(x) if isinstance(x, torch.Tensor)
+                       else x, state, _stacked(tr, state))
+    gathered = os.path.join(run.out_dir, "gathered")
+    if dist.get_rank() == 0:
+        ckpt.save(gathered, whole, step=state.step)
+    dist.barrier()
+    run.restore(run.save("placed"))
+    run.rec["placed_restore_equal"] = run.rec["restore_equal"]
+    run.restore(gathered)
+    run.snapshot()
+    run.rec["restore_last_equal"] = run.equal(*run.engine.restore_last(
+        run.state, parts=tr.leaf_parts(run.state)))
+    d = blocking_equivalent(run.state, run.state.step,
+                            os.path.join(run.out_dir, "blocking"),
+                            parts=tr.leaf_parts(run.state),
+                            group=tr.io_group())
+    m = ckpt.load_manifest(d)
+    run.rec["blocking"] = (m["arrays_bytes"], m["arrays_crc32"])
+    run.join(1, (0,))
+    run.steps(2, 4)
+    run.join(2)
+    run.gather("rejoined")
+    run.steps(4, 6)
+    run.gather("final")
+    run.host()
+
+
+def _elastic(rank: int, job: dict, out_file: str) -> None:
+    """Rank ``rank`` of an elastic launch: ``job["elastic"]`` names the
+    schedule ("split": (3, 1, 1), :func:`elastic_schedule`; "deep":
+    (2, 2, 2), :func:`deep_schedule`; "two": one step and a save at
+    (2, 1, 1); "one": 2 -> 3 -> 2 pods on a one-rank mesh).  Rank 0 writes every rank's host record and its gathered
+    trees; the saves are under ``job["dir"]``."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.async_engine import AsyncCheckpointEngine
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.launch import context as C
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(*job["mesh"])
+    sync = SyncConfig("asgd_ga", 2, **ARM_SYNC)
+    kind = job["elastic"]
+    setup = C.make_train_setup(get_arch(job["arch"]), mesh, sync=sync,
+                               optimizer="sgd", lr=job["lr"], smoke=True,
+                               n_pods=job["n_pods"],
+                               transport=elastic_transport())
+    tr = setup.trainer
+    state = setup.place_state(tr.state_from_params(
+        T.tree_map(lambda x: x.clone(), job["params"])))
+    out = {"trees": {}}
+    if kind == "one":
+        # every pod on the one rank's mesh: the resize runs on the local
+        # shards and the mesh stays
+        run = ElasticRun(tr, state, job["batches"], job["dir"], setup)
+        run.steps(0, 2)
+        run.join(3)
+        run.steps(2, 4)
+        run.join(2, (2, 0))
+        run.gather("final")
+        rec, out["trees"] = {"kept_mesh": run.tr.mesh is mesh}, run.trees
+    elif kind == "two":
+        # one step, then the placed save (the parent holds it to the
+        # one-process save of the same step)
+        state, _ = tr.train_step(state, setup.place_batch(
+            {k: v[:2] for k, v in job["batches"][0].items()}))
+        tr.save_state(os.path.join(job["dir"], "placed"), state)
+        rec = {}
+    else:
+        engine = AsyncCheckpointEngine(os.path.join(job["dir"], "snaps"),
+                                       keep=2)
+        engine.bind(tr.mesh_ranks)
+        run = ElasticRun(tr, state, job["batches"], job["dir"], setup,
+                         engine)
+        if kind == "split":
+            elastic_schedule(run, job.get("whole_dir"))
+            # a pod axis of 2 pods a rank: the reconfiguration refuses
+            many = C.make_train_setup(get_arch(job["arch"]), mesh, sync=sync,
+                                      smoke=True, n_pods=6).trainer
+            try:
+                many.reconfigure(None, 5)
+                run.rec["many_pods"] = None
+            except ValueError as e:
+                run.rec["many_pods"] = str(e)
+        else:
+            deep_schedule(run)
+        engine.close()
+        rec, out["trees"] = run.rec, run.trees
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, rec)
+    if rank == 0:
+        out["ranks"] = per_rank
+        tmp = out_file + ".tmp"
+        torch.save(out, tmp)
+        os.replace(tmp, out_file)
+
+
+def _stacked(tr, state):
+    from repro_torch.training.trainer import pod_stacked
+    return pod_stacked(tr.cfg.sync, state)
