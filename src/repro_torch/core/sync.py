@@ -54,6 +54,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch import tree as T
 
 Pytree = Any
@@ -969,27 +970,29 @@ def bucket_wire_mb(cfg: SyncConfig, layout: BucketLayout
 def prepare_codec_sync(cfg: SyncConfig, state: SyncState) -> SyncPayloads:
     """Average the accumulated gradient, fold in the EF residual, pack the
     bucket-grouped buffer and encode every non-empty bucket segment."""
-    denom = torch.clamp(state.steps_since_sync, min=1).float()
-    layout = bucket_layout(cfg, state.ga_buffer)
-    flat = _pack_stacked(state.ga_buffer, layout)
-    flat.div_(denom)
-    if cfg.error_feedback:
-        flat.add_(state.ef_residual)
+    with spans.span("round.pack"):
+        denom = torch.clamp(state.steps_since_sync, min=1).float()
+        layout = bucket_layout(cfg, state.ga_buffer)
+        flat = _pack_stacked(state.ga_buffer, layout)
+        flat.div_(denom)
+        if cfg.error_feedback:
+            flat.add_(state.ef_residual)
     chunks: Dict[str, Tuple[ChunkPayload, ...]] = {}
     local_parts = []
-    for g, name in enumerate(layout.names):
-        off, size = layout.offsets[g], layout.sizes[g]
-        if size == 0:
-            continue
-        bchunks, local = _encode_bucket(cfg.for_bucket(name),
-                                        flat[:, off:off + size],
-                                        want_local=cfg.error_feedback)
-        chunks[name] = bchunks
+    with spans.span("round.encode"):
+        for g, name in enumerate(layout.names):
+            off, size = layout.offsets[g], layout.sizes[g]
+            if size == 0:
+                continue
+            bchunks, local = _encode_bucket(cfg.for_bucket(name),
+                                            flat[:, off:off + size],
+                                            want_local=cfg.error_feedback)
+            chunks[name] = bchunks
+            if cfg.error_feedback:
+                local_parts.append(local)
+        local = None
         if cfg.error_feedback:
-            local_parts.append(local)
-    local = None
-    if cfg.error_feedback:
-        local = _cat(local_parts) if local_parts else flat[:, :0]
+            local = _cat(local_parts) if local_parts else flat[:, :0]
     return SyncPayloads(flat=flat, local=local, chunks=chunks)
 
 
@@ -1027,30 +1030,32 @@ def ship_sync_payloads(cfg: SyncConfig,
     note_retry = getattr(ship, "note_retry", None)
     agree = pods.split and (verify or policy is not None)
     out: Dict[str, Tuple[ChunkPayload, ...]] = {}
-    for name, bchunks in chunks.items():
-        sent_crc = (pods.gather_ints(chunk_checksum_rows(bchunks))
-                    if verify else None)
-        attempt = 0
-        while True:
-            err = None
-            try:
-                shipped = ship.ship_bucket(name, bchunks, cfg.peer_shift,
-                                           wire_mb.get(name, 0.0))
-                if verify:
-                    verify_shipment(name, sent_crc, shipped, cfg.peer_shift,
-                                    pods)
-            except TransferFailed as e:
-                err = e
-            if agree:
-                err = _agreed_failure(pods, name, attempt, err)
-            if err is None:
-                break
-            attempt += 1
-            if attempt > max_retries:
-                raise PodUnreachableError(pod=err.pod, bucket=name) from err
-            if note_retry is not None:
-                note_retry(name, attempt, err)
-        out[name] = shipped
+    with spans.span("round.ship"):
+        for name, bchunks in chunks.items():
+            sent_crc = (pods.gather_ints(chunk_checksum_rows(bchunks))
+                        if verify else None)
+            attempt = 0
+            while True:
+                err = None
+                try:
+                    shipped = ship.ship_bucket(name, bchunks, cfg.peer_shift,
+                                               wire_mb.get(name, 0.0))
+                    if verify:
+                        verify_shipment(name, sent_crc, shipped,
+                                        cfg.peer_shift, pods)
+                except TransferFailed as e:
+                    err = e
+                if agree:
+                    err = _agreed_failure(pods, name, attempt, err)
+                if err is None:
+                    break
+                attempt += 1
+                if attempt > max_retries:
+                    raise PodUnreachableError(pod=err.pod,
+                                              bucket=name) from err
+                if note_retry is not None:
+                    note_retry(name, attempt, err)
+            out[name] = shipped
     return out
 
 
@@ -1069,13 +1074,14 @@ def finish_codec_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
     # decoded chunk by chunk into one buffer: at full width a list of
     # decoded buckets beside their concatenation would cost a second one
     peer_flat = torch.empty_like(payloads.flat)
-    for g, name in enumerate(layout.names):
-        off, size = layout.offsets[g], layout.sizes[g]
-        if size == 0:
-            continue
-        bcfg = cfg.for_bucket(name)
-        _decode_into(peer_flat[:, off:off + size], bcfg, shipped[name],
-                     _chunk_widths(bcfg, size), size)
+    with spans.span("round.decode"):
+        for g, name in enumerate(layout.names):
+            off, size = layout.offsets[g], layout.sizes[g]
+            if size == 0:
+                continue
+            bcfg = cfg.for_bucket(name)
+            _decode_into(peer_flat[:, off:off + size], bcfg, shipped[name],
+                         _chunk_widths(bcfg, size), size)
     return _finish_from_peer(cfg, params, state, payloads.flat,
                              payloads.local, peer_flat, layout, lr, alive,
                              pods)
@@ -1099,33 +1105,38 @@ def _finish_from_peer(cfg: SyncConfig, params: Pytree, state: SyncState,
     applies the peer update iff it and its ring sender are alive; a sender
     whose message did not arrive keeps the whole message as its residual.
     ``alive`` covers every pod; the masks are read at this rank's rows."""
-    applied = delivered = None
-    if alive is not None:
-        alive = torch.as_tensor(alive, dtype=torch.float32,
-                                device=flat.device)
-        applied = pods.rows(alive * torch.roll(alive, cfg.peer_shift))
-        delivered = pods.rows(alive * torch.roll(alive, -cfg.peer_shift))
-        peer_flat.mul_(applied[:, None])      # the round's own decode
-    peer = _unpack_stacked(peer_flat, state.ga_buffer, layout)
-    msg_norm = _bucket_norms(flat, layout)
-    new_resid, resid_norm = state.ef_residual, state.resid_norm
-    if cfg.error_feedback:
-        new_resid = torch.sub(flat, local, out=state.ef_residual)
+    with spans.span("round.apply"):
+        applied = delivered = None
+        if alive is not None:
+            alive = torch.as_tensor(alive, dtype=torch.float32,
+                                    device=flat.device)
+            applied = pods.rows(alive * torch.roll(alive, cfg.peer_shift))
+            delivered = pods.rows(alive * torch.roll(alive,
+                                                     -cfg.peer_shift))
+            peer_flat.mul_(applied[:, None])      # the round's own decode
+        peer = _unpack_stacked(peer_flat, state.ga_buffer, layout)
+        new_resid, resid_norm = state.ef_residual, state.resid_norm
+        if cfg.error_feedback:
+            new_resid = torch.sub(flat, local, out=state.ef_residual)
+            if delivered is not None:
+                torch.where(delivered[:, None] > 0, new_resid, flat,
+                            out=new_resid)
+        with spans.span("round.norms"):
+            msg_norm = _bucket_norms(flat, layout)
+            if cfg.error_feedback:
+                resid_norm = _bucket_norms(new_resid, layout)
         if delivered is not None:
-            torch.where(delivered[:, None] > 0, new_resid, flat,
-                        out=new_resid)
-        resid_norm = _bucket_norms(new_resid, layout)
-    if delivered is not None:
-        msg_norm = msg_norm * delivered[:, None]
-        resid_norm = resid_norm * delivered[:, None]
-    params = _receiver_update(cfg, params, peer, lr)
-    T.tree_map(lambda b: b.zero_(), state.ga_buffer)
-    dev = flat.device
-    return params, state._replace(
-        steps_since_sync=torch.zeros((), dtype=torch.int32, device=dev),
-        ef_residual=new_resid,
-        tier=torch.tensor(cfg.bucket_tiers, dtype=torch.int32, device=dev),
-        msg_norm=msg_norm, resid_norm=resid_norm)
+            msg_norm = msg_norm * delivered[:, None]
+            resid_norm = resid_norm * delivered[:, None]
+        params = _receiver_update(cfg, params, peer, lr)
+        T.tree_map(lambda b: b.zero_(), state.ga_buffer)
+        dev = flat.device
+        return params, state._replace(
+            steps_since_sync=torch.zeros((), dtype=torch.int32, device=dev),
+            ef_residual=new_resid,
+            tier=torch.tensor(cfg.bucket_tiers, dtype=torch.int32,
+                              device=dev),
+            msg_norm=msg_norm, resid_norm=resid_norm)
 
 
 def _receiver_update(cfg: SyncConfig, params: Pytree, peer: Pytree,
@@ -1170,19 +1181,20 @@ def reencode_unsent(cfg: SyncConfig, cfg_to: SyncConfig, flat: torch.Tensor,
     :func:`finish_codec_sync_split` splices into the round."""
     tails: Dict[str, Tuple[ChunkPayload, ...]] = {}
     locals_: Dict[str, torch.Tensor] = {}
-    for g, name in enumerate(layout.names):
-        off, size = layout.offsets[g], layout.sizes[g]
-        if size == 0:
-            continue
-        _, _, sw = _sent_width(cfg, name, size, sent)
-        if sw >= size:
-            continue
-        tchunks, tlocal = _encode_bucket(cfg_to.for_bucket(name),
-                                         flat[:, off + sw:off + size],
-                                         want_local=cfg.error_feedback)
-        tails[name] = tchunks
-        if tlocal is not None:
-            locals_[name] = tlocal
+    with spans.span("round.encode"):
+        for g, name in enumerate(layout.names):
+            off, size = layout.offsets[g], layout.sizes[g]
+            if size == 0:
+                continue
+            _, _, sw = _sent_width(cfg, name, size, sent)
+            if sw >= size:
+                continue
+            tchunks, tlocal = _encode_bucket(cfg_to.for_bucket(name),
+                                             flat[:, off + sw:off + size],
+                                             want_local=cfg.error_feedback)
+            tails[name] = tchunks
+            if tlocal is not None:
+                locals_[name] = tlocal
     return tails, locals_
 
 
@@ -1212,23 +1224,24 @@ def finish_codec_sync_split(cfg: SyncConfig, cfg_to: SyncConfig,
     layout = bucket_layout(cfg, state.ga_buffer)
     flat = payloads.flat
     peer_flat = torch.empty_like(flat)
-    for g, name in enumerate(layout.names):
-        off, size = layout.offsets[g], layout.sizes[g]
-        if size == 0:
-            continue
-        bcfg = cfg.for_bucket(name)
-        widths, n_sent, sw = _sent_width(cfg, name, size, sent)
-        if n_sent:
-            _decode_into(peer_flat[:, off:off + sw], bcfg,
-                         shipped[name][:n_sent], widths[:n_sent], size)
-        if sw < size:
-            tcfg = cfg_to.for_bucket(name)
-            _decode_into(peer_flat[:, off + sw:off + size], tcfg,
-                         tail_shipped[name],
-                         _chunk_widths(tcfg, size - sw), size - sw)
-            if cfg.error_feedback:
-                payloads.local[:, off + sw:off + size].copy_(
-                    tail_local[name])
+    with spans.span("round.decode"):
+        for g, name in enumerate(layout.names):
+            off, size = layout.offsets[g], layout.sizes[g]
+            if size == 0:
+                continue
+            bcfg = cfg.for_bucket(name)
+            widths, n_sent, sw = _sent_width(cfg, name, size, sent)
+            if n_sent:
+                _decode_into(peer_flat[:, off:off + sw], bcfg,
+                             shipped[name][:n_sent], widths[:n_sent], size)
+            if sw < size:
+                tcfg = cfg_to.for_bucket(name)
+                _decode_into(peer_flat[:, off + sw:off + size], tcfg,
+                             tail_shipped[name],
+                             _chunk_widths(tcfg, size - sw), size - sw)
+                if cfg.error_feedback:
+                    payloads.local[:, off + sw:off + size].copy_(
+                        tail_local[name])
     return _finish_from_peer(cfg, params, state, flat, payloads.local,
                              peer_flat, layout, lr, alive, pods)
 
@@ -1255,22 +1268,23 @@ def _ship_leaf(cfg: SyncConfig, x: torch.Tensor,
     per pod, chunks of ``CHUNK`` values (the last zero-padded), each
     compressed to its block top-k (one kernel launch for the leaf on the
     card), rolled, decompressed and cropped back to the leaf."""
-    if not 0.0 < cfg.compress_topk < 1.0:
-        return pods.roll(x, cfg.peer_shift)
     from repro_torch.kernels import ops as kops
 
-    n_pods = x.shape[0]
-    numel = int(prod(x.shape[1:]))
-    chunk = min(CHUNK, numel)
-    k = max(1, int(chunk * cfg.compress_topk))
-    vals, idx = kops.topk_compress_chunked(x.reshape(n_pods, numel), chunk,
-                                           k)
-    vals = pods.roll(vals, cfg.peer_shift)
-    idx = pods.roll(idx, cfg.peer_shift)
-    dense = kops.topk_decompress(vals, idx, chunk).reshape(n_pods, -1)
-    if dense.shape[1] != numel:
-        dense = dense[:, :numel]
-    return dense.reshape(x.shape)
+    with spans.span("round.ship"):
+        if not 0.0 < cfg.compress_topk < 1.0:
+            return pods.roll(x, cfg.peer_shift)
+        n_pods = x.shape[0]
+        numel = int(prod(x.shape[1:]))
+        chunk = min(CHUNK, numel)
+        k = max(1, int(chunk * cfg.compress_topk))
+        vals, idx = kops.topk_compress_chunked(x.reshape(n_pods, numel),
+                                               chunk, k)
+        vals = pods.roll(vals, cfg.peer_shift)
+        idx = pods.roll(idx, cfg.peer_shift)
+        dense = kops.topk_decompress(vals, idx, chunk).reshape(n_pods, -1)
+        if dense.shape[1] != numel:
+            dense = dense[:, :numel]
+        return dense.reshape(x.shape)
 
 
 def _ship_ring(cfg: SyncConfig, tree: Pytree,
@@ -1330,65 +1344,70 @@ def apply_sync(cfg: SyncConfig, params: Pytree, state: SyncState,
         return params, zero
     f32 = torch.float32
 
-    if cfg.strategy == "asgd_ga":
-        if cfg.uses_codec:
-            payloads = prepare_codec_sync(cfg, state)
-            wire = bucket_wire_mb(cfg, bucket_layout(cfg, state.ga_buffer))
-            shipped = ship_sync_payloads(cfg, payloads.chunks, transport,
-                                         wire, pods)
-            return finish_codec_sync(cfg, params, state, payloads, shipped,
-                                     lr, pods=pods)
-        denom = torch.clamp(state.steps_since_sync, min=1).float()
-        scale = torch.tensor(lr, dtype=f32, device=dev) * cfg.ga_lr_scale
+    if cfg.strategy == "asgd_ga" and cfg.uses_codec:
+        payloads = prepare_codec_sync(cfg, state)
+        wire = bucket_wire_mb(cfg, bucket_layout(cfg, state.ga_buffer))
+        shipped = ship_sync_payloads(cfg, payloads.chunks, transport, wire,
+                                     pods)
+        return finish_codec_sync(cfg, params, state, payloads, shipped, lr,
+                                 pods=pods)
+    with spans.span("round.apply"):
+        if cfg.strategy == "asgd_ga":
+            denom = torch.clamp(state.steps_since_sync, min=1).float()
+            scale = (torch.tensor(lr, dtype=f32, device=dev)
+                     * cfg.ga_lr_scale)
 
-        def ga_update(p, b):
-            g = _ship_leaf(cfg, b / denom, pods)
-            p.copy_(p.float() - scale * g)
-            b.zero_()
-        T.tree_map(ga_update, params, state.ga_buffer)
-        return params, zero._replace(
-            tier=torch.tensor(cfg.bucket_tiers, dtype=torch.int32,
-                              device=dev))
+            def ga_update(p, b):
+                g = _ship_leaf(cfg, b / denom, pods)
+                p.copy_(p.float() - scale * g)
+                b.zero_()
+            T.tree_map(ga_update, params, state.ga_buffer)
+            return params, zero._replace(
+                tier=torch.tensor(cfg.bucket_tiers, dtype=torch.int32,
+                                  device=dev))
 
-    if cfg.strategy == "asp":
-        # Gaia-style approximate synchronous parallel: ship only the
-        # parameter deltas since the last sync whose magnitude exceeds the
-        # threshold relative to the reference; the rest keep accumulating
-        # in the params themselves
-        eps = 1e-8
-        n_sig = torch.zeros((), dtype=torch.int64, device=dev)
-        n_tot = 0
+        if cfg.strategy == "asp":
+            # Gaia-style approximate synchronous parallel: ship only the
+            # parameter deltas since the last sync whose magnitude exceeds
+            # the threshold relative to the reference; the rest keep
+            # accumulating in the params themselves
+            eps = 1e-8
+            n_sig = torch.zeros((), dtype=torch.int64, device=dev)
+            n_tot = 0
 
-        def asp_update(p, r):
-            nonlocal n_sig, n_tot
-            delta = p.float() - r
-            sig = delta.abs() > cfg.asp_threshold * (r.abs() + eps)
-            n_sig = n_sig + _owned_count(sig)
-            n_tot += sig.numel()
-            q = _ship_leaf(cfg, torch.where(sig, delta, 0.0), pods)
-            p.copy_(p.float() + 0.5 * q)
-            r.copy_(p)
-        T.tree_map(asp_update, params, state.ga_buffer)
-        n_sig = _in_pod_sum(n_sig, T.leaves(params)[0])
-        if pods.split:
-            # every pod's count, exact in f64; each rank of the pod axis
-            # holds as many pods' rows, so the total is known on the host
-            n_sig = pods.sum(n_sig.to(torch.float64)[None])[0]
-            n_tot *= pods.size
-        frac = n_sig.to(f32) / n_tot
-        return params, zero._replace(significant_frac=frac)
+            def asp_update(p, r):
+                nonlocal n_sig, n_tot
+                delta = p.float() - r
+                sig = delta.abs() > cfg.asp_threshold * (r.abs() + eps)
+                n_sig = n_sig + _owned_count(sig)
+                n_tot += sig.numel()
+                q = _ship_leaf(cfg, torch.where(sig, delta, 0.0), pods)
+                p.copy_(p.float() + 0.5 * q)
+                r.copy_(p)
+            T.tree_map(asp_update, params, state.ga_buffer)
+            n_sig = _in_pod_sum(n_sig, T.leaves(params)[0])
+            if pods.split:
+                # every pod's count, exact in f64; each rank of the pod
+                # axis holds as many pods' rows, so the total is known on
+                # the host
+                n_sig = pods.sum(n_sig.to(torch.float64)[None])[0]
+                n_tot *= pods.size
+            frac = n_sig.to(f32) / n_tot
+            return params, zero._replace(significant_frac=frac)
 
-    if cfg.strategy == "ama":
-        # each leaf's peer copy is taken before that leaf is averaged; the
-        # leaves are independent, so leaf by leaf equals the whole tree
-        T.tree_map(lambda p: p.copy_(
-            (p.float() + _ship_leaf(cfg, p, pods).float()) * 0.5), params)
+        if cfg.strategy == "ama":
+            # each leaf's peer copy is taken before that leaf is averaged;
+            # the leaves are independent, so leaf by leaf equals the whole
+            # tree
+            T.tree_map(lambda p: p.copy_(
+                (p.float() + _ship_leaf(cfg, p, pods).float()) * 0.5),
+                params)
+            return params, zero
+
+        # sma: barrier global average
+        T.tree_map(
+            lambda p: p.copy_(pods.mean(p.float()).expand(p.shape)), params)
         return params, zero
-
-    # sma: barrier global average
-    T.tree_map(lambda p: p.copy_(pods.mean(p.float()).expand(p.shape)),
-               params)
-    return params, zero
 
 
 def hierarchical_average(tree: Pytree, groups: Sequence[Sequence[int]],

@@ -47,6 +47,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 from repro_torch.sharding.rules import (is_dtensor, replicated_like, shard,
@@ -96,26 +97,30 @@ def _route(params: dict, cfg: ModelConfig, x: torch.Tensor):
     renormalized, top_e ``(G, T, K)`` int64, aux).  Ties go to the lower
     expert id (a stable descending sort), as ``jax.lax.top_k``'s do."""
     E, K = cfg.moe.num_experts, cfg.moe.top_k
-    logits = (x @ params["router"].to(x.dtype)).float()      # (G, T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[..., :K], top_e[..., :K]
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    with spans.span("moe.route"):
+        logits = (x @ params["router"].to(x.dtype)).float()  # (G, T, E)
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_e = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+        top_p, top_e = top_p[..., :K], top_e[..., :K]
+        top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
 
-    n = probs.shape[0] * probs.shape[1]
-    me = torch.mean(probs.reshape(n, E), dim=0)
-    # chosen-expert counts are integers, exact in f32 in any order of
-    # addition, as the reference's mean of one-hot sums is (a scatter-add,
-    # not bincount, which waits on the device for its length)
-    flat = top_e.reshape(-1)
-    ones = torch.ones_like(flat, dtype=torch.float32)
-    ce = ones.new_zeros(E).scatter_add_(0, flat, ones) / n
-    aux = {
-        "lb_loss": E * torch.sum(me * ce),
-        "z_loss": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
-        "router_entropy": -torch.mean(torch.sum(
-            probs * torch.log(probs + 1e-9), dim=-1)),
-    }
+        n = probs.shape[0] * probs.shape[1]
+        me = torch.mean(probs.reshape(n, E), dim=0)
+        # chosen-expert counts are integers, exact in f32 in any order of
+        # addition, as the reference's mean of one-hot sums is (a
+        # scatter-add, not bincount, which waits on the device for its
+        # length)
+        flat = top_e.reshape(-1)
+        ones = torch.ones_like(flat, dtype=torch.float32)
+        ce = ones.new_zeros(E).scatter_add_(0, flat, ones) / n
+        aux = {
+            "lb_loss": E * torch.sum(me * ce),
+            "z_loss": torch.mean(torch.square(
+                torch.logsumexp(logits, dim=-1))),
+            "router_entropy": -torch.mean(torch.sum(
+                probs * torch.log(probs + 1e-9), dim=-1)),
+        }
     return top_p, top_e, aux
 
 
@@ -158,30 +163,39 @@ def _dispatch_combine(params: dict, cfg: ModelConfig, x: torch.Tensor,
     weighted by its probabilities; the K contributions are summed in
     ascending expert id (``expert_order``) or in choice order.  ``x`` is
     plain; with ``placed`` (the DTensor input of the layer) the experts run
-    on the buffer replicated on its mesh and placed by ``shard``."""
+    on the buffer replicated on its mesh and placed by ``shard``.  While a
+    profiler runs, the layer's kept, routed and capacity slots are added
+    to the ``moe.slots.*`` counters (``repro_torch.spans``)."""
     G, T, D = x.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     cdt = x.dtype
-    slot = _capacity_slots(top_e, C, E)                      # (G, T, K)
-    rows = torch.arange(G, device=x.device)[:, None]
-    buf = x.new_zeros(G, E * C + 1, D)
-    # every (token, choice) in one scatter: kept slots are unique, dropped
-    # ones all land in the overflow row
-    buf[rows, slot.reshape(G, T * K)] = x[:, :, None].expand(
-        G, T, K, D).reshape(G, T * K, D)
-    hidden = replicated_like(buf[:, :E * C].reshape(G, E, C, D), placed)
-    out = whole_local(_experts(params, hidden))
-    out_flat = torch.cat([out.reshape(G, E * C, D),
-                          x.new_zeros(G, 1, D)], dim=1)
-    w = top_p.to(cdt)
-    if expert_order:
-        by_e = torch.argsort(top_e, dim=-1, stable=True)
-        slot, w = slot.gather(-1, by_e), w.gather(-1, by_e)
-    got = out_flat[rows, slot.reshape(G, T * K)].reshape(G, T, K, D)
-    got = got * w[..., None]
-    y = x.new_zeros(G, T, D)
-    for k in range(K):          # one rounding per add, in the fixed order
-        y = y + got[:, :, k]
+    with spans.span("moe.dispatch"):
+        slot = _capacity_slots(top_e, C, E)                  # (G, T, K)
+        if spans.enabled():
+            spans.add("moe.slots.kept", (slot < E * C).sum())
+            spans.add("moe.slots.routed", G * T * K)
+            spans.add("moe.slots.rows", G * E * C)
+        rows = torch.arange(G, device=x.device)[:, None]
+        buf = x.new_zeros(G, E * C + 1, D)
+        # every (token, choice) in one scatter: kept slots are unique,
+        # dropped ones all land in the overflow row
+        buf[rows, slot.reshape(G, T * K)] = x[:, :, None].expand(
+            G, T, K, D).reshape(G, T * K, D)
+    with spans.span("moe.experts"):
+        hidden = replicated_like(buf[:, :E * C].reshape(G, E, C, D), placed)
+        out = whole_local(_experts(params, hidden))
+    with spans.span("moe.combine"):
+        out_flat = torch.cat([out.reshape(G, E * C, D),
+                              x.new_zeros(G, 1, D)], dim=1)
+        w = top_p.to(cdt)
+        if expert_order:
+            by_e = torch.argsort(top_e, dim=-1, stable=True)
+            slot, w = slot.gather(-1, by_e), w.gather(-1, by_e)
+        got = out_flat[rows, slot.reshape(G, T * K)].reshape(G, T, K, D)
+        got = got * w[..., None]
+        y = x.new_zeros(G, T, D)
+        for k in range(K):      # one rounding per add, in the fixed order
+            y = y + got[:, :, k]
     return y
 
 

@@ -72,6 +72,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch import tree as T
 from repro_torch.core.sync import (POD_STACKED_SYNC_FIELDS, WHOLE_PODS,
                                    ChunkPayload, PodAxis, PodResize,
@@ -366,18 +367,22 @@ class Trainer:
     # -------------------------------------------------------------- steps
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        lr = self.schedule(state.step)
-        with self._placed():
-            state, per_pod = self._train_step(state, batch)
-        # every pod's metrics on every rank: the host's view, outside the
-        # step (which crosses the pod axis only for ``asgd``'s mean)
-        per_pod = {k: self.pods.gather(v) for k, v in per_pod.items()}
-        out = {"loss": per_pod["loss_per_pod"].mean(),
-               "loss_per_pod": per_pod["loss_per_pod"],
-               "grad_norm": per_pod["grad_norm"], "lr": lr}
-        for k in per_pod:
-            if k not in out:
-                out[k] = per_pod[k].mean()
+        with spans.span("step"):
+            lr = self.schedule(state.step)
+            with self._placed():
+                state, per_pod = self._train_step(state, batch)
+            with spans.span("step.metrics"):
+                # every pod's metrics on every rank: the host's view,
+                # outside the step (which crosses the pod axis only for
+                # ``asgd``'s mean)
+                per_pod = {k: self.pods.gather(v)
+                           for k, v in per_pod.items()}
+                out = {"loss": per_pod["loss_per_pod"].mean(),
+                       "loss_per_pod": per_pod["loss_per_pod"],
+                       "grad_norm": per_pod["grad_norm"], "lr": lr}
+                for k in per_pod:
+                    if k not in out:
+                        out[k] = per_pod[k].mean()
         return state, out
 
     def _train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]
@@ -391,33 +396,40 @@ class Trainer:
         for p in range(n):
             pp = T.tree_map(lambda x: x[p].detach().requires_grad_(True),
                             state.params)
-            loss, metrics = self.loss_fn(pp, {k: v[p]
-                                              for k, v in batch.items()})
-            g = list(torch.autograd.grad(loss, T.leaves(pp)))
+            with spans.span("step.forward"):
+                loss, metrics = self.loss_fn(pp, {k: v[p]
+                                                  for k, v in batch.items()})
+            with spans.span("step.backward"):
+                g = list(torch.autograd.grad(loss, T.leaves(pp)))
             if self.inpod is not None:
                 g = [_placed_like(gi, xi) for gi, xi in zip(g, T.leaves(pp))]
             grads.append(T.unflatten(pp, g))
             losses.append(whole_local(loss.detach()))
             extra.append({k: whole_local(v.detach())
                           for k, v in metrics.items() if k != "loss"})
-        grads = _stack(grads)
-        if self.cfg.clip_norm > 0:
-            grads = _stack([clip_by_global_norm(_pod(grads, p),
-                                                self.cfg.clip_norm)
-                            for p in range(n)])
-        grads, sync_state = on_step_gradients(self.cfg.sync, grads,
-                                              state.sync_state, self.pods)
-        for p in range(n):
-            params_p, opt_p = _pod(state.params, p), _pod(state.opt_state, p)
-            new_p, new_opt = self.optimizer.update(_pod(grads, p), opt_p,
-                                                   params_p, lr)
-            T.tree_map(lambda dst, src: dst.copy_(src), params_p, new_p)
-            T.tree_map(lambda dst, src: dst.copy_(src), opt_p, new_opt)
-        per_pod = {"loss_per_pod": torch.stack(losses),
-                   "grad_norm": torch.stack([whole_local(global_norm(
-                       _pod(grads, p))) for p in range(n)])}
-        per_pod.update({k: torch.stack([e[k] for e in extra])
-                        for k in extra[0]})
+        with spans.span("step.grads"):
+            grads = _stack(grads)
+            if self.cfg.clip_norm > 0:
+                grads = _stack([clip_by_global_norm(_pod(grads, p),
+                                                    self.cfg.clip_norm)
+                                for p in range(n)])
+        with spans.span("step.accumulate"):
+            grads, sync_state = on_step_gradients(self.cfg.sync, grads,
+                                                  state.sync_state, self.pods)
+        with spans.span("step.optimizer"):
+            for p in range(n):
+                params_p = _pod(state.params, p)
+                opt_p = _pod(state.opt_state, p)
+                new_p, new_opt = self.optimizer.update(_pod(grads, p), opt_p,
+                                                       params_p, lr)
+                T.tree_map(lambda dst, src: dst.copy_(src), params_p, new_p)
+                T.tree_map(lambda dst, src: dst.copy_(src), opt_p, new_opt)
+        with spans.span("step.metrics"):
+            per_pod = {"loss_per_pod": torch.stack(losses),
+                       "grad_norm": torch.stack([whole_local(global_norm(
+                           _pod(grads, p))) for p in range(n)])}
+            per_pod.update({k: torch.stack([e[k] for e in extra])
+                            for k in extra[0]})
         return TrainState(state.params, state.opt_state, sync_state,
                           state.step + 1), per_pod
 
@@ -538,18 +550,19 @@ class Trainer:
         # schedule, buckets not yet reached re-encode whole
         sent: Dict[str, int] = {name: 0 for name in payloads.chunks}
         cfg_to: Optional[SyncConfig] = None
-        for name in sorted(payloads.chunks):
-            for i, chunk in enumerate(payloads.chunks[name]):
-                out, secs = self.transport.stream_ship_chunk(
-                    name, chunk, cfg.peer_shift, chunk_mb[name][i])
-                shipped.setdefault(name, []).append(out)
-                sent[name] = i + 1
-                cfg_to = self.stream.observe_chunk(name, chunk_mb[name][i],
-                                                   secs)
+        with spans.span("round.ship"):
+            for name in sorted(payloads.chunks):
+                for i, chunk in enumerate(payloads.chunks[name]):
+                    out, secs = self.transport.stream_ship_chunk(
+                        name, chunk, cfg.peer_shift, chunk_mb[name][i])
+                    shipped.setdefault(name, []).append(out)
+                    sent[name] = i + 1
+                    cfg_to = self.stream.observe_chunk(
+                        name, chunk_mb[name][i], secs)
+                    if cfg_to is not None:
+                        break
                 if cfg_to is not None:
                     break
-            if cfg_to is not None:
-                break
         shipped_t = {n: tuple(c) for n, c in shipped.items()}
         tails: Dict[str, Tuple[ChunkPayload, ...]] = {}
         if cfg_to is not None:
@@ -580,14 +593,16 @@ class Trainer:
             sum(mb for t in tail_schedule.values() for mb in t))
         self.stream_retunes += 1
         tail_shipped: Dict[str, Tuple[ChunkPayload, ...]] = {}
-        for name in sorted(tails):
-            outs = []
-            for i, chunk in enumerate(tails[name]):
-                out, secs = self.transport.stream_ship_chunk(
-                    name, chunk, cfg.peer_shift, tail_schedule[name][i])
-                outs.append(out)
-                self.stream.observe_chunk(name, tail_schedule[name][i], secs)
-            tail_shipped[name] = tuple(outs)
+        with spans.span("round.ship"):
+            for name in sorted(tails):
+                outs = []
+                for i, chunk in enumerate(tails[name]):
+                    out, secs = self.transport.stream_ship_chunk(
+                        name, chunk, cfg.peer_shift, tail_schedule[name][i])
+                    outs.append(out)
+                    self.stream.observe_chunk(name, tail_schedule[name][i],
+                                              secs)
+                tail_shipped[name] = tuple(outs)
         params, sync_state = finish_codec_sync_split(
             cfg, cfg_to, state.params, state.sync_state, payloads,
             shipped_t, tail_shipped, tail_local, sent, lr, pods=self.pods)
@@ -608,37 +623,39 @@ class Trainer:
                 bucket_weights=self.bucket_weights(state)) * (
                     legs if legs is not None else self.cfg.n_pods)
         if is_sync_step(self.cfg.sync, host_step) and self.cfg.n_pods > 1:
-            # a fault-aware transport arms its plan for the round
-            begin = getattr(self.transport, "begin_round", None)
-            if begin is not None:
-                begin(host_step)
-            # the step's queued device work is not the round's
-            _wait(self.device)
-            t0 = time.perf_counter()
-            if self._can_stream():
-                streamed = self._gathered(self._stream_sync, state,
-                                          host_step)
-                if streamed is not None:
-                    # end_stream_round was this round's barrier
-                    state, args, kw = streamed
-                    seen, self._whole = self._whole, None
-                    _wait(self.device)
-                    self.sync_seconds.append(time.perf_counter() - t0)
-                    if self.round_hook is not None:
-                        self.round_hook(seen, *args, **kw)
-                    return state
-            state, rnd = self._sync_round(state)
-            # the hook's whole state, not kept past the round
-            seen, self._whole = self._whole, None
-            _wait(self.device)
-            self.sync_seconds.append(time.perf_counter() - t0)
-            if self.transport is not None:
-                # round barrier: bill (sim) or flush (mesh) this round's
-                # transfers into the records and the measured probe
-                self.transport.on_sync(self.wire_mb(state), step=host_step)
-            if self.round_hook is not None and rnd is not None:
-                # a round that ships payloads ran gathered
-                self.round_hook(seen, *rnd, self.cfg.sync)
+            with spans.span("round"):
+                # a fault-aware transport arms its plan for the round
+                begin = getattr(self.transport, "begin_round", None)
+                if begin is not None:
+                    begin(host_step)
+                # the step's queued device work is not the round's
+                _wait(self.device)
+                t0 = time.perf_counter()
+                if self._can_stream():
+                    streamed = self._gathered(self._stream_sync, state,
+                                              host_step)
+                    if streamed is not None:
+                        # end_stream_round was this round's barrier
+                        state, args, kw = streamed
+                        seen, self._whole = self._whole, None
+                        _wait(self.device)
+                        self.sync_seconds.append(time.perf_counter() - t0)
+                        if self.round_hook is not None:
+                            self.round_hook(seen, *args, **kw)
+                        return state
+                state, rnd = self._sync_round(state)
+                # the hook's whole state, not kept past the round
+                seen, self._whole = self._whole, None
+                _wait(self.device)
+                self.sync_seconds.append(time.perf_counter() - t0)
+                if self.transport is not None:
+                    # round barrier: bill (sim) or flush (mesh) this round's
+                    # transfers into the records and the measured probe
+                    self.transport.on_sync(self.wire_mb(state),
+                                           step=host_step)
+                if self.round_hook is not None and rnd is not None:
+                    # a round that ships payloads ran gathered
+                    self.round_hook(seen, *rnd, self.cfg.sync)
         return state
 
     # ------------------------------------------------- placed checkpoints
